@@ -10,10 +10,13 @@ Phases (one JSON line each, ``{"phase": ...}``):
   1. env      -- card name and power limit, toolchain, the kernels' build
                  (``nvcc`` for sm_90a from ``src/repro_torch/csrc``) and its
                  time;
-  2. kernels  -- the CUDA kernels B1 (CSR part) and B2 (BCSR part) against
-                 their plain PyTorch versions on the card: fp32, fp64, bf16,
-                 f16; adversarial panel shapes, batch 1/3/11, N 32/40/600,
-                 and the fused buffer with a row offset;
+  2. kernels  -- the CUDA kernels B1 (CSR part), B2 (BCSR part), B3 and B4
+                 (their value gradients, the SDD kernels) against their
+                 plain PyTorch versions on the card: fp32, fp64, bf16, f16
+                 (and fp32 cotangents against half operands for B3/B4);
+                 adversarial panel shapes, batch 1/3/11, N 32/40/600, the
+                 fused buffer with a row offset, and B4 reading the whole
+                 cotangent with a row offset against the zero-padded rows;
   3. main     -- ``plan_and_convert`` -> ``loops_spmm`` at the published
                  sizes of pwtk (m6, 200k rows) and in-2004 (m4, 1.4M rows),
                  N=32, checked against the flat PyTorch path on the card,
@@ -21,11 +24,26 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  its plain version and of cuSPARSE (``torch.sparse``), and
                  the bound from the bytes and operations the call needs;
   4. gcn      -- the 2-layer GCN at ogbn-arxiv's published widths answering
-                 three requests, checked against the flat PyTorch path.
+                 three requests, checked against the flat PyTorch path;
+  5. train_gcn -- the paper's §4.5 workload: that GCN trained by plain SGD
+                 (``examples/gcn_train.py``'s loss) for ``GCN_TRAIN_STEPS``
+                 steps through B1/B2 forward and B1/B2 on the transposed
+                 adjacency backward; the step-1 gradients of ``w0``/``w1``
+                 and the loss trajectory against the flat path's autograd;
+                 the transposed build's time, ms per step, and one step's
+                 kernels by device time (``torch.profiler``);
+  6. train_ffn -- one weight-sparse linear layer at llama3.2-1b's MLP
+                 up-projection shape (8192 x 2048, 90% pruned) on a
+                 (2, 1024, 2048) activation, fp32 and bf16: the value and
+                 activation gradients (B3/B4 and B1/B2 on the transposed
+                 weight) against the flat path's autograd, a few SGD steps,
+                 B3/B4 timed alone with their bounds and
+                 ``torch.sparse.sampled_addmm`` as the yardstick, and one
+                 step's kernels by device time.
 
-Each kernel's launch count is set to 0 just before phases 3 and 4 and read
-just after; a kernel of the path that did not launch fails the run.  The
-last two lines are ``{"kernels": [...]}`` and
+Each kernel's launch count is set to 0 just before phases 3-6 drive their
+path and read just after; a kernel of a path that did not launch fails the
+run.  The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero with no
 result.  ``--out DIR`` also writes the full record to
 ``DIR/chip_smoke.json``.
@@ -36,7 +54,14 @@ bound max |kernel - plain| / max(1, max |plain|).  At the published sizes a
 hub row sums ~1e5 products, so phase 3 bounds the error of each element by
 the summation bound instead: |kernel - plain| / max(1, (|A|·|B|)) <= tol.
 The GCN's logits: 1e-4 of max(1, max |logits|) in fp32 (two aggregations and
-two matmuls deep).
+two matmuls deep).  Gradients (phases 5 and 6) are bounded per element by
+their own summation bound, the same products on magnitudes: in phase 6
+|dY|·|B| for the values and |W|ᵀ·|dY| for the activation, at the dtype's
+tolerance (bf16 1e-2: the kernel path casts dY to bf16 before dx, as the
+reference does); in phase 5 the chain of |Â|ᵀ, |h|, |w1| and |x| products at
+``GCN_TOL``, four SpMMs and four matmuls deep, with relu's mask taken as
+all-ones (it may flip where an activation is within rounding of 0), and the
+reference example's own check, max |g - g_flat| <= 1e-4.
 """
 from __future__ import annotations
 
@@ -67,6 +92,15 @@ MAIN_N = 32
 # ogbn-arxiv: 169,343 nodes, ~1.17M edges (avg degree ~7), 128 features,
 # 40 classes; 256 hidden is OGB's GCN baseline width.
 GCN_NODES, GCN_DEGREE, F_IN, F_HID, F_OUT = 169_343, 7, 128, 256, 40
+# examples/gcn_train.py's learning rate; about 20 steps of the §4.5 loop.
+GCN_TRAIN_STEPS, GCN_LR = 20, 5.0
+# llama3.2-1b (src/repro/configs/llama3_2_1b.py): d_model 2048, d_ff 8192;
+# the MLP up-projection is (d_ff, d_model).  90% magnitude pruning, applied
+# to a (batch 2, 1024 tokens, d_model) activation.
+FFN_D_OUT, FFN_D_IN, FFN_SPARSITY = 8192, 2048, 0.9
+FFN_X_SHAPE = (2, 1024, 2048)
+FFN_DTYPES = ("float32", "bfloat16")
+FFN_STEPS, FFN_LR = 3, 1e-4
 
 RECORD = {"phases": []}
 
@@ -110,6 +144,38 @@ def time_ms(fn, *, samples: int = 10, reps: int = 5, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def profile_step(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time (host
+    clock around the synchronised call), the device time of the kernels it
+    ran, summed by name (the eight longest), and the device's idle share
+    of the wall time.  Device numbers are None where the profiler saw no
+    kernel (it is untried on the GPU machine)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((e.key, dev_us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) if rows else None
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": None if busy is None else 1.0 - busy / wall,
+            "kernels": len(rows),
+            "top": [{"name": n[:100], "device_ms": ms, "count": c}
+                    for n, ms, c in rows[:8]]}
 
 
 def max_err(got, want) -> tuple[float, float]:
@@ -166,6 +232,45 @@ def panel_bound(panels, b3, out_elem: int, *, br: int, dtype: str) -> dict:
               + b3.shape[0] * out_rows * n * out_elem)
     flops = 2.0 * real_cols.numel() * br * n * b3.shape[0]
     return bound(bytes_moved=float(nbytes), flops=flops, dtype=dtype)
+
+
+def sdd_bound(panels, dy3, b3, out, *, br: int, dy_rows: int,
+              dtype: str) -> dict:
+    """Least time of one SDD-kernel call: the panel structure, the part's
+    ``dy_rows`` cotangent rows and the B rows the panels reference, each
+    read once, the panel-layout output written once; flops of the real
+    (unmasked) lanes, Br per lane."""
+    import torch
+    n = b3.shape[-1]
+    real_cols = panels.cols[panels.mask]
+    distinct_rows = int(torch.unique(real_cols).numel())
+    meta = (panels.rows.numel() * 4 + panels.cols.numel() * 4
+            + panels.mask.numel())
+    nbytes = (meta + b3.shape[0] * dy_rows * n * dy3.element_size()
+              + b3.shape[0] * distinct_rows * n * b3.element_size()
+              + out.numel() * out.element_size())
+    flops = 2.0 * real_cols.numel() * br * n * b3.shape[0]
+    return bound(bytes_moved=float(nbytes), flops=flops, dtype=dtype)
+
+
+def library_sdd_ms(part_csr, dy_rows, bt, dtype) -> tuple[float | None, str]:
+    """``torch.sparse.sampled_addmm`` on the part's CSR with the part's
+    cotangent rows ``(rows, Z*N)`` and ``Bᵀ`` ``(Z*N, K)``: the same
+    batch-summed SDD at the part's real nonzeros, as a yardstick only (the
+    port never calls it)."""
+    import torch
+    try:
+        a = torch.sparse_csr_tensor(
+            torch.as_tensor(part_csr.row_ptr.astype("int64")).to(DEVICE),
+            torch.as_tensor(part_csr.col_idx.astype("int64")).to(DEVICE),
+            torch.as_tensor(part_csr.vals).to(DEVICE, dtype),
+            size=part_csr.shape)
+        m1, m2 = dy_rows.to(dtype), bt.to(dtype)
+        ms = time_ms(lambda: torch.sparse.sampled_addmm(a, m1, m2, beta=0.0))
+    except RuntimeError as e:   # a dtype the library does not take
+        return None, f"n/a: {type(e).__name__}: " \
+            f"{str(e).splitlines()[0][:160]}"
+    return ms, "torch.sparse.sampled_addmm on the part's CSR (cuSPARSE SDDMM)"
 
 
 def library_ms(csr, b, dtype) -> tuple[float | None, str]:
@@ -254,11 +359,11 @@ def phase_kernels() -> dict:
     from repro_torch.core import (csr_from_dense, default_br,
                                   loops_from_csr)
     from repro_torch.core.formats import DevicePanels
-    from repro_torch.kernels import bcsr_spmm, csr_spmm
+    from repro_torch.kernels import bcsr_spmm, csr_spmm, spmm_sdd
 
     rng = np.random.default_rng(0)
     cases = _adversarial(rng)
-    worst = {"csr_panels_spmm": 0.0, "bcsr_panels_spmm": 0.0}
+    worst = {k: 0.0 for k in KERNELS}
     ms = {}
     ncheck = 0
     dev = torch.device(DEVICE)
@@ -307,6 +412,8 @@ def phase_kernels() -> dict:
                                       f"> {tol:g} * {scale:.3g}")
                                 worst[name] = max(worst[name], err / scale)
                                 ncheck += 1
+                            ncheck += _sdd_checks(fmt, cp, bp, b, dt, tol,
+                                                  worst, rng)
                     # The fused buffer: B1 fills [0, r_b), B2 the rows from
                     # r_b on, and out_dtype = the storage dtype.
                     b = torch.as_tensor(rng.standard_normal(
@@ -346,29 +453,90 @@ def phase_kernels() -> dict:
     ms["bcsr_panels_spmm"] = time_ms(lambda: bcsr_spmm.bcsr_panels_spmm(
         bp.rows, bp.cols, bp.vals, bp.mask, b, nblocks=fmt.bcsr_part.nblocks,
         panel_ptr=bp.ptr))
+    dy = torch.as_tensor(rng.standard_normal((300, 32)).astype(
+        np.float32)).to(dev)
+    ms["csr_sdd_panels"] = time_ms(lambda: spmm_sdd.csr_sdd_panels(
+        cp.rows, cp.cols, cp.mask, dy, b))
+    ms["bcsr_sdd_panels"] = time_ms(lambda: spmm_sdd.bcsr_sdd_panels(
+        bp.rows, bp.cols, bp.mask, dy, b, br=8, row_offset=152, nrows=148))
     rec = {"phase": "kernels_vs_plain", "checks": ncheck,
-           "kernels": [{"name": k, "launches_in_checks": getattr(
-               csr_spmm if k.startswith("csr") else bcsr_spmm, k).launches,
-               "max_rel_err": worst[k], "ms_300x257_fp32_n32": ms[k]}
-               for k in worst]}
+           "kernels": [{"name": k, "launches_in_checks":
+                        _kernel_fns()[k].launches,
+                        "max_rel_err": worst[k], "ms_300x257_fp32_n32": ms[k]}
+                       for k in worst]}
     phase(rec)
     return rec
+
+
+def _sdd_checks(fmt, cp, bp, b, dt, tol, worst, rng) -> int:
+    """B3 and B4 against their plain versions for one operand ``b``: dY in
+    b's dtype and, for half b, in fp32 (the training backward's pair); B4
+    on the whole cotangent with the part's row offset, and on the
+    zero-padded BCSR rows, which must give the same numbers."""
+    import torch
+    from repro_torch.kernels import spmm_sdd
+    m = fmt.nrows
+    r_b, br, nblocks = fmt.r_boundary, fmt.bcsr_part.br, fmt.bcsr_part.nblocks
+    n = b.shape[-1]
+    checks = 0
+    for dy_dt in ((dt,) if dt.itemsize >= 4 else (dt, torch.float32)):
+        dy = torch.as_tensor(rng.standard_normal(
+            b.shape[:-2] + (m, n))).to(b.device, dy_dt)
+        dy_pad = torch.zeros(b.shape[:-2] + (nblocks * br, n), dtype=dy_dt,
+                             device=b.device)
+        dy_pad[..., :m - r_b, :] = dy[..., r_b:, :]
+        outs = []
+        for name, fn, plain, p, d, kw in (
+                ("csr_sdd_panels", spmm_sdd.csr_sdd_panels,
+                 spmm_sdd.csr_sdd_panels_plain, cp, dy, {}),
+                ("bcsr_sdd_panels", spmm_sdd.bcsr_sdd_panels,
+                 spmm_sdd.bcsr_sdd_panels_plain, bp, dy,
+                 {"br": br, "row_offset": r_b, "nrows": m - r_b}),
+                ("bcsr_sdd_panels", spmm_sdd.bcsr_sdd_panels,
+                 spmm_sdd.bcsr_sdd_panels_plain, bp, dy_pad, {"br": br})):
+            got = fn(p.rows, p.cols, p.mask, d, b, **kw)
+            want = plain(p.rows, p.cols, p.mask, d, b, **kw)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"{name}: {got.shape} {got.dtype} vs {want.shape} "
+                  f"{want.dtype}")
+            err, scale = max_err(got, want)
+            check(err <= tol * scale, f"{name} {dt} dy {dy_dt} "
+                  f"{tuple(b.shape)} m={m} r_b={r_b} br={br}: err "
+                  f"{err:.3g} > {tol:g} * {scale:.3g}")
+            worst[name] = max(worst[name], err / scale)
+            outs.append(got)
+            checks += 1
+        check(torch.equal(outs[1], outs[2]), f"bcsr_sdd_panels {dt}: the "
+              "row-offset form differs from the zero-padded rows")
+    return checks
 
 
 # ---------------------------------------------------------------------------
 # phase 3: the main path at published sizes
 # ---------------------------------------------------------------------------
 
+# The kernels of the port's paths: B1 and B2 (product), B3 and B4 (value
+# gradient).
+KERNELS = ("csr_panels_spmm", "bcsr_panels_spmm", "csr_sdd_panels",
+           "bcsr_sdd_panels")
+
+
+def _kernel_fns() -> dict:
+    from repro_torch.kernels import bcsr_spmm, csr_spmm, spmm_sdd
+    return {"csr_panels_spmm": csr_spmm.csr_panels_spmm,
+            "bcsr_panels_spmm": bcsr_spmm.bcsr_panels_spmm,
+            "csr_sdd_panels": spmm_sdd.csr_sdd_panels,
+            "bcsr_sdd_panels": spmm_sdd.bcsr_sdd_panels}
+
+
 def _reset_counts():
-    from repro_torch.kernels import bcsr_spmm, csr_spmm
-    csr_spmm.csr_panels_spmm.launches = 0
-    bcsr_spmm.bcsr_panels_spmm.launches = 0
+    for fn in _kernel_fns().values():
+        fn.launches = 0
 
 
 def _read_counts() -> dict:
-    from repro_torch.kernels import bcsr_spmm, csr_spmm
-    return {"csr_panels_spmm": csr_spmm.csr_panels_spmm.launches,
-            "bcsr_panels_spmm": bcsr_spmm.bcsr_panels_spmm.launches}
+    return {k: fn.launches for k, fn in _kernel_fns().items()}
 
 
 def phase_main(launches: dict) -> list:
@@ -403,7 +571,8 @@ def phase_main(launches: dict) -> list:
             for k, v in counts.items():
                 launches[k] += v
             has = {"csr_panels_spmm": plan.r_boundary > 0,
-                   "bcsr_panels_spmm": plan.r_boundary < csr.nrows}
+                   "bcsr_panels_spmm": plan.r_boundary < csr.nrows,
+                   "csr_sdd_panels": False, "bcsr_sdd_panels": False}
             for k, v in counts.items():
                 check(v == int(has[k]), f"{mid} {dname}: {k} launched {v} "
                       f"times in one loops_spmm (expected {int(has[k])})")
@@ -529,8 +698,9 @@ def phase_gcn(launches: dict) -> dict:
     counts = _read_counts()
     for k, v in counts.items():
         launches[k] += v
-        check(v == 6, f"gcn: {k} launched {v} times for 3 requests "
-              "(expected 6)")
+        want = 6 if k.endswith("spmm") else 0
+        check(v == want, f"gcn: {k} launched {v} times for 3 requests "
+              f"(expected {want})")
 
     errs = []
     with torch.inference_mode():
@@ -555,12 +725,327 @@ def phase_gcn(launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: GCN training (paper §4.5)
+# ---------------------------------------------------------------------------
+
+def _grad_check(name: str, got, want, bnd, tol: float) -> dict:
+    """Per-element check |got - want| <= tol * bound, where ``bnd`` >= 0 is
+    the summation bound of each element; returns the record."""
+    import torch
+    d = (got.double() - want.double()).abs()
+    rel = float((d / bnd.double().clamp_min(
+        torch.finfo(torch.float64).tiny)).max()) if d.numel() else 0.0
+    err = float(d.max()) if d.numel() else 0.0
+    check(rel <= tol, f"{name}: max |kernel - flat| {err:.3g} is "
+          f"{rel:.3g} of its summation bound (> {tol:g})")
+    return {"max_abs_err": err, "max_err_of_bound": rel}
+
+
+def _has_parts(fmt) -> tuple[int, int]:
+    return int(fmt.r_boundary > 0), int(fmt.r_boundary < fmt.nrows)
+
+
+def phase_train_gcn(launches: dict) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core import loops_spmm, plan_and_convert, suite
+    from repro_torch.models import (GCN, gcn_loss, gcn_params_from_numpy,
+                                    sgd_step)
+
+    t0 = time.perf_counter()
+    adj = suite.gcn_graph(GCN_NODES, GCN_DEGREE, seed=0)
+    fmt, plan = plan_and_convert(adj, device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # The transposed adjacency (Âᵀ for dB): built once, then cached.
+    t0 = time.perf_counter()
+    tl = fmt.transposed()
+    tl.fmt.on(DEVICE)
+    torch.cuda.synchronize()
+    transpose_build_s = time.perf_counter() - t0
+    check(fmt.transposed() is tl, "train_gcn: the transposed format was "
+          "built twice")
+
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    x = torch.randn((GCN_NODES, F_IN), generator=gen, device=DEVICE)
+    # planted labels, as examples/gcn_train.py makes them (through the
+    # flat path: no dense adjacency)
+    w_true = torch.as_tensor(rng.standard_normal((F_IN, F_OUT)).astype(
+        np.float32)).to(DEVICE)
+    with torch.no_grad():
+        y = loops_spmm(fmt, x @ w_true, device=DEVICE, backend="torch").argmax(-1)
+    params = {"w0": (rng.standard_normal((F_IN, F_HID)) * 0.1).astype(
+                  np.float32),
+              "w1": (rng.standard_normal((F_HID, F_OUT)) * 0.1).astype(
+                  np.float32)}
+    model = GCN(fmt, **gcn_params_from_numpy(params, device=DEVICE))
+    flat = GCN(fmt, **gcn_params_from_numpy(params, device=DEVICE),
+               backend="torch")
+
+    # Step-1 gradients against the flat path's autograd.
+    loss_k, _ = gcn_loss(model, x, y)
+    g_k = torch.autograd.grad(loss_k, [model.w0, model.w1])
+    loss_f, _ = gcn_loss(flat, x, y)
+    g_f = torch.autograd.grad(loss_f, [flat.w0, flat.w1])
+    with torch.no_grad():
+        # Summation bounds of dW1 = hᵀ·Âᵀ·dL and dW0 = xᵀ·Âᵀ·(mask ⊙
+        # (Âᵀ·dL)·W1ᵀ), on magnitudes, with the relu mask all-ones.
+        tl_abs = abs_format(tl.fmt)
+        h = torch.relu(loops_spmm(fmt, x @ flat.w0, device=DEVICE,
+                                  backend="torch"))
+        logits = loops_spmm(fmt, h @ flat.w1, device=DEVICE, backend="torch")
+        dl = torch.softmax(logits, -1)
+        dl[torch.arange(GCN_NODES, device=DEVICE), y] -= 1.0
+        dl = dl.abs() / GCN_NODES
+        b_dz1 = loops_spmm(tl_abs, dl, device=DEVICE, backend="torch")
+        b_w1 = h.abs().T @ b_dz1
+        b_dz0 = loops_spmm(tl_abs, b_dz1 @ flat.w1.abs().T, device=DEVICE,
+                           backend="torch")
+        b_w0 = x.abs().T @ b_dz0
+    grads = {}
+    for name, gk, gf, bnd in (("w0", g_k[0], g_f[0], b_w0),
+                              ("w1", g_k[1], g_f[1], b_w1)):
+        grads[name] = _grad_check(f"train_gcn d{name}", gk, gf, bnd,
+                                  GCN_TOL)
+        check(grads[name]["max_abs_err"] <= 1e-4, f"train_gcn d{name}: "
+              f"max |kernel - flat| {grads[name]['max_abs_err']:.3g} > 1e-4 "
+              "(examples/gcn_train.py's check)")
+    loss_k, loss_f = float(loss_k.detach()), float(loss_f.detach())
+    check(abs(loss_k - loss_f) <= GCN_TOL * max(1.0, abs(loss_f)),
+          f"train_gcn: step-1 loss {loss_k} vs flat {loss_f}")
+    del g_k, g_f, h, logits, dl, b_dz1, b_dz0
+
+    # The loop: plain SGD through the kernels, then the flat path from the
+    # same start.
+    _reset_counts()
+    losses, accs, step_ms = [], [], []
+    for _ in range(GCN_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, acc = sgd_step(model, x, y, GCN_LR)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        accs.append(float(acc))
+    counts = _read_counts()
+    fwd, bwd = _has_parts(fmt), _has_parts(tl.fmt)
+    want = {"csr_panels_spmm": 2 * (fwd[0] + bwd[0]) * GCN_TRAIN_STEPS,
+            "bcsr_panels_spmm": 2 * (fwd[1] + bwd[1]) * GCN_TRAIN_STEPS,
+            "csr_sdd_panels": 0, "bcsr_sdd_panels": 0}
+    for k, v in counts.items():
+        launches[k] += v
+        check(v == want[k], f"train_gcn: {k} launched {v} times in "
+              f"{GCN_TRAIN_STEPS} steps (expected {want[k]})")
+    flat_losses = []
+    t0 = time.perf_counter()
+    for _ in range(GCN_TRAIN_STEPS):
+        flat_losses.append(float(sgd_step(flat, x, y, GCN_LR)[0]))
+    torch.cuda.synchronize()
+    flat_step_ms = (time.perf_counter() - t0) * 1e3 / GCN_TRAIN_STEPS
+    traj = max(abs(a - b) / max(1.0, abs(b))
+               for a, b in zip(losses, flat_losses))
+    check(all(np.isfinite(losses)) and traj <= GCN_TOL,
+          f"train_gcn: loss trajectory {losses} vs flat {flat_losses}")
+    check(losses[-1] < losses[0], f"train_gcn: the loss did not fall "
+          f"({losses[0]} -> {losses[-1]})")
+    profile = profile_step(lambda: sgd_step(model, x, y, GCN_LR))
+    rec = {"phase": "train_gcn", "nodes": GCN_NODES, "nnz": adj.nnz,
+           "widths": [F_IN, F_HID, F_OUT], "steps": GCN_TRAIN_STEPS,
+           "lr": GCN_LR, "r_boundary": plan.r_boundary,
+           "r_boundary_transposed": tl.fmt.r_boundary,
+           "setup_s": setup_s, "transpose_build_s": transpose_build_s,
+           "step_ms": step_ms,
+           "steady_step_ms": statistics.median(step_ms[1:]),
+           "flat_step_ms": flat_step_ms, "launches": counts,
+           "losses": losses, "flat_losses": flat_losses, "accuracy": accs,
+           "max_loss_diff_rel": traj, "step1_grads": grads,
+           "profiled_step": profile}
+    phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 6: sparse-FFN training (llama3.2-1b MLP up-projection)
+# ---------------------------------------------------------------------------
+
+def phase_train_ffn(launches: dict) -> list:
+    import numpy as np
+    import torch
+    from repro_torch.core import (csr_from_dense, loops_spmm_values,
+                                  transposed_values)
+    from repro_torch.core.formats import csr_slice_rows
+    from repro_torch.kernels import spmm_sdd
+    from repro_torch.models import magnitude_prune, sparse_linear_from_dense
+
+    out = []
+    for dname in FFN_DTYPES:
+        dt = getattr(torch, dname)
+        tol = TOL[dname]
+        rng = np.random.default_rng(4)
+        w = (rng.standard_normal((FFN_D_OUT, FFN_D_IN)) * 0.02).astype(
+            np.float32)
+        wt = torch.from_numpy(w).to(dt)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        layer = sparse_linear_from_dense(wt, FFN_SPARSITY, device=DEVICE)
+        torch.cuda.synchronize()
+        convert_s = time.perf_counter() - t0
+        fmt = layer.fmt
+        t0 = time.perf_counter()
+        tl = fmt.transposed(dtype=dt)
+        tl.fmt.on(DEVICE)
+        tl.maps_on(DEVICE)
+        torch.cuda.synchronize()
+        transpose_build_s = time.perf_counter() - t0
+        gen = torch.Generator(device=DEVICE).manual_seed(30)
+        x = torch.randn(FFN_X_SHAPE, generator=gen, device=DEVICE).to(dt)
+        x.requires_grad_(True)
+        params = [layer.csr_vals, layer.bcsr_vals, x]
+
+        # Gradients against the flat path's autograd, with one cotangent
+        # (that of sum(y²) at the flat output) for both.  The flat path runs
+        # in fp32 on the same values (bf16 is exact in fp32): in bf16 its
+        # autograd would round each gathered product's gradient to bf16
+        # before the scatter, a weaker oracle than the kernel path.
+        def flat(cv, bv, xx):
+            return loops_spmm_values(fmt, cv, bv, xx.transpose(-1, -2),
+                                     device=DEVICE,
+                                     backend="torch").transpose(-1, -2)
+        flat_in = [t.detach().float().requires_grad_(True) for t in params]
+        y_f = flat(*flat_in)
+        y_k = layer(x)
+        dy = (2.0 * y_f.detach()).to(dt)
+        g_k = torch.autograd.grad(y_k, params, dy)
+        g_f = torch.autograd.grad(y_f, flat_in, dy.float())
+        abs_in = [t.detach().abs().requires_grad_(True) for t in flat_in]
+        y_abs = flat(*abs_in)
+        checks = {"y": _grad_check(f"train_ffn {dname} y", y_k.detach(),
+                                   y_f.detach(), y_abs.detach(), tol)}
+        bnds = torch.autograd.grad(y_abs, abs_in, dy.float().abs())
+        for name, gk, gf, bnd in zip(("d_csr_vals", "d_bcsr_vals", "dx"),
+                                     g_k, g_f, bnds):
+            check(gk.dtype == dt and gk.shape == gf.shape,
+                  f"train_ffn {dname} {name}: {gk.dtype} {gk.shape} vs "
+                  f"{dt} {gf.shape}")
+            checks[name] = _grad_check(f"train_ffn {dname} {name}", gk, gf,
+                                       bnd, tol)
+        del y_k, y_f, g_k, g_f, y_abs, bnds, abs_in, flat_in
+
+        # B3 and B4 alone, at the backward's shapes: dY is the fp32
+        # cotangent of the (d_out, tokens) product, B the activation.
+        dev = fmt.on(DEVICE)
+        b3 = x.detach().transpose(-1, -2).contiguous()
+        dy3 = dy.transpose(-1, -2).float().contiguous()
+        r_b, br = fmt.r_boundary, fmt.bcsr_part.br
+        nrows_b = fmt.nrows - r_b
+        csr = csr_from_dense(magnitude_prune(w if dname == "float32" else
+                                             wt.float().numpy(),
+                                             FFN_SPARSITY))
+        zn = b3.shape[0] * b3.shape[2]
+        bt = b3.permute(0, 2, 1).reshape(zn, FFN_D_IN)
+        kernels = {}
+        for name, panels, kbr, rows, run, plain, part_rows in (
+                ("csr_sdd_panels", dev.csr, 1, r_b,
+                 lambda: spmm_sdd.csr_sdd_panels(
+                     dev.csr.rows, dev.csr.cols, dev.csr.mask, dy3, b3),
+                 lambda d=dy3, b=b3: spmm_sdd.csr_sdd_panels_plain(
+                     dev.csr.rows, dev.csr.cols, dev.csr.mask, d, b),
+                 (0, r_b)),
+                ("bcsr_sdd_panels", dev.bcsr, br, nrows_b,
+                 lambda: spmm_sdd.bcsr_sdd_panels(
+                     dev.bcsr.rows, dev.bcsr.cols, dev.bcsr.mask, dy3, b3,
+                     br=br, row_offset=r_b, nrows=nrows_b),
+                 lambda d=dy3, b=b3: spmm_sdd.bcsr_sdd_panels_plain(
+                     dev.bcsr.rows, dev.bcsr.cols, dev.bcsr.mask, d, b,
+                     br=br, row_offset=r_b, nrows=nrows_b),
+                 (r_b, fmt.nrows))):
+            got = run()
+            want = plain()
+            absprod = plain(d=dy3.abs(), b=b3.abs())
+            torch.cuda.synchronize()
+            k_err, k_rel = sum_err(got, want, absprod)
+            check(k_rel <= tol, f"train_ffn {dname} {name} vs plain: err "
+                  f"{k_err:.3g}, {k_rel:.3g} of |dY||B| > {tol:g}")
+            dy_rows = dy3[:, part_rows[0]:part_rows[1]].permute(
+                1, 0, 2).reshape(part_rows[1] - part_rows[0], zn)
+            lib, lib_what = library_sdd_ms(
+                csr_slice_rows(csr, *part_rows), dy_rows, bt, dt)
+            kernels[name] = {
+                "ms": time_ms(run),
+                "plain_ms": time_ms(plain, samples=3, reps=1, warmup=1),
+                "library_ms": lib, "library": lib_what,
+                "max_abs_err": k_err, "max_err_of_absprod": k_rel,
+                "npanels": int(panels.rows.numel()),
+                **sdd_bound(panels, dy3, b3, got, br=kbr, dy_rows=rows,
+                            dtype=dname)}
+            del got, want, absprod, dy_rows
+        del dy, dy3, bt
+        # The live values' per-step copies: the scatter into both parts'
+        # panels (forward) and the carry into Wᵀ's layout (dx).
+        cv, bv = layer.csr_vals.detach(), layer.bcsr_vals.detach()
+        scatter_ms = time_ms(lambda: (dev.csr.scatter_values(cv),
+                                      dev.bcsr.scatter_values(bv)))
+        carry_ms = time_ms(lambda: transposed_values(tl, cv, bv))
+
+        # A few SGD steps on the stored values (x stays fixed), loss sum(y²).
+        _reset_counts()
+        losses, step_ms = [], []
+        for _ in range(FFN_STEPS):
+            t0 = time.perf_counter()
+            loss = layer(x).float().square().sum()
+            grads = torch.autograd.grad(loss, params)
+            with torch.no_grad():
+                layer.csr_vals.sub_(FFN_LR * grads[0])
+                layer.bcsr_vals.sub_(FFN_LR * grads[1])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss.detach()))
+        counts = _read_counts()
+        fw, bw = _has_parts(fmt), _has_parts(tl.fmt)
+        want_n = {"csr_panels_spmm": (fw[0] + bw[0]) * FFN_STEPS,
+                  "bcsr_panels_spmm": (fw[1] + bw[1]) * FFN_STEPS,
+                  "csr_sdd_panels": fw[0] * FFN_STEPS,
+                  "bcsr_sdd_panels": fw[1] * FFN_STEPS}
+        for k, v in counts.items():
+            launches[k] += v
+            check(v == want_n[k], f"train_ffn {dname}: {k} launched {v} "
+                  f"times in {FFN_STEPS} steps (expected {want_n[k]})")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"train_ffn {dname}: losses {losses}")
+        profile = profile_step(lambda: torch.autograd.grad(
+            layer(x).float().square().sum(), params))
+        rec = {"phase": "train_ffn", "dtype": dname,
+               "shape": [FFN_D_OUT, FFN_D_IN], "sparsity": FFN_SPARSITY,
+               "x": list(FFN_X_SHAPE), "nnz": csr.nnz,
+               "r_boundary": r_b, "br": br, "panel_g": fmt.panel_g,
+               "r_boundary_transposed": tl.fmt.r_boundary,
+               "br_transposed": tl.fmt.bcsr_part.br,
+               "convert_s": convert_s,
+               "transpose_build_s": transpose_build_s,
+               "step_ms": step_ms, "scatter_values_ms": scatter_ms,
+               "transposed_values_ms": carry_ms,
+               "losses": losses, "lr": FFN_LR,
+               "launches": counts, "grads": checks, "kernels": kernels,
+               "profiled_step": profile,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        phase(rec)
+        out.append(rec)
+        del layer, x, params, grads, loss, fmt, tl, dev, b3
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "csr_panels_spmm": ("src/repro_torch/csrc/csr_spmm.cu",
                         "src/repro/kernels/csr_spmm.py:172"),
     "bcsr_panels_spmm": ("src/repro_torch/csrc/bcsr_spmm.cu",
                          "src/repro/kernels/bcsr_spmm.py:177"),
+    "csr_sdd_panels": ("src/repro_torch/csrc/csr_sdd.cu",
+                       "src/repro/kernels/spmm_sdd.py:164"),
+    "bcsr_sdd_panels": ("src/repro_torch/csrc/bcsr_sdd.cu",
+                        "src/repro/kernels/spmm_sdd.py:336"),
 }
 
 
@@ -591,18 +1076,22 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     env = phase_env()
     phase_kernels()
-    launches = {"csr_panels_spmm": 0, "bcsr_panels_spmm": 0}
+    launches = {k: 0 for k in KERNELS}
     main_recs = phase_main(launches)
     phase_gcn(launches)
+    phase_train_gcn(launches)
+    ffn_recs = phase_train_ffn(launches)
     for k, v in launches.items():
-        check(v > 0, f"{k} never launched on the main path")
+        check(v > 0, f"{k} never launched on the port's paths")
 
-    # The kernels line reports the pwtk (m6) fp32 main-path call.
+    # The kernels line reports B1/B2 at the pwtk (m6) fp32 main-path call
+    # and B3/B4 at the fp32 sparse-FFN backward.
     rep = next(r for r in main_recs
                if r["matrix"] == "m6" and r["dtype"] == "float32")
+    rep_ffn = next(r for r in ffn_recs if r["dtype"] == "float32")
     line = []
     for name, (src, replaces) in SOURCES.items():
-        k = rep["kernels"][name]
+        k = (rep if name.endswith("spmm") else rep_ffn)["kernels"][name]
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],

@@ -9,9 +9,11 @@ ported file has a twin at the same relative path:
     perf_model (Eq. 2/3), suite (synthetic Table-2 matrices), spmm (the
     front door);
   * ``kernels``: the CUDA kernels B1 (``csr_spmm``) and B2 (``bcsr_spmm``)
-    with their plain PyTorch versions, the flat references and the engine;
+    of the product and B3/B4 (``spmm_sdd``) of its value gradient, with
+    their plain PyTorch versions, the flat references and the engine;
   * ``resilience``: validated ingestion;
-  * ``models``: the §4.5 GCN.
+  * ``models``: the §4.5 GCN and the weight-sparse linear layer, both
+    trainable.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

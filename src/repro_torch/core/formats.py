@@ -15,8 +15,12 @@ Differences from the reference:
     caches them (the JAX path holds them as jit constants; re-uploading
     hundreds of MB per call would hide the kernels), together with the
     ``group -> first panel`` offsets the CUDA kernels walk
-    (:attr:`PanelCSR.panel_ptr`);
-  * the transposed/autodiff helpers are not ported yet.
+    (:attr:`PanelCSR.panel_ptr`) and the flat value-slot index that carries
+    live values into the panels (:meth:`DevicePanels.scatter_values`);
+  * :meth:`LoopsFormat.transposed` is cached per plan and value dtype (numpy
+    has no bfloat16, so a bf16 layer keeps its host values in fp32 and names
+    its dtype to pick the transposed tile height); the transposed device
+    panels and value maps are then uploaded once per device.
 
 Invariants the kernels rely on: every CSR row and every BCSR block-row
 owns at least one (possibly zero-valued) panel, and panels are sorted by
@@ -37,6 +41,7 @@ __all__ = [
     "DevicePanels", "DeviceLoops", "csr_from_coo", "csr_from_dense",
     "csr_to_dense", "csr_slice_rows", "bcsr_from_csr_rows", "panelize_csr",
     "panelize_bcsr", "loops_from_csr", "loops_format_from_arrays",
+    "TransposedLoops", "loops_from_csr_mapped", "transposed_values",
     "SUBLANE_ROWS", "HALF_PACKED_ROWS", "DEFAULT_PANEL_G",
 ]
 
@@ -143,6 +148,18 @@ class PanelCSR:
         """(nrows + 1,) int64 first panel of each output row."""
         return _panel_ptr(self.panel_rows, self.nrows)
 
+    def scatter_values(self, vals: torch.Tensor) -> torch.Tensor:
+        """Live flat ``(nnz,)`` values -> the ``(P, G)`` panel layout on
+        ``vals``' device; padding lanes stay exactly zero and gradients flow
+        back to ``vals``."""
+        return _scatter(_slot_index(self, vals.device),
+                        self.panel_vals.shape, vals)
+
+    def gather_values(self, panel_arr: torch.Tensor) -> torch.Tensor:
+        """Inverse of :meth:`scatter_values`: ``(P, G)`` -> ``(nnz,)``
+        (padding lanes dropped)."""
+        return _gather(_slot_index(self, panel_arr.device), panel_arr)
+
 
 @dataclasses.dataclass(frozen=True)
 class PanelBCSR:
@@ -174,6 +191,46 @@ class PanelBCSR:
         """(nblocks + 1,) int64 first panel of each block-row."""
         return _panel_ptr(self.panel_rows, self.nblocks)
 
+    def scatter_values(self, tile_vals: torch.Tensor) -> torch.Tensor:
+        """Live ``(ntiles, Br)`` tile values -> the ``(P, Br, G)`` panel
+        layout (padding columns stay exactly zero)."""
+        return _scatter(_slot_index(self, tile_vals.device),
+                        self.panel_vals.shape, tile_vals)
+
+    def gather_values(self, panel_arr: torch.Tensor) -> torch.Tensor:
+        """Inverse of :meth:`scatter_values`: ``(P, Br, G)`` ->
+        ``(ntiles, Br)`` (padding columns dropped)."""
+        return _gather(_slot_index(self, panel_arr.device), panel_arr)
+
+
+def _slot_index(panels, device) -> torch.Tensor:
+    """The flat panel slot ``src_panel * G + src_lane`` of every item of a
+    :class:`PanelCSR` / :class:`PanelBCSR`, as int64 on ``device``."""
+    return torch.as_tensor(panels.src_panel.astype(np.int64) * panels.g
+                           + panels.src_lane, device=device)
+
+
+def _scatter(slot: torch.Tensor, shape, vals: torch.Tensor) -> torch.Tensor:
+    """Items (``(n,)`` or ``(n, Br)``) into a zero panel array of ``shape``
+    (``(P, G)`` or ``(P, Br, G)``) at flat slots ``slot``; differentiable
+    in ``vals``."""
+    if len(shape) == 2:
+        p, g = shape
+        flat = vals.new_zeros(p * g).index_copy(0, slot, vals.reshape(-1))
+        return flat.view(p, g)
+    p, br, g = shape
+    flat = vals.new_zeros((p * g, br)).index_copy(0, slot,
+                                                  vals.reshape(-1, br))
+    return flat.view(p, g, br).transpose(1, 2).contiguous()
+
+
+def _gather(slot: torch.Tensor, panel_arr: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_scatter`: the items at flat slots ``slot``."""
+    if panel_arr.ndim == 2:
+        return panel_arr.reshape(-1)[slot]
+    p, br, g = panel_arr.shape
+    return panel_arr.transpose(1, 2).reshape(p * g, br)[slot]
+
 
 @dataclasses.dataclass(frozen=True)
 class DevicePanels:
@@ -185,6 +242,7 @@ class DevicePanels:
     cols: torch.Tensor   # (P, G) int32
     vals: torch.Tensor   # (P, G) or (P, Br, G)
     mask: torch.Tensor   # (P, G) bool
+    slot: torch.Tensor   # (items,) int64 flat panel slot of each item
 
     @classmethod
     def upload(cls, panels, device) -> "DevicePanels":
@@ -192,11 +250,21 @@ class DevicePanels:
             return torch.as_tensor(np.ascontiguousarray(a)).to(device)
         return cls(rows=put(panels.panel_rows), ptr=put(panels.panel_ptr),
                    cols=put(panels.panel_cols), vals=put(panels.panel_vals),
-                   mask=put(panels.panel_mask != 0))
+                   mask=put(panels.panel_mask != 0),
+                   slot=_slot_index(panels, device))
 
     @property
     def ngroups(self) -> int:
         return int(self.ptr.shape[0] - 1)
+
+    def scatter_values(self, vals: torch.Tensor) -> torch.Tensor:
+        """Live item values (``(nnz,)`` or ``(ntiles, Br)``) in this part's
+        panel layout, in their own dtype; the structure is not re-uploaded."""
+        return _scatter(self.slot, tuple(self.vals.shape), vals)
+
+    def gather_values(self, panel_arr: torch.Tensor) -> torch.Tensor:
+        """Per-item values out of a panel-layout array (padding dropped)."""
+        return _gather(self.slot, panel_arr)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,6 +339,30 @@ class LoopsFormat:
             cache[key] = DeviceLoops(
                 csr=DevicePanels.upload(self.csr_panels, device),
                 bcsr=DevicePanels.upload(self.bcsr_panels, device))
+        return cache[key]
+
+    def transposed(self, *, plan=None, total_workers: int = 8,
+                   dtype=None) -> "TransposedLoops":
+        """Aᵀ as a LOOPS format plus the value-linear maps from A's stored
+        values: the operand of the backward ``dB = Aᵀ·dY``.
+
+        ``plan`` pins the transposed plan (a ``core.spmm.SpmmPlan``);
+        otherwise it is planned from Aᵀ's own rows with ``total_workers``
+        and the tile height of ``dtype``, the dtype the values run in
+        (default: the host values' dtype).  Cached on this instance per
+        ``(plan, total_workers, dtype)``, so every training step after the
+        first pays nothing; the transposed format's device panels and value
+        maps are cached per device on the result.
+        """
+        from ..kernels.engine import torch_dtype
+        dt = torch_dtype(self.csr_part.vals.dtype if dtype is None
+                         else dtype)
+        key = (plan, total_workers, str(dt))
+        cache = self.__dict__.setdefault("_transposed_cache", {})
+        if key not in cache:
+            cache[key] = _build_transposed(self, plan=plan,
+                                           total_workers=total_workers,
+                                           dtype=dt)
         return cache[key]
 
 
@@ -374,16 +466,21 @@ def csr_slice_rows(csr: CSR, start: int, stop: int) -> CSR:
 # Vector-wise BCSR construction (paper Alg. 1 Step 2, with B_c = 1)
 # ---------------------------------------------------------------------------
 
-def bcsr_from_csr_rows(csr: CSR, start: int, stop: int,
-                       br: int) -> VectorBCSR:
+def bcsr_from_csr_rows(csr: CSR, start: int, stop: int, br: int, *,
+                       keep_zeros: bool = False, return_map: bool = False):
     """Re-tile rows [start, stop) of ``csr`` into ``br x 1`` tiles.
 
     Each nonzero (i, j) lands in tile ``(i // br, j)`` at offset
-    ``i % br``; zero-valued stored entries are dropped; tiles are sorted by
-    (block_row, col) and every block-row gets >= 1 tile (an all-zero tile
-    at column 0 where it has none).  Vectorised: ``np.unique`` over the
-    linearised tile key, then ``np.add.at`` into ``(ntiles, br)`` (which
-    sums duplicate coordinates in entry order, as the reference does).
+    ``i % br``; tiles are sorted by (block_row, col) and every block-row
+    gets >= 1 tile (an all-zero tile at column 0 where it has none).
+    Zero-valued stored entries are dropped unless ``keep_zeros`` (the
+    autodiff transpose keeps them: its structure must not depend on
+    values).  ``return_map`` also returns ``slot_map``, int64 over the
+    sliced entries: the flat destination ``tile * br + offset`` of entry
+    ``row_ptr[start] + k``, or -1 where it was dropped.  Vectorised:
+    ``np.unique`` over the linearised tile key, then ``np.add.at`` into
+    ``(ntiles, br)`` (which sums duplicate coordinates in entry order, as
+    the reference does).
     """
     nrows = stop - start
     nblocks = max((nrows + br - 1) // br, 1)
@@ -391,7 +488,8 @@ def bcsr_from_csr_rows(csr: CSR, start: int, stop: int,
     local = csr.row_ids[s:e].astype(np.int64) - start
     cols = csr.col_idx[s:e].astype(np.int64)
     vals = csr.vals[s:e]
-    keep = vals != 0   # drop structural pads from the parent CSR
+    # Dropping zeros removes the parent CSR's structural pads.
+    keep = np.ones(len(vals), bool) if keep_zeros else vals != 0
     local, cols, vals = local[keep], cols[keep], vals[keep]
     tr = local // br
     stride = max(int(csr.shape[1]), 1)
@@ -399,6 +497,7 @@ def bcsr_from_csr_rows(csr: CSR, start: int, stop: int,
     missing = np.setdiff1d(np.arange(nblocks, dtype=np.int64), tr)
     keys, inv = np.unique(np.concatenate([key, missing * stride]),
                           return_inverse=True)
+    inv = inv.reshape(-1)
     tile_vals = np.zeros((len(keys), br), csr.vals.dtype)
     np.add.at(tile_vals, (inv[:len(key)], local % br), vals)
     tile_rows = (keys // stride).astype(np.int32)
@@ -406,9 +505,14 @@ def bcsr_from_csr_rows(csr: CSR, start: int, stop: int,
     counts = np.bincount(tile_rows, minlength=nblocks)
     block_ptr = np.zeros(nblocks + 1, np.int32)
     np.cumsum(counts, out=block_ptr[1:])
-    return VectorBCSR(tile_rows=tile_rows, tile_cols=tile_cols,
+    bcsr = VectorBCSR(tile_rows=tile_rows, tile_cols=tile_cols,
                       tile_vals=tile_vals, block_ptr=block_ptr, br=br,
                       nrows=nrows, shape=(nrows, csr.shape[1]))
+    if not return_map:
+        return bcsr
+    slot_map = np.full(e - s, -1, np.int64)
+    slot_map[keep] = inv[:len(key)] * br + local % br
+    return bcsr, slot_map
 
 
 # ---------------------------------------------------------------------------
@@ -532,3 +636,164 @@ def loops_format_from_arrays(arrays: dict) -> LoopsFormat:
                        shape=shape, panel_g=int(a["panel_g"]),
                        macro_m=int(a["macro_m"]),
                        pipeline_depth=int(a["pipeline_depth"]))
+
+
+# ---------------------------------------------------------------------------
+# Transposed format for the backward pass
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TransposedLoops:
+    """Aᵀ in LOOPS form plus the value-linear maps from A's stored values.
+
+    The structure depends on A's sparsity pattern only; the maps are static
+    index arrays, so live values of A reach Aᵀ's layout through two
+    ``index_add``s (:func:`transposed_values`).  A's flat value vector is
+    ``concat(csr_part.vals, bcsr_part.tile_vals.ravel())``; BCSR tile slots
+    on padding rows (``row >= nrows``) carry no gradient and are left out.
+    """
+
+    fmt: LoopsFormat        # Aᵀ, converted under the resolved plan
+    plan: object            # the SpmmPlan the conversion used
+    entry_src: np.ndarray   # (E,) int64 index into A's flat value vector
+    entry_slot: np.ndarray  # (E,) int64 destination slot in Aᵀ's CSR
+    n_slots: int            # stored entries of Aᵀ (incl. empty-row pads)
+    csr_len: int            # slots [0, csr_len) are fmt.csr_part.vals
+    bcsr_slot: np.ndarray   # (n_slots - csr_len,) int64 flat tile*Br+off
+
+    def maps_on(self, device) -> Tuple[torch.Tensor, ...]:
+        """``(entry_src, entry_slot, bcsr_slot)`` as int64 tensors on
+        ``device``, uploaded on first use and cached per device."""
+        device = torch.device(device)
+        cache = self.__dict__.setdefault("_maps_cache", {})
+        key = str(device)
+        if key not in cache:
+            cache[key] = tuple(torch.as_tensor(a, device=device) for a in (
+                self.entry_src, self.entry_slot, self.bcsr_slot))
+        return cache[key]
+
+
+def loops_from_csr_mapped(csr: CSR, r_boundary: int, br: int,
+                          panel_g: int = DEFAULT_PANEL_G, *,
+                          macro_m: int = 1, pipeline_depth: int = 1
+                          ) -> Tuple[LoopsFormat, int, np.ndarray]:
+    """Algorithm 1 with value-slot bookkeeping (the autodiff transpose).
+
+    Like :func:`loops_from_csr`, but the BCSR part keeps zero-valued stored
+    entries and the result carries the maps from ``csr``'s flat value order
+    into the two parts: ``(fmt, csr_len, bcsr_slot)`` where entries
+    ``[0, csr_len)`` become ``fmt.csr_part.vals`` verbatim and entry
+    ``csr_len + j`` lands at flat tile slot ``bcsr_slot[j]``.  ``csr`` must
+    have no empty rows.
+    """
+    if not 0 <= r_boundary <= csr.nrows:
+        raise ValueError(f"r_boundary {r_boundary} out of range "
+                         f"[0, {csr.nrows}]")
+    csr_part = csr_slice_rows(csr, 0, r_boundary)
+    csr_len = int(csr.row_ptr[r_boundary])
+    if csr_part.nnz != csr_len:
+        raise ValueError("loops_from_csr_mapped needs a CSR with no empty "
+                         "rows (slicing inserted pad entries)")
+    bcsr_part, bcsr_slot = bcsr_from_csr_rows(
+        csr, r_boundary, csr.nrows, br, keep_zeros=True, return_map=True)
+    fmt = LoopsFormat(csr_part=csr_part, bcsr_part=bcsr_part,
+                      r_boundary=r_boundary, shape=csr.shape,
+                      panel_g=panel_g, macro_m=macro_m,
+                      pipeline_depth=pipeline_depth)
+    return fmt, csr_len, bcsr_slot
+
+
+def _transposed_csr(fmt: LoopsFormat) -> Tuple[CSR, np.ndarray, np.ndarray]:
+    """Aᵀ as a (row, col)-sorted CSR with every row populated, plus the
+    entry maps ``(csr_t, entry_src, entry_slot)``: A's flat stored entry
+    ``entry_src[e]`` adds into ``csr_t.vals[entry_slot[e]]``.  Empty rows
+    of Aᵀ get an explicit zero pad at column 0 with no source entry."""
+    csr, bc = fmt.csr_part, fmt.bcsr_part
+    m, k = fmt.shape
+    t, br = bc.tile_vals.shape
+    rows = np.concatenate([
+        csr.row_ids.astype(np.int64),
+        fmt.r_boundary + np.repeat(bc.tile_rows.astype(np.int64), br) * br
+        + np.tile(np.arange(br, dtype=np.int64), t)])
+    cols = np.concatenate([csr.col_idx.astype(np.int64),
+                           np.repeat(bc.tile_cols.astype(np.int64), br)])
+    keep = rows < m          # BCSR padding rows never reach the output
+    entry_src = np.nonzero(keep)[0].astype(np.int64)
+    # Transposed coordinate, linearised in Aᵀ's (row, col) = (col, row) order.
+    lin = cols[keep] * m + rows[keep]
+    uniq, inv = np.unique(lin, return_inverse=True)
+    inv = inv.reshape(-1)
+    missing = np.setdiff1d(np.arange(k, dtype=np.int64),
+                           np.unique(uniq // m))
+    all_lin = np.sort(np.concatenate([uniq, missing * m]))
+    entry_slot = np.searchsorted(all_lin, uniq)[inv].astype(np.int64)
+    rows_t = (all_lin // m).astype(np.int32)
+    cols_t = (all_lin % m).astype(np.int32)
+    flat_vals = np.concatenate([np.asarray(csr.vals).ravel(),
+                                np.asarray(bc.tile_vals).ravel()])
+    vals_t = np.zeros(len(all_lin), flat_vals.dtype)
+    np.add.at(vals_t, entry_slot, flat_vals[entry_src])
+    row_ptr = np.zeros(k + 1, np.int32)
+    np.cumsum(np.bincount(rows_t, minlength=k), out=row_ptr[1:])
+    csr_t = CSR(row_ptr=row_ptr, col_idx=cols_t, vals=vals_t,
+                row_ids=rows_t, shape=(k, m))
+    return csr_t, entry_src, entry_slot
+
+
+def _build_transposed(fmt: LoopsFormat, *, plan=None, total_workers: int = 8,
+                      dtype=None) -> TransposedLoops:
+    """Materialise :class:`TransposedLoops` (cached by
+    :meth:`LoopsFormat.transposed`).  Without ``plan``, Aᵀ is planned like a
+    forward matrix (``core.spmm.plan_for``, the planning half of
+    ``plan_and_convert``) from its own row statistics, at the tile height of
+    ``dtype``."""
+    from .spmm import default_br, plan_for   # spmm imports this module
+    csr_t, entry_src, entry_slot = _transposed_csr(fmt)
+    if plan is None:
+        plan = plan_for(csr_t, total_workers=total_workers,
+                        br=default_br(dtype if dtype is not None
+                                      else csr_t.vals.dtype),
+                        panel_g=fmt.panel_g or None, macro_m=fmt.macro_m,
+                        pipeline_depth=fmt.pipeline_depth)
+    fmt_t, csr_len, bcsr_slot = loops_from_csr_mapped(
+        csr_t, plan.r_boundary, plan.br, panel_g=plan.panel_g,
+        macro_m=int(plan.macro_m), pipeline_depth=int(plan.pipeline_depth))
+    tl = TransposedLoops(fmt=fmt_t, plan=plan, entry_src=entry_src,
+                         entry_slot=entry_slot, n_slots=csr_t.nnz,
+                         csr_len=csr_len, bcsr_slot=bcsr_slot)
+    # Round-trip check: A's own values carried through the maps must
+    # reproduce the converted parts (a map/structure drift would otherwise
+    # surface as a silently wrong gradient).
+    flat = np.concatenate([np.asarray(fmt.csr_part.vals).ravel(),
+                           np.asarray(fmt.bcsr_part.tile_vals).ravel()])
+    vals_t = np.zeros(tl.n_slots, flat.dtype)
+    np.add.at(vals_t, tl.entry_slot, flat[tl.entry_src])
+    nt, brr = fmt_t.bcsr_part.tile_vals.shape
+    tile_flat = np.zeros(nt * brr, flat.dtype)
+    np.add.at(tile_flat, tl.bcsr_slot, vals_t[tl.csr_len:])
+    if not (np.allclose(vals_t[:tl.csr_len].astype(np.float64),
+                        np.asarray(fmt_t.csr_part.vals, np.float64))
+            and np.allclose(tile_flat.reshape(nt, brr).astype(np.float64),
+                            np.asarray(fmt_t.bcsr_part.tile_vals,
+                                       np.float64))):
+        raise AssertionError("transposed value maps disagree with the "
+                             "converted transposed format")
+    return tl
+
+
+def transposed_values(tl: TransposedLoops, csr_vals: torch.Tensor,
+                      bcsr_vals: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Carry live values of A into the transposed layout.
+
+    Returns ``(csr_vals_t, bcsr_tile_vals_t)`` matching ``tl.fmt.csr_part``
+    / ``tl.fmt.bcsr_part``: two ``index_add``s with static indices on the
+    values' device, linear in the inputs, so gradients flow through them.
+    """
+    src, slot, bslot = tl.maps_on(csr_vals.device)
+    flat = torch.cat([csr_vals.reshape(-1), bcsr_vals.reshape(-1)])
+    vals_t = flat.new_zeros(tl.n_slots).index_add(0, slot, flat[src])
+    nt, br = tl.fmt.bcsr_part.tile_vals.shape
+    tile_flat = flat.new_zeros(nt * br).index_add(0, bslot,
+                                                  vals_t[tl.csr_len:])
+    return vals_t[:tl.csr_len], tile_flat.view(nt, br)

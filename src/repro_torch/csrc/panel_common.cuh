@@ -1,6 +1,8 @@
-// Shared pieces of the LOOPS panel SpMM kernels (csr_spmm.cu, bcsr_spmm.cu):
-// dtype codes shared with the Python wrappers, the accumulator type of each
-// storage type, conversions, and the (value dtype, output dtype) dispatch.
+// Shared pieces of the LOOPS panel kernels (csr_spmm.cu, bcsr_spmm.cu and the
+// SDD kernels csr_sdd.cu, bcsr_sdd.cu): dtype codes shared with the Python
+// wrappers, the accumulator type of each storage type, conversions, warp
+// reduction, and the (value dtype, output dtype) and (dY dtype, B dtype)
+// dispatches.
 //
 // Precision contract (the reference's kernels/engine.py::acc_dtype_for):
 // fp32 accumulates in fp32 with FFMA (no TF32 anywhere), fp64 in fp64 with
@@ -47,6 +49,15 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// Sum of v over the 32 lanes of a warp, in every lane (butterfly order, the
+// same on every call).
+template <typename A>
+__device__ __forceinline__ A warp_sum(A v) {
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off /= 2) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
 inline dim3 panel_grid(int64_t ngroups, int64_t n, int64_t batch) {
   return dim3(static_cast<unsigned>((ngroups + kWarpsPerBlock - 1) /
                                     kWarpsPerBlock),
@@ -68,5 +79,22 @@ inline dim3 panel_grid(int64_t ngroups, int64_t n, int64_t batch) {
       LAUNCH(__nv_bfloat16, float); break;                                   \
     case loops::kBF16 * 4 + loops::kBF16:                                    \
       LAUNCH(__nv_bfloat16, __nv_bfloat16); break;                           \
+    default: return loops::kUnsupported;                                     \
+  }
+
+// Expands LAUNCH(TD, TB) for the supported (cotangent dtype, operand dtype)
+// pairs of the SDD kernels: the operand's own dtype, or fp32 cotangents
+// against half operands (the training backward, where dY is the fp32 output
+// of a half-precision forward).  Any other pair returns kUnsupported.
+#define LOOPS_DISPATCH_SDD(dy_dtype, b_dtype, LAUNCH)                        \
+  switch ((dy_dtype) * 4 + (b_dtype)) {                                      \
+    case loops::kF32 * 4 + loops::kF32: LAUNCH(float, float); break;         \
+    case loops::kF64 * 4 + loops::kF64: LAUNCH(double, double); break;       \
+    case loops::kF16 * 4 + loops::kF16: LAUNCH(__half, __half); break;       \
+    case loops::kBF16 * 4 + loops::kBF16:                                    \
+      LAUNCH(__nv_bfloat16, __nv_bfloat16); break;                           \
+    case loops::kF32 * 4 + loops::kF16: LAUNCH(float, __half); break;        \
+    case loops::kF32 * 4 + loops::kBF16:                                     \
+      LAUNCH(float, __nv_bfloat16); break;                                   \
     default: return loops::kUnsupported;                                     \
   }

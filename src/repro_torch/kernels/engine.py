@@ -17,7 +17,11 @@ point shares:
     ``(..., K, N)``; leading dims fold into the kernels' batch dimension
     (:func:`flatten_batch`), which is the CUDA grid's z axis;
   * the ``(part, op)`` kernel registry and the structural tracer hook
-    (:func:`set_tracer`), with the reference's fields.
+    (:func:`set_tracer`), with the reference's fields;
+  * live values -- :func:`panel_values`: trainable stored values are
+    scattered into the uploaded panel structure on every call
+    (``csr_vals=``/``bcsr_vals=`` on the entry points), and
+    :func:`loops_sdd` returns the gradient at the stored values.
 
 There is no fallback chain: a kernel that fails to build or launch raises.
 """
@@ -34,8 +38,9 @@ __all__ = [
     "acc_dtype_for", "resolve_dtypes", "torch_dtype", "resolve_device",
     "resolve_backend", "as_operand", "check_rhs", "flatten_batch",
     "unflatten_batch", "batch_block", "padded_batch", "MAX_BATCH_BLOCK",
-    "register_kernel", "get_kernel", "csr_spmm", "bcsr_spmm",
-    "loops_spmm_fused", "set_tracer", "get_tracer", "BACKENDS",
+    "register_kernel", "get_kernel", "panel_values", "csr_spmm",
+    "bcsr_spmm", "loops_spmm_fused", "loops_sdd", "set_tracer",
+    "get_tracer", "BACKENDS",
 ]
 
 # Batch slices per grid step of the reference's TPU kernels.  The CUDA
@@ -244,7 +249,8 @@ _POPULATED = False
 
 def register_kernel(part: str, op: str, impl: str, fn: Callable) -> Callable:
     """Register ``fn`` under ``(part, op)`` with flavour ``impl`` ∈
-    {"panels" (kernel wrapper), "ref" (flat torch reference)}."""
+    {"panels" (kernel wrapper), "ref" (flat torch reference)}; ``op`` is
+    "spmm" or "sdd"."""
     _REGISTRY.setdefault((part, op), {})[impl] = fn
     return fn
 
@@ -254,7 +260,7 @@ def get_kernel(part: str, op: str, impl: str = "panels") -> Callable:
     register themselves) on first use."""
     global _POPULATED
     if not _POPULATED:
-        from . import bcsr_spmm, csr_spmm, ref  # noqa: F401
+        from . import bcsr_spmm, csr_spmm, ref, spmm_sdd  # noqa: F401
         _POPULATED = True
     try:
         return _REGISTRY[(part, op)][impl]
@@ -271,15 +277,24 @@ def _value_tensor(arr: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(arr)).to(device)
 
 
+def panel_values(panels, vals) -> torch.Tensor:
+    """The panel values a kernel runs with: the uploaded
+    ``panels.vals``, or live item values ``vals`` scattered into the same
+    structure (the one copy per call of a trainable layer)."""
+    return panels.vals if vals is None else panels.scatter_values(vals)
+
+
 def csr_spmm(csr, b: torch.Tensor, *, backend: str | None = None,
-             out_dtype=None, panels=None) -> torch.Tensor:
+             out_dtype=None, panels=None, vals=None) -> torch.Tensor:
     """SpMM of a ``repro_torch.core.formats.CSR`` against dense ``b``
     (..., K, N) on ``b``'s device.  The ``"cuda"`` backend needs
     ``panels``, the part's :class:`~repro_torch.core.formats.DevicePanels`
-    on that device."""
+    on that device.  ``vals`` -- optional live ``(nnz,)`` values replacing
+    ``csr.vals``."""
     backend = resolve_backend(backend)
     check_rhs(csr.ncols, b)
-    _, out = resolve_dtypes(csr.vals.dtype, out_dtype)
+    _, out = resolve_dtypes(csr.vals.dtype if vals is None else vals.dtype,
+                            out_dtype)
     if _empty_batch(b):
         return torch.zeros(b.shape[:-2] + (csr.nrows, b.shape[-1]),
                            dtype=out, device=b.device)
@@ -289,33 +304,38 @@ def csr_spmm(csr, b: torch.Tensor, *, backend: str | None = None,
         _note("csr", "spmm", backend=backend, impl="ref", units=csr.nnz,
               batch=1, n=n)
         dev = b.device
+        v = _value_tensor(csr.vals, dev) if vals is None else vals
         y = get_kernel("csr", "spmm", "ref")(
             _value_tensor(csr.row_ids, dev), _value_tensor(csr.col_idx, dev),
-            _value_tensor(csr.vals, dev), b3, csr.nrows, out_dtype=out)
+            v, b3, csr.nrows, out_dtype=out)
         return unflatten_batch(y, batch)
     if panels is None:
         raise ValueError("the cuda backend needs the part's device panels")
+    pvals = panel_values(panels, vals)
     nb = padded_batch(int(b3.shape[0]))
     _note("csr", "spmm", backend=backend, impl="panels",
           units=int(panels.rows.shape[0]), batch=nb, n=n,
           **_panel_note_fields(part="csr", depth=1,
                                npanels=int(panels.rows.shape[0]), nb=nb, n=n,
                                g=int(panels.cols.shape[1]), br=1,
-                               b_dtype=b.dtype, value_dtype=csr.vals.dtype))
+                               b_dtype=b.dtype, value_dtype=pvals.dtype))
     y = get_kernel("csr", "spmm", "panels")(
-        panels.rows, panels.cols, panels.vals, panels.mask, b3,
+        panels.rows, panels.cols, pvals, panels.mask, b3,
         nrows=csr.nrows, panel_ptr=panels.ptr, out_dtype=out)
     return unflatten_batch(y, batch)
 
 
 def bcsr_spmm(bcsr, b: torch.Tensor, *, backend: str | None = None,
-              out_dtype=None, panels=None) -> torch.Tensor:
+              out_dtype=None, panels=None, vals=None) -> torch.Tensor:
     """SpMM of a ``repro_torch.core.formats.VectorBCSR`` against dense
     ``b``; returns the logical (..., bcsr.nrows, N) rows (padding rows
-    trimmed).  The ``"cuda"`` backend needs the part's ``panels``."""
+    trimmed).  The ``"cuda"`` backend needs the part's ``panels``.
+    ``vals`` -- optional live ``(ntiles, Br)`` values replacing
+    ``bcsr.tile_vals``."""
     backend = resolve_backend(backend)
     check_rhs(bcsr.ncols, b)
-    _, out = resolve_dtypes(bcsr.tile_vals.dtype, out_dtype)
+    _, out = resolve_dtypes(
+        bcsr.tile_vals.dtype if vals is None else vals.dtype, out_dtype)
     if _empty_batch(b):
         return torch.zeros(b.shape[:-2] + (bcsr.nrows, b.shape[-1]),
                            dtype=out, device=b.device)
@@ -325,29 +345,30 @@ def bcsr_spmm(bcsr, b: torch.Tensor, *, backend: str | None = None,
         _note("bcsr", "spmm", backend=backend, impl="ref",
               units=int(bcsr.ntiles), batch=1, n=n)
         dev = b.device
+        v = _value_tensor(bcsr.tile_vals, dev) if vals is None else vals
         y = get_kernel("bcsr", "spmm", "ref")(
             _value_tensor(bcsr.tile_rows, dev),
-            _value_tensor(bcsr.tile_cols, dev),
-            _value_tensor(bcsr.tile_vals, dev), b3, bcsr.nblocks,
+            _value_tensor(bcsr.tile_cols, dev), v, b3, bcsr.nblocks,
             out_dtype=out)
         return unflatten_batch(y[:, :bcsr.nrows], batch)
     if panels is None:
         raise ValueError("the cuda backend needs the part's device panels")
+    pvals = panel_values(panels, vals)
     nb = padded_batch(int(b3.shape[0]))
     _note("bcsr", "spmm", backend=backend, impl="panels",
           units=int(panels.rows.shape[0]), batch=nb, n=n,
           **_panel_note_fields(part="bcsr", depth=1,
                                npanels=int(panels.rows.shape[0]), nb=nb, n=n,
                                g=int(panels.cols.shape[1]), br=bcsr.br,
-                               b_dtype=b.dtype,
-                               value_dtype=bcsr.tile_vals.dtype))
+                               b_dtype=b.dtype, value_dtype=pvals.dtype))
     y = get_kernel("bcsr", "spmm", "panels")(
-        panels.rows, panels.cols, panels.vals, panels.mask, b3,
+        panels.rows, panels.cols, pvals, panels.mask, b3,
         nblocks=bcsr.nblocks, panel_ptr=panels.ptr, out_dtype=out)
     return unflatten_batch(y[:, :bcsr.nrows], batch)
 
 
-def loops_spmm_fused(fmt, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+def loops_spmm_fused(fmt, b: torch.Tensor, *, out_dtype=None,
+                     csr_vals=None, bcsr_vals=None) -> torch.Tensor:
     """Single-pass hybrid SpMM into ONE output buffer.
 
     Allocates ``(batch, r_boundary + nblocks*Br, N)`` once; the CSR-part
@@ -357,15 +378,19 @@ def loops_spmm_fused(fmt, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     needs no initialisation and there is no concatenation; the final trim
     to ``nrows`` is a view.  Unlike the reference, the boundary need not be
     a multiple of Br: the BCSR kernel takes a row offset, not a block
-    offset.  The format's panels are taken from ``fmt.on(b.device)``.
+    offset.  The format's panels are taken from ``fmt.on(b.device)``;
+    ``csr_vals``/``bcsr_vals`` (live ``(nnz,)`` / ``(ntiles, Br)`` values)
+    replace their uploaded values.
     """
     check_rhs(fmt.ncols, b)
-    vdt = fmt.csr_part.vals.dtype
+    dev = fmt.on(b.device)
+    cvals = panel_values(dev.csr, csr_vals)
+    bvals = panel_values(dev.bcsr, bcsr_vals)
+    vdt = cvals.dtype
     _, out = resolve_dtypes(vdt, out_dtype)
     if _empty_batch(b):
         return torch.zeros(b.shape[:-2] + (fmt.nrows, b.shape[-1]),
                            dtype=out, device=b.device)
-    dev = fmt.on(b.device)
     b3, batch = flatten_batch(b)
     n = int(b.shape[-1])
     nb = padded_batch(int(b3.shape[0]))
@@ -386,11 +411,87 @@ def loops_spmm_fused(fmt, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
                       value_dtype=vdt))
     if has_csr:
         get_kernel("csr", "spmm", "panels")(
-            dev.csr.rows, dev.csr.cols, dev.csr.vals, dev.csr.mask, b3,
+            dev.csr.rows, dev.csr.cols, cvals, dev.csr.mask, b3,
             nrows=r_b, panel_ptr=dev.csr.ptr, out_dtype=out, out=y)
     if has_bcsr:
         get_kernel("bcsr", "spmm", "panels")(
-            dev.bcsr.rows, dev.bcsr.cols, dev.bcsr.vals, dev.bcsr.mask, b3,
+            dev.bcsr.rows, dev.bcsr.cols, bvals, dev.bcsr.mask, b3,
             nblocks=fmt.bcsr_part.nblocks, panel_ptr=dev.bcsr.ptr,
             row_offset=r_b, out_dtype=out, out=y)
     return unflatten_batch(y[:, :fmt.nrows], batch)
+
+
+def loops_sdd(fmt, dy: torch.Tensor, b: torch.Tensor, *,
+              backend: str | None = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradient of ``Y = A @ B`` at A's stored values (both parts).
+
+    Args:
+      fmt: the forward ``LoopsFormat`` (structure only; its values are not
+        read).
+      dy:  (..., nrows, N) output cotangent, on ``b``'s device.
+      b:   (..., K, N) the forward dense operand (same leading dims).
+    Returns ``(d_csr_vals (nnz_csr,), d_bcsr_tile_vals (ntiles, Br))`` in
+    the accumulation dtype of ``b``, summed over the batch dims (the
+    values are shared across the batch).  ``"cuda"`` runs B3/B4 on the
+    panels (:mod:`repro_torch.kernels.spmm_sdd`) and reads the real slots
+    back with ``gather_values``; ``"torch"`` runs the flat references.
+    Both sample ``dY @ Bᵀ`` only at stored coordinates.
+    """
+    backend = resolve_backend(backend)
+    check_rhs(fmt.ncols, b)
+    if dy.shape[:-2] != b.shape[:-2]:
+        raise ValueError(f"dy batch dims {tuple(dy.shape[:-2])} do not "
+                         f"match b batch dims {tuple(b.shape[:-2])}")
+    if dy.ndim < 2 or dy.shape[-2] != fmt.nrows:
+        raise ValueError(f"dy must be (..., {fmt.nrows}, N); got "
+                         f"{tuple(dy.shape)}")
+    csr, bc = fmt.csr_part, fmt.bcsr_part
+    acc = acc_dtype_for(b.dtype)
+    has_csr, has_bcsr = fmt.r_boundary > 0, fmt.r_boundary < fmt.nrows
+
+    # A part with no rows, or an empty batch, has a zero gradient.
+    d_csr = torch.zeros((csr.nnz,), dtype=acc, device=b.device)
+    d_bcsr = torch.zeros(bc.tile_vals.shape, dtype=acc, device=b.device)
+    if _empty_batch(b):
+        return d_csr, d_bcsr
+    if backend == "torch":
+        dev = b.device
+        if has_csr:
+            d_csr = get_kernel("csr", "sdd", "ref")(
+                _value_tensor(csr.row_ids, dev),
+                _value_tensor(csr.col_idx, dev), dy, b)
+        if has_bcsr:
+            # The BCSR region of the cotangent, zero-padded to whole
+            # blocks: rows the forward pass trims carry zero gradient.
+            dy_b = dy[..., fmt.r_boundary:, :]
+            pad = bc.nblocks * bc.br - dy_b.shape[-2]
+            dy_pad = torch.nn.functional.pad(dy_b, (0, 0, 0, pad))
+            d_bcsr = get_kernel("bcsr", "sdd", "ref")(
+                _value_tensor(bc.tile_rows, dev),
+                _value_tensor(bc.tile_cols, dev), dy_pad, b, bc.nblocks)
+        return d_csr, d_bcsr
+    dev = fmt.on(b.device)
+    b3, _ = flatten_batch(b)
+    dy3, _ = flatten_batch(dy)
+    if dy3.dtype != b3.dtype:
+        # The reference multiplies in the accumulation dtype of b.
+        dy3 = dy3.to(acc)
+    nb = padded_batch(int(b3.shape[0]))
+    n = int(b.shape[-1])
+    for part, on, panels in (("csr", has_csr, dev.csr),
+                             ("bcsr", has_bcsr, dev.bcsr)):
+        if on:
+            _note(part, "sdd", backend=backend, impl="panels",
+                  units=int(panels.rows.shape[0]), batch=nb, n=n,
+                  pipeline_depth=int(fmt.pipeline_depth))
+    if has_csr:
+        d_csr = dev.csr.gather_values(get_kernel("csr", "sdd", "panels")(
+            dev.csr.rows, dev.csr.cols, dev.csr.mask, dy3, b3))
+    if has_bcsr:
+        # B4 reads the BCSR rows of dY in place (row offset r_boundary,
+        # rows past nrows read as zero): no padded copy of the cotangent.
+        d_bcsr = dev.bcsr.gather_values(get_kernel("bcsr", "sdd", "panels")(
+            dev.bcsr.rows, dev.bcsr.cols, dev.bcsr.mask, dy3, b3, br=bc.br,
+            row_offset=fmt.r_boundary, nrows=bc.nrows))
+    return d_csr, d_bcsr

@@ -1,0 +1,233 @@
+"""B3 and B4: the sampled dense-dense (SDD) panel kernels, the
+value-gradient half of LOOPS training.
+
+For ``Y = A @ B`` with A sparse, the gradient at A's stored values is
+``dY @ Bᵀ`` sampled at the stored coordinates, summed over the batch (the
+values are shared across it).  Both kernels walk the forward panels:
+
+  * B3, ``csr_sdd_panels`` (``csrc/csr_sdd.cu``, replaces the TPU kernel
+    ``repro/kernels/spmm_sdd.py::csr_sdd_panels_pallas``)::
+
+        out[p, i] = sum_z sum_n dY[z, rows[p], n] * B[z, cols[p, i], n]
+
+  * B4, ``bcsr_sdd_panels`` (``csrc/bcsr_sdd.cu``, replaces
+    ``repro/kernels/spmm_sdd.py::bcsr_sdd_panels_pallas``)::
+
+        out[p, r, i] = sum_z sum_n dY[z, row_offset + rows[p]*Br + r, n]
+                                   * B[z, cols[p, i], n]
+
+    where a row ``rows[p]*Br + r >= nrows`` reads as zero, so the kernel
+    takes the whole cotangent with the BCSR part's row offset instead of
+    the reference's zero-padded copy of its BCSR rows.
+
+Masked (padding) lanes are written as exactly 0 by the kernels and by the
+plain versions, so whole panel arrays compare; callers read the real slots
+through ``gather_values``.  Outputs are in the accumulation dtype of ``B``
+(fp32 for bf16/f16, else B's own).  ``dY`` has B's dtype or, as in the
+training backward, the accumulation dtype.
+
+On a CUDA tensor the wrappers launch the kernel or raise; on a CPU tensor
+they run :func:`csr_sdd_panels_plain` / :func:`bcsr_sdd_panels_plain`, the
+same panel functions in plain PyTorch.  ``.launches`` counts kernel
+launches only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .csr_spmm import _PLAIN_CHUNK
+from .engine import acc_dtype_for, register_kernel
+
+__all__ = ["csr_sdd_panels", "bcsr_sdd_panels", "csr_sdd_panels_plain",
+           "bcsr_sdd_panels_plain", "KERNEL_BRS"]
+
+# Tile heights B4 is instantiated for.
+KERNEL_BRS = (4, 8, 16)
+
+
+def _pair(dy: torch.Tensor, b: torch.Tensor):
+    """``(dy3, b3)``: both operands as (batch, rows, N)."""
+    if dy.ndim != b.ndim or b.ndim not in (2, 3):
+        raise ValueError(f"dy/b must both be rank 2 or 3; got {dy.ndim} / "
+                         f"{b.ndim}")
+    if dy.shape[-1] != b.shape[-1] or dy.shape[:-2] != b.shape[:-2]:
+        raise ValueError(f"dy {tuple(dy.shape)} and b {tuple(b.shape)} "
+                         "disagree in batch or N")
+    return (dy[None], b[None]) if b.ndim == 2 else (dy, b)
+
+
+def csr_sdd_panels_plain(panel_rows, panel_cols, panel_mask, dy, b
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of B3: ``(P, G)`` in the accumulation dtype,
+    0 at masked lanes."""
+    dy3, b3 = _pair(dy, b)
+    acc = acc_dtype_for(b.dtype)
+    npanels, g = panel_cols.shape
+    out = torch.zeros((npanels, g), dtype=acc, device=b.device)
+    step = max(1, _PLAIN_CHUNK // max(b3.shape[0] * g * b3.shape[-1], 1))
+    for s in range(0, npanels, step):
+        rows = dy3[:, panel_rows[s:s + step].long()].to(acc)    # (Z, p, N)
+        gath = b3[:, panel_cols[s:s + step].long()].to(acc)     # (Z, p, G, N)
+        out[s:s + step] = (rows[:, :, None] * gath).sum(dim=-1).sum(dim=0)
+    return torch.where(panel_mask != 0, out, torch.zeros((), dtype=acc,
+                                                          device=b.device))
+
+
+def bcsr_sdd_panels_plain(panel_rows, panel_cols, panel_mask, dy, b, *,
+                          br: int, row_offset: int = 0,
+                          nrows: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of B4: ``(P, Br, G)`` in the accumulation
+    dtype, 0 at masked lanes.  Rows ``[row_offset, row_offset + nrows)`` of
+    ``dy`` are the BCSR part's (``nrows`` defaults to the rest of ``dy``);
+    rows of a block past ``nrows`` read as zero."""
+    dy3, b3 = _pair(dy, b)
+    acc = acc_dtype_for(b.dtype)
+    z, m, n = dy3.shape
+    if nrows is None:
+        nrows = m - row_offset
+    npanels, g = panel_cols.shape
+    nblocks = int(panel_rows.max()) + 1 if npanels else 0
+    region = dy3[:, row_offset:row_offset + min(nrows, nblocks * br)]
+    slab = torch.zeros((z, nblocks * br, n), dtype=acc, device=b.device)
+    slab[:, :region.shape[1]] = region.to(acc)
+    blocks = slab.view(z, nblocks, br, n)
+    out = torch.zeros((npanels, br, g), dtype=acc, device=b.device)
+    step = max(1, _PLAIN_CHUNK // max(z * g * br * n, 1))
+    for s in range(0, npanels, step):
+        rows = blocks[:, panel_rows[s:s + step].long()]         # (Z, p, Br, N)
+        gath = b3[:, panel_cols[s:s + step].long()].to(acc)     # (Z, p, G, N)
+        out[s:s + step] = torch.einsum("zprn,zpgn->prg", rows, gath)
+    return torch.where((panel_mask != 0)[:, None, :], out,
+                       torch.zeros((), dtype=acc, device=b.device))
+
+
+def _check(rows, cols, mask, dy3, b3) -> None:
+    """Device, dtype, shape and contiguity checks shared by B3 and B4."""
+    dev = b3.device
+    for name, t in (("panel_rows", rows), ("panel_cols", cols),
+                    ("panel_mask", mask), ("dy", dy3), ("b", b3)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, b on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if rows.dtype != torch.int32 or cols.dtype != torch.int32 \
+            or mask.dtype != torch.bool:
+        raise ValueError(f"panel_rows/panel_cols must be int32 and "
+                         f"panel_mask bool, got {rows.dtype}, {cols.dtype} "
+                         f"and {mask.dtype}")
+    if cols.ndim != 2 or mask.shape != cols.shape \
+            or rows.shape != cols.shape[:1]:
+        raise ValueError(f"panel shapes disagree: rows {tuple(rows.shape)}, "
+                         f"cols {tuple(cols.shape)}, mask "
+                         f"{tuple(mask.shape)}")
+    if b3.dtype not in _build.DTYPE_CODES or dy3.dtype not in (
+            b3.dtype, acc_dtype_for(b3.dtype)):
+        raise ValueError(f"b ({b3.dtype}) must be one of "
+                         f"{list(_build.DTYPE_CODES)} and dy ({dy3.dtype}) "
+                         "its dtype or its accumulation dtype")
+
+
+_CSR_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6
+                 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def csr_sdd_panels(panel_rows, panel_cols, panel_mask, dy, b
+                   ) -> torch.Tensor:
+    """B3 on ``b``'s device.
+
+    Args:
+      panel_rows: (P,) int32 cotangent row of each panel.
+      panel_cols: (P, G) int32 gather rows of ``b``.
+      panel_mask: (P, G) lane validity (``bool`` for the kernel).
+      dy:         (M, N) or (batch, M, N) output cotangent.
+      b:          (K, N) or (batch, K, N) forward dense operand.
+    Returns (P, G) gradients in the accumulation dtype, summed over the
+    batch, 0 at masked lanes.
+    """
+    if b.device.type == "cpu":
+        return csr_sdd_panels_plain(panel_rows, panel_cols, panel_mask, dy,
+                                    b)
+    if b.device.type != "cuda":
+        raise ValueError(f"csr_sdd_panels runs on cuda or cpu tensors, not "
+                         f"{b.device}")
+    dy3, b3 = _pair(dy, b)
+    _check(panel_rows, panel_cols, panel_mask, dy3, b3)
+    npanels, g = panel_cols.shape
+    out = torch.empty((npanels, g), dtype=acc_dtype_for(b3.dtype),
+                      device=b3.device)
+    fn = _build.kernel_fn("csr_sdd", "csr_sdd_panels", _CSR_ARGTYPES)
+    with torch.cuda.device(b3.device):
+        rc = fn(panel_rows.data_ptr(), panel_cols.data_ptr(),
+                panel_mask.data_ptr(), dy3.data_ptr(), b3.data_ptr(),
+                out.data_ptr(), npanels, g, dy3.shape[1], b3.shape[1],
+                b3.shape[2], b3.shape[0], _build.DTYPE_CODES[dy3.dtype],
+                _build.DTYPE_CODES[b3.dtype],
+                torch.cuda.current_stream(b3.device).cuda_stream)
+    _build.check_launch("csr_sdd_panels", rc)
+    csr_sdd_panels.launches += 1
+    return out
+
+
+csr_sdd_panels.launches = 0
+
+_BCSR_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 9
+                  + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def bcsr_sdd_panels(panel_rows, panel_cols, panel_mask, dy, b, *, br: int,
+                    row_offset: int = 0,
+                    nrows: int | None = None) -> torch.Tensor:
+    """B4 on ``b``'s device.
+
+    Args:
+      panel_rows: (P,) int32 block-row of each panel.
+      panel_cols: (P, G) int32 gather rows of ``b``.
+      panel_mask: (P, G) lane validity (``bool`` for the kernel).
+      dy:         (M, N) or (batch, M, N) cotangent; the part's rows start
+                  at ``row_offset``.
+      b:          (K, N) or (batch, K, N) forward dense operand.
+      br:         tile height, in :data:`KERNEL_BRS` for the kernel.
+      nrows:      rows of the part (default: the rest of ``dy``); block
+                  rows past it read as zero.
+    Returns (P, Br, G) gradients in the accumulation dtype, summed over the
+    batch, 0 at masked lanes.
+    """
+    if b.device.type == "cpu":
+        return bcsr_sdd_panels_plain(panel_rows, panel_cols, panel_mask, dy,
+                                     b, br=br, row_offset=row_offset,
+                                     nrows=nrows)
+    if b.device.type != "cuda":
+        raise ValueError(f"bcsr_sdd_panels runs on cuda or cpu tensors, not "
+                         f"{b.device}")
+    dy3, b3 = _pair(dy, b)
+    _check(panel_rows, panel_cols, panel_mask, dy3, b3)
+    if br not in KERNEL_BRS:
+        raise ValueError(f"br must be one of {KERNEL_BRS}, got {br}")
+    if nrows is None:
+        nrows = dy3.shape[1] - row_offset
+    if row_offset < 0 or nrows < 0 or row_offset + nrows > dy3.shape[1]:
+        raise ValueError(f"rows [{row_offset}, {row_offset + nrows}) are not "
+                         f"inside dy's {dy3.shape[1]} rows")
+    npanels, g = panel_cols.shape
+    out = torch.empty((npanels, br, g), dtype=acc_dtype_for(b3.dtype),
+                      device=b3.device)
+    fn = _build.kernel_fn("bcsr_sdd", "bcsr_sdd_panels", _BCSR_ARGTYPES)
+    with torch.cuda.device(b3.device):
+        rc = fn(panel_rows.data_ptr(), panel_cols.data_ptr(),
+                panel_mask.data_ptr(), dy3.data_ptr(), b3.data_ptr(),
+                out.data_ptr(), npanels, br, g, dy3.shape[1], b3.shape[1],
+                b3.shape[2], b3.shape[0], row_offset, nrows,
+                _build.DTYPE_CODES[dy3.dtype], _build.DTYPE_CODES[b3.dtype],
+                torch.cuda.current_stream(b3.device).cuda_stream)
+    _build.check_launch("bcsr_sdd_panels", rc)
+    bcsr_sdd_panels.launches += 1
+    return out
+
+
+bcsr_sdd_panels.launches = 0
+
+register_kernel("csr", "sdd", "panels", csr_sdd_panels)
+register_kernel("bcsr", "sdd", "panels", bcsr_sdd_panels)

@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA kernels B1 and B2 against their plain
-PyTorch versions, and ``loops_spmm`` / the GCN against the flat PyTorch
-path.  Every test here needs a CUDA device and skips without one.
+"""The port on the card: the CUDA kernels B1-B4 against their plain
+PyTorch versions, and ``loops_spmm`` / ``loops_spmm_values`` (forward and
+backward) and the GCN against the flat PyTorch path.  Every test here
+needs a CUDA device and skips without one.
 
 This file imports neither JAX nor the reference package, so it runs on the
 GPU machine as it is:
@@ -16,7 +17,7 @@ import torch
 from repro_torch.core import formats as tf
 from repro_torch.core import spmm as tspmm
 from repro_torch.core import suite as tsuite
-from repro_torch.kernels import bcsr_spmm, csr_spmm
+from repro_torch.kernels import bcsr_spmm, csr_spmm, spmm_sdd
 from repro_torch.models import GCN, gcn_params_from_numpy
 
 
@@ -139,3 +140,91 @@ def test_cuda_gcn_matches_cpu(cuda):
         torch.from_numpy(x))
     scale = max(1.0, float(want.abs().max()))
     assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname", ["float32", "float64", "bfloat16",
+                                   "float16"])
+def test_cuda_sdd_kernels_match_plain(cuda, rng, dname):
+    """B3 and B4 against their plain versions, whole panel arrays (masked
+    lanes 0 in both), with dY in B's dtype and, for half B, in fp32; B4
+    with the part's row offset equals B4 on the zero-padded rows."""
+    dt = getattr(torch, dname)
+    half = dname in ("bfloat16", "float16")
+    tol = {"float32": 1e-5, "float64": 1e-12}.get(dname, 1e-2)
+    br = 16 if half else 8
+    for name, a in adversarial_cases(rng).items():
+        m = a.shape[0]
+        fmt = tf.loops_from_csr(tf.csr_from_dense(a), m // 2 // br * br, br,
+                                panel_g=3)
+        dev = fmt.on(cuda)
+        r_b, nb = fmt.r_boundary, fmt.bcsr_part.nblocks
+        for shape_b, n in (((a.shape[1],), 40), ((3, a.shape[1]), 600)):
+            b = torch.randn(shape_b[:-1] + (shape_b[-1], n),
+                            device=cuda).to(dt)
+            for dy_dt in ((dt, torch.float32) if half else (dt,)):
+                dy = torch.randn(shape_b[:-1] + (m, n), device=cuda).to(dy_dt)
+                runs = [(spmm_sdd.csr_sdd_panels,
+                         spmm_sdd.csr_sdd_panels_plain, dev.csr, {}, dy)]
+                dy_pad = torch.zeros(dy.shape[:-2] + (nb * br, n),
+                                     device=cuda, dtype=dy_dt)
+                dy_pad[..., :m - r_b, :] = dy[..., r_b:, :]
+                runs += [(spmm_sdd.bcsr_sdd_panels,
+                          spmm_sdd.bcsr_sdd_panels_plain, dev.bcsr,
+                          {"br": br, "row_offset": r_b, "nrows": m - r_b}, dy),
+                         (spmm_sdd.bcsr_sdd_panels,
+                          spmm_sdd.bcsr_sdd_panels_plain, dev.bcsr,
+                          {"br": br}, dy_pad)]
+                outs = []
+                for fn, plain, p, kw, d in runs:
+                    launches = fn.launches
+                    got = fn(p.rows, p.cols, p.mask, d, b, **kw)
+                    assert fn.launches == launches + 1
+                    want = plain(p.rows, p.cols, p.mask, d, b, **kw)
+                    assert got.shape == want.shape and got.dtype == want.dtype
+                    if want.numel():
+                        scale = max(1.0, float(want.abs().max()))
+                        err = float((got.double() - want.double()).abs().max())
+                        assert err <= tol * scale, (name, fn.__name__, n, err)
+                    outs.append(got)
+                assert torch.equal(outs[1], outs[2]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_cuda_loops_spmm_values_backward_matches_flat(cuda, dname):
+    """One ``loops_spmm_values`` forward and backward on the kernels (B1/B2
+    forward, B1/B2 on Aᵀ for dB, B3/B4 for the values) against autograd
+    through the flat path, with the same cotangent.  The flat path runs in
+    fp32 on the same values (bf16 is exact in fp32): in bf16 its autograd
+    rounds every gathered product's gradient to bf16 before the scatter."""
+    dt = getattr(torch, dname)
+    rng = np.random.default_rng(0)
+    w = rng.standard_normal((512, 96)).astype(np.float32)
+    from repro_torch.models import sparse_linear_from_dense
+    layer = sparse_linear_from_dense(torch.from_numpy(w).to(dt), 0.8)
+    fmt = layer.fmt
+    assert 0 < fmt.r_boundary < fmt.nrows
+    b = torch.randn((2, 96, 48), device=cuda).to(dt).requires_grad_(True)
+    dy = torch.randn((2, 512, 48), device=cuda)
+    kernels = (csr_spmm.csr_panels_spmm, bcsr_spmm.bcsr_panels_spmm,
+               spmm_sdd.csr_sdd_panels, spmm_sdd.bcsr_sdd_panels)
+    before = [k.launches for k in kernels]
+    y = tspmm.loops_spmm_values(fmt, layer.csr_vals, layer.bcsr_vals, b)
+    got = torch.autograd.grad(y, [layer.csr_vals, layer.bcsr_vals, b], dy)
+    tl = fmt.transposed(dtype=dt)
+    assert [k.launches - n for k, n in zip(kernels, before)] == [
+        1 + int(tl.fmt.r_boundary > 0),
+        1 + int(tl.fmt.r_boundary < tl.fmt.nrows), 1, 1]
+    flat_in = [t.detach().float().requires_grad_(True)
+               for t in (layer.csr_vals, layer.bcsr_vals, b)]
+    before = [k.launches for k in kernels]
+    want = torch.autograd.grad(
+        tspmm.loops_spmm_values(fmt, *flat_in, backend="torch"), flat_in,
+        dy)
+    assert [k.launches for k in kernels] == before
+    tol = 1e-5 if dname == "float32" else 1e-2
+    for g, w_ in zip(got, want):
+        assert g.dtype == dt and g.shape == w_.shape
+        scale = max(1.0, float(w_.abs().max()))
+        assert float((g.double() - w_.double()).abs().max()) <= tol * scale

@@ -23,7 +23,7 @@ from repro.kernels.bcsr_spmm import bcsr_panels_spmm_pallas
 from repro.kernels.csr_spmm import csr_panels_spmm_pallas
 from repro.kernels.panel_common import default_bn as r_default_bn
 from repro_torch.core import formats as tf
-from repro_torch.kernels import bcsr_spmm, csr_spmm, engine
+from repro_torch.kernels import bcsr_spmm, csr_spmm, engine, spmm_sdd
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.panel_common import default_bn
 
@@ -288,5 +288,9 @@ def test_registry_resolves_both_flavours():
     assert engine.get_kernel("bcsr", "spmm") is bcsr_spmm.bcsr_panels_spmm
     assert engine.get_kernel("csr", "spmm", "ref") is tref.csr_spmm_ref
     assert engine.get_kernel("bcsr", "spmm", "ref") is tref.bcsr_spmm_ref
+    assert engine.get_kernel("csr", "sdd") is spmm_sdd.csr_sdd_panels
+    assert engine.get_kernel("bcsr", "sdd") is spmm_sdd.bcsr_sdd_panels
+    assert engine.get_kernel("csr", "sdd", "ref") is tref.csr_sdd_ref
+    assert engine.get_kernel("bcsr", "sdd", "ref") is tref.bcsr_sdd_ref
     with pytest.raises(KeyError):
-        engine.get_kernel("csr", "sdd")
+        engine.get_kernel("csr", "spgemm")

@@ -1,7 +1,7 @@
 """Slice parity of the PyTorch port: ``repro_torch.core.loops_spmm`` on the
 CPU against the JAX reference's ``loops_spmm(backend="jnp")`` and dense
 numpy, the structural step counts, the GCN forward, and the port's guards
-(no JAX import, CUDA by default, no silent autograd)."""
+(no JAX import, CUDA by default, autograd never cut)."""
 import contextlib
 import subprocess
 import sys
@@ -171,13 +171,21 @@ def test_shape_and_dtype_errors(rng):
 
 
 def test_autograd_raises_instead_of_cutting_the_graph(rng):
-    fp = tf.loops_from_csr(tf.csr_from_dense(np.eye(4, dtype=np.float32)),
-                           0, 4)
-    b = torch.ones((4, 3), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="autograd"):
-        tspmm.loops_spmm(fp, b, device="cpu")
-    with torch.no_grad():
-        assert torch.equal(tspmm.loops_spmm(fp, b, device="cpu"), b)
+    """The graph is not cut: ``b.grad`` is the dense ``Aᵀ·dY`` (the name
+    is kept from when the port refused to differentiate)."""
+    a = adversarial_cases(rng)["empty_rows"].astype(np.float32)
+    for r_b in (0, 16, a.shape[0]):
+        fp = tf.loops_from_csr(tf.csr_from_dense(a), r_b, 8, panel_g=3)
+        b = torch.tensor(rng.standard_normal((a.shape[1], 5)).astype(
+            np.float32), requires_grad=True)
+        dy = rng.standard_normal((a.shape[0], 5)).astype(np.float32)
+        y = tspmm.loops_spmm(fp, b, device="cpu")
+        assert y.requires_grad
+        y.backward(torch.from_numpy(dy))
+        np.testing.assert_allclose(b.grad.numpy(), a.T @ dy, rtol=1e-5,
+                                   atol=1e-5)
+        with torch.no_grad():
+            assert not tspmm.loops_spmm(fp, b, device="cpu").requires_grad
 
 
 @pytest.mark.parametrize("mid", ["m6", "m10", "m13"])
@@ -246,9 +254,12 @@ def test_gcn_logits_match_reference():
         x = rng.standard_normal((nodes, f_in)).astype(np.float32)
         got = model(torch.from_numpy(x))
         assert got.shape == (nodes, f_out)
-        np.testing.assert_allclose(got.numpy(), _gcn_reference(fr, x, params),
+        np.testing.assert_allclose(got.detach().numpy(),
+                                   _gcn_reference(fr, x, params),
                                    rtol=1e-5, atol=1e-5)
-    assert not any(p.requires_grad for p in model.parameters())
+    got.sum().backward()
+    assert all(p.grad is not None and bool(p.grad.any())
+               for p in model.parameters())
 
 
 def test_baselines_match_reference(rng):
