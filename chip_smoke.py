@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of LOOPS (``src/repro_torch``) on one GPU.
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU: the LOOPS
+SpMM paths and the llama3.2-1b server.
 
 Run from the repository root, on a machine with an NVIDIA H100:
 
@@ -17,6 +18,10 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  adversarial panel shapes, batch 1/3/11, N 32/40/600, the
                  fused buffer with a row offset, and B4 reading the whole
                  cotangent with a row offset against the zero-padded rows;
+                 and B5 (flash attention) at the reference test's three
+                 shapes, a ragged S of 1000 (hd 64 and 128) and the serving
+                 shape (4, 2048, 32 heads, 8 kv heads, hd 64), causal and
+                 not, fp32 / bf16 / f16;
   3. main     -- ``plan_and_convert`` -> ``loops_spmm`` at the published
                  sizes of pwtk (m6, 200k rows) and in-2004 (m4, 1.4M rows),
                  N=32, checked against the flat PyTorch path on the card,
@@ -39,11 +44,26 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  weight) against the flat path's autograd, a few SGD steps,
                  B3/B4 timed alone with their bounds and
                  ``torch.sparse.sampled_addmm`` as the yardstick, and one
-                 step's kernels by device time.
+                 step's kernels by device time;
+  7. serve_lm -- llama3.2-1b at full width (16 layers, d 2048, 32 heads,
+                 8 kv heads, vocab 128,256) in bf16 with seeded random
+                 weights, serving 4 requests of 2048 prompt + 32 generated
+                 tokens (greedy) through ``ServeQueue``: prefill ms, decode
+                 ms per step, tokens/s, time to first token, peak memory,
+                 B5's launches (16 per prefill call); the same model in fp32,
+                 one 2048-token prompt and 8 teacher-forced decode steps
+                 through B5 and through the plain attention path, and
+                 decode(token S | prefill(S)) against prefill(S + 1); the
+                 bf16 greedy tokens' agreement with the plain path; B5 alone
+                 at the serving shape in bf16 and fp32 (bound, plain
+                 version, ``scaled_dot_product_attention`` as the
+                 yardstick); one prefill call's and one decode step's
+                 kernels by device time.
 
-Each kernel's launch count is set to 0 just before phases 3-6 drive their
+Each kernel's launch count is set to 0 just before phases 3-7 drive their
 path and read just after; a kernel of a path that did not launch fails the
-run.  The last two lines are ``{"kernels": [...]}`` and
+run, and so does a launch of a kernel that is not on the path (B5 in
+phases 3-6, B1-B4 in phase 7).  The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero with no
 result.  ``--out DIR`` also writes the full record to
 ``DIR/chip_smoke.json``.
@@ -61,7 +81,15 @@ tolerance (bf16 1e-2: the kernel path casts dY to bf16 before dx, as the
 reference does); in phase 5 the chain of |Â|ᵀ, |h|, |w1| and |x| products at
 ``GCN_TOL``, four SpMMs and four matmuls deep, with relu's mask taken as
 all-ones (it may flip where an activation is within rounding of 0), and the
-reference example's own check, max |g - g_flat| <= 1e-4.
+reference example's own check, max |g - g_flat| <= 1e-4.  B5 against its
+plain version: 2e-5 in fp32 (the reference kernel test's) and 1e-2 in half
+(both accumulate in fp32 and round the output once: at most an output ulp
+apart), of max(1, max |plain|).  The LM's fp32 logits, B5 path against the
+plain attention path and decode against prefill: ``LM_TOL`` = 1e-4 of
+max(1, max |logits|), as the GCN's; the two paths differ only in the order
+of attention's fp32 sums (~1e-7 relative), carried through 16 layers and a
+2048-wide head, which leaves the logits ~1e-6 apart.  TF32 is off, and so
+are cuBLAS's reduced-precision bf16 reductions.
 """
 from __future__ import annotations
 
@@ -101,6 +129,19 @@ FFN_D_OUT, FFN_D_IN, FFN_SPARSITY = 8192, 2048, 0.9
 FFN_X_SHAPE = (2, 1024, 2048)
 FFN_DTYPES = ("float32", "bfloat16")
 FFN_STEPS, FFN_LR = 3, 1e-4
+
+# llama3.2-1b (src/repro/configs/llama3_2_1b.py) at full width, served:
+# 4 requests of 2048 prompt tokens and 32 generated tokens, greedy; the
+# fp32 check decodes 8 teacher-forced tokens after one 2048-token prompt.
+LM_ARCH, LM_SEED = "llama3.2-1b", 0
+LM_BATCH, LM_PROMPT, LM_GEN, LM_CHECK_STEPS = 4, 2048, 32, 8
+LM_TOL = 1e-4
+# B5 in phase 2: (B, S, H, KV, hd); the reference test's three shapes, a
+# ragged S and the serving shape.
+FLASH_SHAPES = ((1, 64, 1, 1, 16), (2, 128, 4, 2, 32), (1, 64, 6, 2, 16),
+                (2, 1000, 8, 2, 64), (1, 1000, 4, 1, 128),
+                (LM_BATCH, LM_PROMPT, 32, 8, 64))
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 1e-2, "float16": 1e-2}
 
 RECORD = {"phases": []}
 
@@ -459,13 +500,48 @@ def phase_kernels() -> dict:
         cp.rows, cp.cols, cp.mask, dy, b))
     ms["bcsr_sdd_panels"] = time_ms(lambda: spmm_sdd.bcsr_sdd_panels(
         bp.rows, bp.cols, bp.mask, dy, b, br=8, row_offset=152, nrows=148))
+    ncheck += _flash_checks(worst)
     rec = {"phase": "kernels_vs_plain", "checks": ncheck,
            "kernels": [{"name": k, "launches_in_checks":
                         _kernel_fns()[k].launches,
-                        "max_rel_err": worst[k], "ms_300x257_fp32_n32": ms[k]}
+                        "max_rel_err": worst[k],
+                        "ms_300x257_fp32_n32": ms.get(k)}
                        for k in worst]}
     phase(rec)
     return rec
+
+
+def _flash_checks(worst) -> int:
+    """B5 against its plain version on the same card tensors, every shape
+    of ``FLASH_SHAPES``, causal and not, fp32 / bf16 / f16."""
+    import torch
+    from repro_torch.kernels import flash_attention as b5
+    checks = 0
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    for bsz, seq, heads, kv, hd in FLASH_SHAPES:
+        for dname, tol in FLASH_TOL.items():
+            dt = getattr(torch, dname)
+            q = torch.randn((bsz, seq, heads, hd), generator=gen,
+                            device=DEVICE).to(dt)
+            k = torch.randn((bsz, seq, kv, hd), generator=gen,
+                            device=DEVICE).to(dt)
+            v = torch.randn((bsz, seq, kv, hd), generator=gen,
+                            device=DEVICE).to(dt)
+            for causal in (True, False):
+                got = b5.flash_attention(q, k, v, causal=causal)
+                want = b5.flash_attention_plain(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                check(got.shape == want.shape and got.dtype == dt,
+                      f"flash_attention: {got.shape} {got.dtype}")
+                err, scale = max_err(got, want)
+                check(err <= tol * scale, f"flash_attention {dname} "
+                      f"{(bsz, seq, heads, kv, hd)} causal={causal}: err "
+                      f"{err:.3g} > {tol:g} * {scale:.3g}")
+                worst["flash_attention"] = max(worst["flash_attention"],
+                                               err / scale)
+                checks += 1
+            del q, k, v, got, want
+    return checks
 
 
 def _sdd_checks(fmt, cp, bp, b, dt, tol, worst, rng) -> int:
@@ -517,17 +593,19 @@ def _sdd_checks(fmt, cp, bp, b, dt, tol, worst, rng) -> int:
 # ---------------------------------------------------------------------------
 
 # The kernels of the port's paths: B1 and B2 (product), B3 and B4 (value
-# gradient).
+# gradient), B5 (the LM's prefill attention).
 KERNELS = ("csr_panels_spmm", "bcsr_panels_spmm", "csr_sdd_panels",
-           "bcsr_sdd_panels")
+           "bcsr_sdd_panels", "flash_attention")
 
 
 def _kernel_fns() -> dict:
-    from repro_torch.kernels import bcsr_spmm, csr_spmm, spmm_sdd
+    from repro_torch.kernels import (bcsr_spmm, csr_spmm, flash_attention,
+                                     spmm_sdd)
     return {"csr_panels_spmm": csr_spmm.csr_panels_spmm,
             "bcsr_panels_spmm": bcsr_spmm.bcsr_panels_spmm,
             "csr_sdd_panels": spmm_sdd.csr_sdd_panels,
-            "bcsr_sdd_panels": spmm_sdd.bcsr_sdd_panels}
+            "bcsr_sdd_panels": spmm_sdd.bcsr_sdd_panels,
+            "flash_attention": flash_attention.flash_attention}
 
 
 def _reset_counts():
@@ -572,7 +650,8 @@ def phase_main(launches: dict) -> list:
                 launches[k] += v
             has = {"csr_panels_spmm": plan.r_boundary > 0,
                    "bcsr_panels_spmm": plan.r_boundary < csr.nrows,
-                   "csr_sdd_panels": False, "bcsr_sdd_panels": False}
+                   "csr_sdd_panels": False, "bcsr_sdd_panels": False,
+                   "flash_attention": False}
             for k, v in counts.items():
                 check(v == int(has[k]), f"{mid} {dname}: {k} launched {v} "
                       f"times in one loops_spmm (expected {int(has[k])})")
@@ -831,7 +910,7 @@ def phase_train_gcn(launches: dict) -> dict:
     fwd, bwd = _has_parts(fmt), _has_parts(tl.fmt)
     want = {"csr_panels_spmm": 2 * (fwd[0] + bwd[0]) * GCN_TRAIN_STEPS,
             "bcsr_panels_spmm": 2 * (fwd[1] + bwd[1]) * GCN_TRAIN_STEPS,
-            "csr_sdd_panels": 0, "bcsr_sdd_panels": 0}
+            "csr_sdd_panels": 0, "bcsr_sdd_panels": 0, "flash_attention": 0}
     for k, v in counts.items():
         launches[k] += v
         check(v == want[k], f"train_gcn: {k} launched {v} times in "
@@ -1005,7 +1084,8 @@ def phase_train_ffn(launches: dict) -> list:
         want_n = {"csr_panels_spmm": (fw[0] + bw[0]) * FFN_STEPS,
                   "bcsr_panels_spmm": (fw[1] + bw[1]) * FFN_STEPS,
                   "csr_sdd_panels": fw[0] * FFN_STEPS,
-                  "bcsr_sdd_panels": fw[1] * FFN_STEPS}
+                  "bcsr_sdd_panels": fw[1] * FFN_STEPS,
+                  "flash_attention": 0}
         for k, v in counts.items():
             launches[k] += v
             check(v == want_n[k], f"train_ffn {dname}: {k} launched {v} "
@@ -1036,6 +1116,224 @@ def phase_train_ffn(launches: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: serving llama3.2-1b at full width
+# ---------------------------------------------------------------------------
+
+def flash_bound(q, k, *, causal: bool) -> dict:
+    """Least time of one B5 call: Q, K, V read once and O written once;
+    the QKᵀ and P·V flops of the (query, key) pairs the mask keeps, S(S+1)/2
+    of S² per head when causal, at the dtype's peak."""
+    bsz, seq, heads, hd = q.shape
+    pairs = seq * (seq + 1) / 2 if causal else float(seq * seq)
+    flops = 4.0 * hd * pairs * bsz * heads
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return bound(bytes_moved=float(nbytes), flops=flops,
+                 dtype=str(q.dtype).replace("torch.", ""))
+
+
+def _lm_logits_err(name: str, got, want) -> float:
+    """Check fp32 logits against the reference path's at ``LM_TOL``;
+    returns the error relative to max(1, max |want|)."""
+    import torch
+    err, scale = max_err(got, want)
+    check(bool(torch.isfinite(got).all()) and err <= LM_TOL * scale,
+          f"{name}: max |diff| {err:.3g} > {LM_TOL:g} * {scale:.3g}")
+    return err / scale
+
+
+def _b5_alone(dt) -> dict:
+    """B5 at the serving shape on seeded tensors: its time, its plain
+    version's, ``scaled_dot_product_attention``'s on the same tensors (the
+    yardstick; the port never calls it), its error against the plain
+    version, and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as b5
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    _, _, heads, kv, hd = FLASH_SHAPES[-1]
+    q = torch.randn((LM_BATCH, LM_PROMPT, heads, hd), generator=gen,
+                    device=DEVICE).to(dt)
+    k = torch.randn((LM_BATCH, LM_PROMPT, kv, hd), generator=gen,
+                    device=DEVICE).to(dt)
+    v = torch.randn((LM_BATCH, LM_PROMPT, kv, hd), generator=gen,
+                    device=DEVICE).to(dt)
+    got = b5.flash_attention(q, k, v, causal=True)
+    want = b5.flash_attention_plain(q, k, v, causal=True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    lib = sdpa().transpose(1, 2)
+    torch.cuda.synchronize()
+    err, scale = max_err(got, want)
+    tol = FLASH_TOL[str(dt).replace("torch.", "")]
+    check(err <= tol * scale, f"flash_attention alone: err {err:.3g}")
+    lib_err, _ = max_err(lib, want)
+    return {"dtype": str(dt), "shape": list(q.shape), "kv_heads": kv,
+            "ms": time_ms(lambda: b5.flash_attention(q, k, v, causal=True)),
+            "plain_ms": time_ms(lambda: b5.flash_attention_plain(
+                q, k, v, causal=True), samples=3, reps=1, warmup=1),
+            "library_ms": time_ms(sdpa),
+            "library": "torch.nn.functional.scaled_dot_product_attention("
+                       "is_causal=True, enable_gqa=True)",
+            "library_max_abs_err_vs_plain": lib_err,
+            "max_abs_err": err, "max_err_rel": err / scale,
+            **flash_bound(q, k, causal=True)}
+
+
+def phase_serve_lm(launches: dict) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.queue import ServeQueue, pad_cache
+    from repro_torch.serve.scheduler import SchedulerConfig
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = get_config(LM_ARCH)
+    layers = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(LM_SEED),
+        device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = api.num_params(params)
+    rng = np.random.default_rng(LM_SEED + 1)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    # First use of cuBLAS's kernels at these shapes, outside the counts.
+    warm = ServeQueue(cfg, params)
+    warm.submit(prompts[0, :256].tolist(), 2)
+    warm.drain()
+    torch.cuda.synchronize()
+
+    queue = ServeQueue(cfg, params, config=SchedulerConfig(max_batch=8))
+    _reset_counts()
+    t0 = time.perf_counter()
+    reqs = [queue.submit(row.tolist(), LM_GEN) for row in prompts]
+    done = queue.drain()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = _read_counts()
+    n_prefill = queue.sched.counters["prefill_batches"]
+    for k, v in counts.items():
+        launches[k] += v
+        want = layers * n_prefill if k == "flash_attention" else 0
+        check(v == want, f"serve_lm: {k} launched {v} times for {n_prefill} "
+              f"prefill calls (expected {want})")
+    check(n_prefill == 1 and len(done) == LM_BATCH,
+          f"serve_lm: {len(done)} of {LM_BATCH} requests in {n_prefill} "
+          "prefill calls")
+    served = np.array([r.tokens for r in reqs])
+    check(served.shape == (LM_BATCH, LM_GEN) and served.min() >= 0
+          and served.max() < cfg.vocab_size,
+          f"serve_lm: tokens {served.shape} in [{served.min()}, "
+          f"{served.max()}]")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decode_ms = [s * 1e3 for s in queue.engine_s["decode"]]
+    n_tokens = int(served.size)
+
+    # bf16: the plain attention path, teacher-forced with the served tokens;
+    # the share of its greedy tokens equal to the served (B5) ones.
+    prompts_t = torch.as_tensor(prompts, device=DEVICE)
+    served_t = torch.as_tensor(served, device=DEVICE)
+    before = _read_counts()
+    cache, logits = api.prefill(cfg, params, {"tokens": prompts_t},
+                                backend="torch")
+    plain_tokens = [logits[:, :cfg.vocab_size].argmax(-1)]
+    cache = pad_cache(cfg, cache, LM_PROMPT + LM_GEN)
+    for i in range(LM_GEN - 1):
+        cache, logits = api.decode_step(cfg, params, cache,
+                                        served_t[:, i:i + 1], LM_PROMPT + i)
+        plain_tokens.append(logits[:, :cfg.vocab_size].argmax(-1))
+    agree = float((torch.stack(plain_tokens, 1) == served_t).float().mean())
+    check(_read_counts() == before, "serve_lm: the plain path launched a "
+          "kernel")
+    # One prefill call's and one decode step's kernels by device time (B5's
+    # share of the prefill; the device's idle share of a decode step).
+    profile = profile_step(lambda: api.prefill(cfg, params,
+                                               {"tokens": prompts_t}))
+    b5_share = sum(r["device_ms"] for r in profile["top"]
+                   if "flash_mma_kernel" in r["name"]
+                   or "flash_fwd_kernel" in r["name"])
+    profile_dec = profile_step(lambda: api.decode_step(
+        cfg, params, cache, served_t[:, -1:], LM_PROMPT + LM_GEN - 1))
+    del cache, logits, params
+
+    # fp32: logits through B5 and through the plain path, teacher-forced;
+    # decode against prefill of one more token (S + 1 = 2049: B5's ragged
+    # edge).
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = api.init_params(
+        cfg32, torch.Generator(device=DEVICE).manual_seed(LM_SEED),
+        device=DEVICE)
+    toks = prompts_t[:1]
+    teacher = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                           (1, LM_CHECK_STEPS)),
+                              device=DEVICE)
+
+    def run(backend):
+        cache, logits = api.prefill(cfg32, params32, {"tokens": toks},
+                                    backend=backend)
+        outs = [logits]
+        cache = pad_cache(cfg32, cache, LM_PROMPT + LM_CHECK_STEPS)
+        for i in range(LM_CHECK_STEPS):
+            cache, logits = api.decode_step(cfg32, params32, cache,
+                                            teacher[:, i:i + 1],
+                                            LM_PROMPT + i)
+            outs.append(logits)
+        return outs
+    n0 = _kernel_fns()["flash_attention"].launches
+    kernel_outs = run(None)
+    check(_kernel_fns()["flash_attention"].launches == n0 + layers,
+          "serve_lm fp32: the kernel path did not launch B5 once a layer")
+    plain_outs = run("torch")
+    torch.cuda.synchronize()
+    step_errs = [_lm_logits_err(f"serve_lm fp32 logits step {i}", g, w)
+                 for i, (g, w) in enumerate(zip(kernel_outs, plain_outs))]
+    _, longer = api.prefill(cfg32, params32, {"tokens": torch.cat(
+        [toks, teacher[:, :1]], 1)})
+    dec_err = _lm_logits_err("serve_lm fp32 decode(S) vs prefill(S+1)",
+                             kernel_outs[1], longer)
+    del params32, kernel_outs, plain_outs, longer
+    torch.cuda.empty_cache()
+
+    alone = _b5_alone(torch.bfloat16)
+    alone_fp32 = _b5_alone(torch.float32)
+    rec = {"phase": "serve_lm", "arch": LM_ARCH, "params": n_params,
+           "dtype": "bfloat16", "layers": layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "vocab": cfg.vocab_size, "requests": LM_BATCH,
+           "prompt_len": LM_PROMPT, "gen_len": LM_GEN,
+           "bf16_reduced_precision_reduction": False,
+           "init_s": init_s, "serve_s": serve_s,
+           "prefill_calls": n_prefill,
+           "prefill_ms": [s * 1e3 for s in queue.engine_s["prefill"]],
+           "decode_steps": len(decode_ms),
+           "decode_ms_median": statistics.median(decode_ms),
+           "decode_ms": decode_ms,
+           "ttft_ms": [r.wall_ttft_s * 1e3 for r in reqs],
+           "tokens": n_tokens, "tokens_per_s": n_tokens / serve_s,
+           "decode_tokens_per_s": LM_BATCH / (
+               statistics.median(decode_ms) / 1e3),
+           "peak_mem_gb": peak_gb, "launches": counts,
+           "greedy_agreement_bf16_vs_plain": agree,
+           "fp32_logits_err_rel": step_errs,
+           "fp32_decode_vs_prefill_err_rel": dec_err,
+           "b5_alone": alone, "b5_alone_fp32": alone_fp32,
+           "profiled_prefill": profile,
+           "profiled_prefill_b5_device_ms": b5_share,
+           "profiled_decode_step": profile_dec}
+    phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "csr_panels_spmm": ("src/repro_torch/csrc/csr_spmm.cu",
@@ -1046,6 +1344,8 @@ SOURCES = {
                        "src/repro/kernels/spmm_sdd.py:164"),
     "bcsr_sdd_panels": ("src/repro_torch/csrc/bcsr_sdd.cu",
                         "src/repro/kernels/spmm_sdd.py:336"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:82"),
 }
 
 
@@ -1081,17 +1381,22 @@ def main(argv=None) -> int:
     phase_gcn(launches)
     phase_train_gcn(launches)
     ffn_recs = phase_train_ffn(launches)
+    lm_rec = phase_serve_lm(launches)
     for k, v in launches.items():
         check(v > 0, f"{k} never launched on the port's paths")
 
-    # The kernels line reports B1/B2 at the pwtk (m6) fp32 main-path call
-    # and B3/B4 at the fp32 sparse-FFN backward.
+    # The kernels line reports B1/B2 at the pwtk (m6) fp32 main-path call,
+    # B3/B4 at the fp32 sparse-FFN backward and B5 at the bf16 serving
+    # shape.
     rep = next(r for r in main_recs
                if r["matrix"] == "m6" and r["dtype"] == "float32")
     rep_ffn = next(r for r in ffn_recs if r["dtype"] == "float32")
     line = []
     for name, (src, replaces) in SOURCES.items():
-        k = (rep if name.endswith("spmm") else rep_ffn)["kernels"][name]
+        if name == "flash_attention":
+            k = lm_rec["b5_alone"]
+        else:
+            k = (rep if name.endswith("spmm") else rep_ffn)["kernels"][name]
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],

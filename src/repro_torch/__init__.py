@@ -1,5 +1,5 @@
-"""repro_torch: the LOOPS hybrid SpMM on PyTorch and hand-written CUDA
-kernels for NVIDIA Hopper (sm_90a).
+"""repro_torch: the LOOPS hybrid SpMM and a dense LM server on PyTorch and
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The port of the JAX/Pallas package ``repro`` (which stays as the reference
 and is never imported here).  Its layout mirrors ``repro``'s, so every
@@ -9,11 +9,16 @@ ported file has a twin at the same relative path:
     perf_model (Eq. 2/3), suite (synthetic Table-2 matrices), spmm (the
     front door);
   * ``kernels``: the CUDA kernels B1 (``csr_spmm``) and B2 (``bcsr_spmm``)
-    of the product and B3/B4 (``spmm_sdd``) of its value gradient, with
-    their plain PyTorch versions, the flat references and the engine;
+    of the product, B3/B4 (``spmm_sdd``) of its value gradient and B5
+    (``flash_attention``) of the LM's prefill, with their plain PyTorch
+    versions, the flat references and the engine;
   * ``resilience``: validated ingestion;
   * ``models``: the §4.5 GCN and the weight-sparse linear layer, both
-    trainable.
+    trainable, and the dense LM (``layers``, ``transformer``, ``api``);
+  * ``configs``: the dense architectures (llama3.2-1b and its reduced
+    twin);
+  * ``serve`` and ``launch.serve``: the continuous-batching queue and its
+    command line.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

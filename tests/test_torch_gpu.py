@@ -1,6 +1,8 @@
-"""The port on the card: the CUDA kernels B1-B4 against their plain
-PyTorch versions, and ``loops_spmm`` / ``loops_spmm_values`` (forward and
-backward) and the GCN against the flat PyTorch path.  Every test here
+"""The port on the card: the CUDA kernels B1-B5 against their plain
+PyTorch versions, ``loops_spmm`` / ``loops_spmm_values`` (forward and
+backward) and the GCN against the flat PyTorch path, and a full-width
+llama3.2-1b prefill (two layers) through B5 against its plain attention
+path.  Every test here
 needs a CUDA device and skips without one.
 
 This file imports neither JAX nor the reference package, so it runs on the
@@ -10,6 +12,8 @@ GPU machine as it is:
 
 It also holds the adversarial panel shapes the CPU parity files share.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,8 +21,10 @@ import torch
 from repro_torch.core import formats as tf
 from repro_torch.core import spmm as tspmm
 from repro_torch.core import suite as tsuite
+from repro_torch.configs import get_config
 from repro_torch.kernels import bcsr_spmm, csr_spmm, spmm_sdd
-from repro_torch.models import GCN, gcn_params_from_numpy
+from repro_torch.kernels import flash_attention as b5
+from repro_torch.models import GCN, api, gcn_params_from_numpy
 
 
 def adversarial_cases(rng):
@@ -228,3 +234,57 @@ def test_cuda_loops_spmm_values_backward_matches_flat(cuda, dname):
         assert g.dtype == dt and g.shape == w_.shape
         scale = max(1.0, float(w_.abs().max()))
         assert float((g.double() - w_.double()).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname,tol", [("float32", 2e-5), ("bfloat16", 1e-2),
+                                       ("float16", 1e-2)])
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (1, 64, 1, 1, 16), (2, 128, 4, 2, 32), (1, 64, 6, 2, 16),
+    (1, 1000, 4, 1, 128), (2, 200, 8, 2, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_matches_plain(cuda, dname, tol, B, S, H, KV,
+                                            hd, causal):
+    """B5 against its plain version on the same card tensors; fp32 at the
+    reference test's 2e-5, half at 1e-2 (both accumulate in fp32 and round
+    the output once, so they differ by an output ulp at most), relative to
+    max(1, max |plain|)."""
+    g = torch.Generator(device=cuda).manual_seed(S + H + hd)
+    dt = getattr(torch, dname)
+    q = torch.randn((B, S, H, hd), generator=g, device=cuda).to(dt)
+    k = torch.randn((B, S, KV, hd), generator=g, device=cuda).to(dt)
+    v = torch.randn((B, S, KV, hd), generator=g, device=cuda).to(dt)
+    before = b5.flash_attention.launches
+    got = b5.flash_attention(q, k, v, causal=causal)
+    want = b5.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert b5.flash_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    scale = max(1.0, float(want.double().abs().max()))
+    assert float((got.double() - want.double()).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+def test_cuda_full_width_prefill_matches_plain_attention(cuda):
+    """llama3.2-1b at full width with two of its 16 layers, fp32 (TF32 off):
+    prefill through B5 (one launch per layer) against the plain attention
+    path, logits within 1e-4 of max(1, max |logits|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2,
+                              dtype=torch.float32)
+    params = api.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 300), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    before = b5.flash_attention.launches
+    cache, got = api.prefill(cfg, params, {"tokens": toks})
+    assert b5.flash_attention.launches == before + cfg.num_layers
+    cache_p, want = api.prefill(cfg, params, {"tokens": toks},
+                                backend="torch")
+    assert b5.flash_attention.launches == before + cfg.num_layers
+    torch.cuda.synchronize()
+    for g, w in ((got, want), (cache["k"], cache_p["k"]),
+                 (cache["v"], cache_p["v"])):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-4 * scale
+
