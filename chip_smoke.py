@@ -18,14 +18,20 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  adversarial panel shapes, batch 1/3/11, N 32/40/600, the
                  fused buffer with a row offset, and B4 reading the whole
                  cotangent with a row offset against the zero-padded rows;
+                 B1/B2 at their uploaded unit tables and at tables that
+                 force splits (U = 1, 2, 3 panels), plus a hub case whose
+                 row and block-row span more than 50 units, with the split
+                 block-row right after the boundary of the fused buffer;
                  and B5 (flash attention) at the reference test's three
                  shapes, a ragged S of 1000 (hd 64 and 128) and the serving
                  shape (4, 2048, 32 heads, 8 kv heads, hd 64), causal and
                  not, fp32 / bf16 / f16;
   3. main     -- ``plan_and_convert`` -> ``loops_spmm`` at the published
                  sizes of pwtk (m6, 200k rows) and in-2004 (m4, 1.4M rows),
-                 N=32, checked against the flat PyTorch path on the card,
-                 with CUDA-event times of the whole call, of each kernel, of
+                 N=32, checked against the flat PyTorch path on the card
+                 and against a second call (bitwise equal), with each
+                 kernel's unit counts and workspace bytes and CUDA-event
+                 times of the whole call, of each kernel, of
                  its plain version and of cuSPARSE (``torch.sparse``), and
                  the bound from the bytes and operations the call needs;
   4. gcn      -- the 2-layer GCN at ogbn-arxiv's published widths answering
@@ -142,6 +148,11 @@ FLASH_SHAPES = ((1, 64, 1, 1, 16), (2, 128, 4, 2, 32), (1, 64, 6, 2, 16),
                 (2, 1000, 8, 2, 64), (1, 1000, 4, 1, 128),
                 (LM_BATCH, LM_PROMPT, 32, 8, 64))
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 1e-2, "float16": 1e-2}
+# B1/B2 in phase 2: unit tables that force splits (panels per unit), and
+# the width of the hub case's dense rows (> 50 units at U <= 3 and G = 8,
+# and at B1's own unit size with G = 1).
+SPLIT_UNIT_PANELS = (1, 2, 3)
+HUB_K = 2000
 
 RECORD = {"phases": []}
 
@@ -185,6 +196,30 @@ def time_ms(fn, *, samples: int = 10, reps: int = 5, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(fn, *, calls: int = 10, sessions: int = 3) -> float | None:
+    """Device time of one call of ``fn``: the kernels ``torch.profiler``
+    saw in ``calls`` calls, summed and divided by ``calls``, the median of
+    ``sessions`` profiling sessions (a session now and then loses kernel
+    records); None if it saw none.  Unlike :func:`time_ms` it leaves out
+    the host's share of a call (the wrapper's checks and the launch), which
+    bounds a call whose kernels take tens of microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    totals = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        totals.append(sum(getattr(e, "self_device_time_total", 0)
+                          for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    total = statistics.median(totals)
+    return total / 1e3 / calls if total else None
 
 
 def profile_step(fn) -> dict:
@@ -367,8 +402,12 @@ def phase_env() -> dict:
 
 def _adversarial(rng):
     """Dense matrices whose panelizations hit every padding edge (the
-    reference's tests/test_kernels.py::_adversarial_cases), plus a skewed
-    random one with a hub row and empty rows."""
+    reference's tests/test_kernels.py::_adversarial_cases), a skewed random
+    one with a hub row and empty rows, and a hub case whose rows and
+    block-rows span more than 50 units at U <= 3 panels (and at B1's own
+    unit size with G = 1), with empty groups on either side.  Returns ``{name:
+    (matrix, r_boundary or None)}``; None puts the boundary at half the
+    rows, rounded down to a whole block."""
     import numpy as np
 
     def sparse(m, k, d):
@@ -389,6 +428,16 @@ def _adversarial(rng):
     skew[7] = rng.standard_normal(257)
     skew[40:60] = 0
     cases["skewed_300x257"] = skew
+    cases = {name: (a, None) for name, a in cases.items()}
+    # CSR rows 1 and 3 are hubs between empty rows 0, 2; the BCSR part
+    # starts at row 4 with a hub block-row (the split group right after the
+    # boundary) and has another at row 36, between empty block-rows at Br
+    # 4, 8 and 16.
+    wide = np.zeros((68, HUB_K))
+    for r in (1, 3, 4, 36):
+        wide[r] = rng.standard_normal(HUB_K)
+    wide[10, 5] = 0.5
+    cases["hub_50_units"] = (wide, 4)
     return cases
 
 
@@ -407,20 +456,33 @@ def phase_kernels() -> dict:
     worst = {k: 0.0 for k in KERNELS}
     ms = {}
     ncheck = 0
+    most_units = {"csr_panels_spmm": 0, "bcsr_panels_spmm": 0}
     dev = torch.device(DEVICE)
     for dname in ("float32", "float64", "bfloat16", "float16"):
         dt = getattr(torch, dname)
         tol = TOL[dname]
-        for cname, a in cases.items():
+        for cname, (a, fixed_rb) in cases.items():
             for g in (1, 8):
                 for br in sorted({4, default_br(dt)}):
-                    r_b = (a.shape[0] // 2) // br * br
+                    r_b = ((a.shape[0] // 2) // br * br if fixed_rb is None
+                           else fixed_rb)
                     fmt = loops_from_csr(csr_from_dense(a.astype(np.float64)),
                                          r_b, br, panel_g=g)
                     cp, bp = (dataclasses.replace(
                         p, vals=p.vals.to(dt)) for p in (
                         DevicePanels.upload(fmt.csr_panels, dev),
                         DevicePanels.upload(fmt.bcsr_panels, dev)))
+                    # The uploaded tables (each module's UNIT_PANELS) and
+                    # tables that force splits at U = 1, 2, 3 panels.
+                    tables = {name: [p.units] + [
+                        csr_spmm.unit_table_of(p.ptr, u)
+                        for u in SPLIT_UNIT_PANELS]
+                        for name, p in (("csr_panels_spmm", cp),
+                                        ("bcsr_panels_spmm", bp))}
+                    for name, ts in tables.items():
+                        most_units[name] = max(most_units[name], max(
+                            int(t.units[:, 0].bincount().max())
+                            if t.nunits else 0 for t in ts))
                     for batch in (None, 3, 11):
                         for n in (32, 40, 600):
                             shape = ((a.shape[1], n) if batch is None
@@ -436,64 +498,78 @@ def phase_kernels() -> dict:
                                      bcsr_spmm.bcsr_panels_spmm,
                                      bcsr_spmm.bcsr_panels_spmm_plain,
                                      {"nblocks": fmt.bcsr_part.nblocks}, bp)):
-                                got = fn(p.rows, p.cols, p.vals, p.mask, b,
-                                         panel_ptr=p.ptr, **kw)
                                 want = plain(p.rows, p.cols, p.vals, p.mask,
                                              b, **kw)
-                                torch.cuda.synchronize()
-                                check(got.shape == want.shape
-                                      and got.dtype == want.dtype,
-                                      f"{name} {cname}: {got.shape} "
-                                      f"{got.dtype} vs {want.shape} "
-                                      f"{want.dtype}")
-                                err, scale = max_err(got, want)
-                                check(err <= tol * scale,
-                                      f"{name} {dname} {cname} g={g} br={br} "
-                                      f"batch={batch} n={n}: err {err:.3g} "
-                                      f"> {tol:g} * {scale:.3g}")
-                                worst[name] = max(worst[name], err / scale)
-                                ncheck += 1
+                                for t in tables[name]:
+                                    got = fn(p.rows, p.cols, p.vals, p.mask,
+                                             b, units=t, **kw)
+                                    torch.cuda.synchronize()
+                                    check(got.shape == want.shape
+                                          and got.dtype == want.dtype,
+                                          f"{name} {cname}: {got.shape} "
+                                          f"{got.dtype} vs {want.shape} "
+                                          f"{want.dtype}")
+                                    err, scale = max_err(got, want)
+                                    check(err <= tol * scale,
+                                          f"{name} {dname} {cname} g={g} "
+                                          f"br={br} batch={batch} n={n} "
+                                          f"U={t.unit_panels}: err "
+                                          f"{err:.3g} > {tol:g} * "
+                                          f"{scale:.3g}")
+                                    worst[name] = max(worst[name],
+                                                      err / scale)
+                                    ncheck += 1
                             ncheck += _sdd_checks(fmt, cp, bp, b, dt, tol,
                                                   worst, rng)
                     # The fused buffer: B1 fills [0, r_b), B2 the rows from
-                    # r_b on, and out_dtype = the storage dtype.
+                    # r_b on, and out_dtype = the storage dtype; the plain
+                    # pair first, then the kernels at every unit table.
                     b = torch.as_tensor(rng.standard_normal(
                         (3, a.shape[1], 40))).to(dev, dt)
                     rows = r_b + fmt.bcsr_part.nblocks * br
-                    bufs = []
-                    for f1, f2 in ((csr_spmm.csr_panels_spmm,
-                                    bcsr_spmm.bcsr_panels_spmm),
-                                   (csr_spmm.csr_panels_spmm_plain,
-                                    bcsr_spmm.bcsr_panels_spmm_plain)):
+                    want = torch.full((3, rows, 40), float("nan"), dtype=dt,
+                                      device=dev)
+                    csr_spmm.csr_panels_spmm_plain(
+                        cp.rows, cp.cols, cp.vals, cp.mask, b, nrows=r_b,
+                        out_dtype=dt, out=want)
+                    bcsr_spmm.bcsr_panels_spmm_plain(
+                        bp.rows, bp.cols, bp.vals, bp.mask, b,
+                        nblocks=fmt.bcsr_part.nblocks, row_offset=r_b,
+                        out_dtype=dt, out=want)
+                    for ct, bt in zip(tables["csr_panels_spmm"],
+                                      tables["bcsr_panels_spmm"]):
                         y = torch.full((3, rows, 40), float("nan"),
                                        dtype=dt, device=dev)
-                        f1(cp.rows, cp.cols, cp.vals, cp.mask, b, nrows=r_b,
-                           out_dtype=dt, out=y)
-                        f2(bp.rows, bp.cols, bp.vals, bp.mask, b,
-                           nblocks=fmt.bcsr_part.nblocks, row_offset=r_b,
-                           out_dtype=dt, out=y)
-                        bufs.append(y)
-                    torch.cuda.synchronize()
-                    check(not bufs[0].isnan().any(),
-                          f"fused buffer {dname} {cname}: a row was not "
-                          "written")
-                    err, scale = max_err(bufs[0], bufs[1])
-                    check(err <= tol * scale,
-                          f"fused buffer {dname} {cname} g={g} br={br}: "
-                          f"err {err:.3g}")
-                    ncheck += 1
+                        csr_spmm.csr_panels_spmm(
+                            cp.rows, cp.cols, cp.vals, cp.mask, b,
+                            nrows=r_b, units=ct, out_dtype=dt, out=y)
+                        bcsr_spmm.bcsr_panels_spmm(
+                            bp.rows, bp.cols, bp.vals, bp.mask, b,
+                            nblocks=fmt.bcsr_part.nblocks, units=bt,
+                            row_offset=r_b, out_dtype=dt, out=y)
+                        torch.cuda.synchronize()
+                        check(not y.isnan().any(),
+                              f"fused buffer {dname} {cname} "
+                              f"U={ct.unit_panels}: a row was not written")
+                        err, scale = max_err(y, want)
+                        check(err <= tol * scale,
+                              f"fused buffer {dname} {cname} g={g} br={br} "
+                              f"U={ct.unit_panels}: err {err:.3g}")
+                        ncheck += 1
+    check(min(most_units.values()) >= 50, f"the hub case spans at most "
+          f"{most_units} units in one group (want >= 50 in each kernel)")
     # One timing at a mid size per kernel (the main-path times are phase 3).
-    a = cases["skewed_300x257"].astype(np.float32)
+    a = cases["skewed_300x257"][0].astype(np.float32)
     fmt = loops_from_csr(csr_from_dense(a), 152, 8, panel_g=8)
     cp = DevicePanels.upload(fmt.csr_panels, dev)
     bp = DevicePanels.upload(fmt.bcsr_panels, dev)
     b = torch.as_tensor(rng.standard_normal((257, 32)).astype(
         np.float32)).to(dev)
     ms["csr_panels_spmm"] = time_ms(lambda: csr_spmm.csr_panels_spmm(
-        cp.rows, cp.cols, cp.vals, cp.mask, b, nrows=152, panel_ptr=cp.ptr))
+        cp.rows, cp.cols, cp.vals, cp.mask, b, nrows=152, units=cp.units))
     ms["bcsr_panels_spmm"] = time_ms(lambda: bcsr_spmm.bcsr_panels_spmm(
         bp.rows, bp.cols, bp.vals, bp.mask, b, nblocks=fmt.bcsr_part.nblocks,
-        panel_ptr=bp.ptr))
+        units=bp.units))
     dy = torch.as_tensor(rng.standard_normal((300, 32)).astype(
         np.float32)).to(dev)
     ms["csr_sdd_panels"] = time_ms(lambda: spmm_sdd.csr_sdd_panels(
@@ -502,6 +578,7 @@ def phase_kernels() -> dict:
         bp.rows, bp.cols, bp.mask, dy, b, br=8, row_offset=152, nrows=148))
     ncheck += _flash_checks(worst)
     rec = {"phase": "kernels_vs_plain", "checks": ncheck,
+           "most_units_in_one_group": most_units,
            "kernels": [{"name": k, "launches_in_checks":
                         _kernel_fns()[k].launches,
                         "max_rel_err": worst[k],
@@ -656,6 +733,12 @@ def phase_main(launches: dict) -> list:
                 check(v == int(has[k]), f"{mid} {dname}: {k} launched {v} "
                       f"times in one loops_spmm (expected {int(has[k])})")
 
+            # Two calls give the same bits (fixed summation order).
+            again = loops_spmm(fmt, b)
+            torch.cuda.synchronize()
+            check(torch.equal(y, again), f"{mid} {dname}: two loops_spmm "
+                  "calls differ")
+            del again
             want = loops_spmm(fmt, b, backend="torch")
             torch.cuda.synchronize()
             check(y.shape == (csr.nrows, MAIN_N) and bool(
@@ -679,7 +762,7 @@ def phase_main(launches: dict) -> list:
                 ("csr_panels_spmm", dev.csr, 1,
                  lambda: csr_spmm.csr_panels_spmm(
                      dev.csr.rows, dev.csr.cols, dev.csr.vals, dev.csr.mask,
-                     b3, nrows=r_b, panel_ptr=dev.csr.ptr, out=buf),
+                     b3, nrows=r_b, units=dev.csr.units, out=buf),
                  lambda vals=dev.csr.vals, b=b3:
                  csr_spmm.csr_panels_spmm_plain(
                      dev.csr.rows, dev.csr.cols, vals, dev.csr.mask, b,
@@ -689,7 +772,7 @@ def phase_main(launches: dict) -> list:
                  lambda: bcsr_spmm.bcsr_panels_spmm(
                      dev.bcsr.rows, dev.bcsr.cols, dev.bcsr.vals,
                      dev.bcsr.mask, b3, nblocks=nblocks,
-                     panel_ptr=dev.bcsr.ptr, row_offset=r_b, out=buf),
+                     units=dev.bcsr.units, row_offset=r_b, out=buf),
                  lambda vals=dev.bcsr.vals, b=b3:
                  bcsr_spmm.bcsr_panels_spmm_plain(
                      dev.bcsr.rows, dev.bcsr.cols, vals, dev.bcsr.mask, b,
@@ -708,8 +791,16 @@ def phase_main(launches: dict) -> list:
                 check(k_rel <= tol, f"{mid} {dname} {name} vs plain: err "
                       f"{k_err:.3g}, {k_rel:.3g} of |A||B| > {tol:g}")
                 lib, lib_what = library_ms(part_csr, b, dt)
+                units = panels.units
+                unit_panels = (csr_spmm if name.startswith("csr")
+                               else bcsr_spmm).UNIT_PANELS
+                check(units.unit_panels == unit_panels
+                      and units.max_panels <= unit_panels,
+                      f"{mid} {dname} {name}: a unit holds "
+                      f"{units.max_panels} panels (U = {unit_panels})")
                 kernels[name] = {
-                    "ms": time_ms(run), "plain_ms": time_ms(
+                    "ms": time_ms(run), "device_ms": device_ms(run),
+                    "plain_ms": time_ms(
                         plain, samples=10, reps=1, warmup=1),
                     "library_ms": lib, "library": lib_what,
                     "max_abs_err": k_err, "max_err_of_absprod": k_rel,
@@ -718,6 +809,11 @@ def phase_main(launches: dict) -> list:
                     # the longest walk one warp makes (the tail)
                     "max_panels_per_group": int(
                         (panels.ptr[1:] - panels.ptr[:-1]).max()),
+                    "unit_panels": units.unit_panels,
+                    "units": units.nunits, "split_groups": units.nsplit,
+                    "max_panels_per_unit": units.max_panels,
+                    "workspace_bytes": units.nslots * pbr * MAIN_N
+                    * acc_elem,
                     **panel_bound(panels, b3, acc_elem, br=pbr,
                                   dtype=dname)}
             lib, lib_what = library_ms(csr, b, dt)

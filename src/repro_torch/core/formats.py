@@ -31,10 +31,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Tuple
+from typing import TYPE_CHECKING, Dict, Tuple
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from ..kernels.csr_spmm import UnitTable
 
 __all__ = [
     "CSR", "VectorBCSR", "PanelCSR", "PanelBCSR", "LoopsFormat",
@@ -243,15 +246,22 @@ class DevicePanels:
     vals: torch.Tensor   # (P, G) or (P, Br, G)
     mask: torch.Tensor   # (P, G) bool
     slot: torch.Tensor   # (items,) int64 flat panel slot of each item
+    units: "UnitTable"   # the groups' bounded work units (B1/B2's grid)
 
     @classmethod
     def upload(cls, panels, device) -> "DevicePanels":
+        from ..kernels import bcsr_spmm, csr_spmm
+        unit_panels = (bcsr_spmm.UNIT_PANELS if panels.panel_vals.ndim == 3
+                       else csr_spmm.UNIT_PANELS)
+
         def put(a):
             return torch.as_tensor(np.ascontiguousarray(a)).to(device)
         return cls(rows=put(panels.panel_rows), ptr=put(panels.panel_ptr),
                    cols=put(panels.panel_cols), vals=put(panels.panel_vals),
                    mask=put(panels.panel_mask != 0),
-                   slot=_slot_index(panels, device))
+                   slot=_slot_index(panels, device),
+                   units=csr_spmm.unit_table_of(
+                       panels.panel_ptr, unit_panels).to(device))
 
     @property
     def ngroups(self) -> int:

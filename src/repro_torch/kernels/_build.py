@@ -41,6 +41,7 @@ _UNSUPPORTED = -1
 # Compiler output (ptxas register and spill report) per source, for logs.
 build_log: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[tuple, object] = {}
 _LOCK = threading.Lock()
 
 
@@ -96,13 +97,18 @@ def build_all() -> Dict[str, pathlib.Path]:
 
 def kernel_fn(source: str, symbol: str, argtypes: Sequence):
     """The C function ``symbol`` of ``csrc/<source>.cu``, built and loaded
-    on first use, with ``argtypes`` declared and an ``int`` return."""
+    on first use, with ``argtypes`` declared and an ``int`` return (kept
+    after the first call: a launch pays one dictionary lookup)."""
+    fn = _FNS.get((source, symbol))
+    if fn is not None:
+        return fn
     with _LOCK:
         if source not in _LIBS:
             _LIBS[source] = ctypes.CDLL(str(build_all()[source]))
-    fn = getattr(_LIBS[source], symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+        fn = getattr(_LIBS[source], symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FNS[(source, symbol)] = fn
     return fn
 
 

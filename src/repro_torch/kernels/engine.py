@@ -321,7 +321,7 @@ def csr_spmm(csr, b: torch.Tensor, *, backend: str | None = None,
                                b_dtype=b.dtype, value_dtype=pvals.dtype))
     y = get_kernel("csr", "spmm", "panels")(
         panels.rows, panels.cols, pvals, panels.mask, b3,
-        nrows=csr.nrows, panel_ptr=panels.ptr, out_dtype=out)
+        nrows=csr.nrows, units=panels.units, out_dtype=out)
     return unflatten_batch(y, batch)
 
 
@@ -363,7 +363,7 @@ def bcsr_spmm(bcsr, b: torch.Tensor, *, backend: str | None = None,
                                b_dtype=b.dtype, value_dtype=pvals.dtype))
     y = get_kernel("bcsr", "spmm", "panels")(
         panels.rows, panels.cols, pvals, panels.mask, b3,
-        nblocks=bcsr.nblocks, panel_ptr=panels.ptr, out_dtype=out)
+        nblocks=bcsr.nblocks, units=panels.units, out_dtype=out)
     return unflatten_batch(y[:, :bcsr.nrows], batch)
 
 
@@ -412,11 +412,11 @@ def loops_spmm_fused(fmt, b: torch.Tensor, *, out_dtype=None,
     if has_csr:
         get_kernel("csr", "spmm", "panels")(
             dev.csr.rows, dev.csr.cols, cvals, dev.csr.mask, b3,
-            nrows=r_b, panel_ptr=dev.csr.ptr, out_dtype=out, out=y)
+            nrows=r_b, units=dev.csr.units, out_dtype=out, out=y)
     if has_bcsr:
         get_kernel("bcsr", "spmm", "panels")(
             dev.bcsr.rows, dev.bcsr.cols, bvals, dev.bcsr.mask, b3,
-            nblocks=fmt.bcsr_part.nblocks, panel_ptr=dev.bcsr.ptr,
+            nblocks=fmt.bcsr_part.nblocks, units=dev.bcsr.units,
             row_offset=r_b, out_dtype=out, out=y)
     return unflatten_batch(y[:, :fmt.nrows], batch)
 

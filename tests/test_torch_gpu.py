@@ -53,6 +53,18 @@ def adversarial_cases(rng):
     return cases
 
 
+def hub_case(rng, k):
+    """A 68 x ``k`` matrix whose rows 1, 3, 4 and 36 are dense, with empty
+    rows around them, and one more entry: at Br 4, 8 and 16 and any
+    boundary a multiple of 4, a hub row or block-row sits between empty
+    groups, and at a boundary of 4 the first BCSR block-row is a hub."""
+    a = np.zeros((68, k))
+    for r in (1, 3, 4, 36):
+        a[r] = rng.standard_normal(k)
+    a[10, 5] = 0.5
+    return a
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -126,6 +138,72 @@ def test_cuda_loops_spmm_matches_flat_torch(cuda, dname):
     tol = {"float32": 1e-5, "float64": 1e-12}.get(dname, 1e-2)
     scale = max(1.0, float(want.abs().max()))
     assert float((got.double() - want.double()).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname", ["float32", "float64", "bfloat16",
+                                   "float16"])
+def test_cuda_kernels_with_forced_splits_match_plain(cuda, rng, dname):
+    """B1/B2 on unit tables that split every group longer than U = 1, 2, 3
+    panels (the second pass on every multi-panel group), and on a hub case
+    whose row and block-row span hundreds of units, against the plain
+    versions; each table also through the fused buffer, B2 at a row offset
+    whose first block-row is split."""
+    dt = getattr(torch, dname)
+    tol = {"float32": 1e-5, "float64": 1e-12}.get(dname, 1e-2)
+    br = 16 if dname in ("bfloat16", "float16") else 8
+    cases = {**adversarial_cases(rng), "hub": hub_case(rng, 2000)}
+    for name, a in cases.items():
+        r_b = 4 if name == "hub" else a.shape[0] // 2
+        fmt = tf.loops_from_csr(tf.csr_from_dense(a), r_b, br, panel_g=3)
+        dev = fmt.on(cuda)
+        cp = dataclasses.replace(dev.csr, vals=dev.csr.vals.to(dt))
+        bp = dataclasses.replace(dev.bcsr, vals=dev.bcsr.vals.to(dt))
+        nb = fmt.bcsr_part.nblocks
+        for u in (1, 2, 3):
+            ct = csr_spmm.unit_table_of(cp.ptr, u)
+            bt = csr_spmm.unit_table_of(bp.ptr, u)
+            if name == "hub":
+                assert ct.max_slots >= 50 and bt.max_slots >= 50
+            for shape in ((a.shape[1], 32), (3, a.shape[1], 40),
+                          (2, a.shape[1], 600)):
+                b = torch.randn(shape, device=cuda).to(dt)
+                want = torch.full((shape[0] if len(shape) == 3 else 1,
+                                   r_b + nb * br, shape[-1]), float("nan"),
+                                  dtype=dt, device=cuda)
+                got = want.clone()
+                csr_spmm.csr_panels_spmm_plain(
+                    cp.rows, cp.cols, cp.vals, cp.mask, b, nrows=r_b,
+                    out_dtype=dt, out=want)
+                bcsr_spmm.bcsr_panels_spmm_plain(
+                    bp.rows, bp.cols, bp.vals, bp.mask, b, nblocks=nb,
+                    row_offset=r_b, out_dtype=dt, out=want)
+                csr_spmm.csr_panels_spmm(
+                    cp.rows, cp.cols, cp.vals, cp.mask, b, nrows=r_b,
+                    units=ct, out_dtype=dt, out=got)
+                bcsr_spmm.bcsr_panels_spmm(
+                    bp.rows, bp.cols, bp.vals, bp.mask, b, nblocks=nb,
+                    units=bt, row_offset=r_b, out_dtype=dt, out=got)
+                assert not got.isnan().any(), (name, u, shape)
+                scale = max(1.0, float(want.abs().max()))
+                err = float((got.double() - want.double()).abs().max())
+                assert err <= tol * scale, (name, u, shape, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname", ["float32", "float64"])
+def test_cuda_loops_spmm_is_bitwise_deterministic(cuda, dname):
+    """Split groups are summed in a fixed order: two calls give the same
+    bits (an in-2004-like matrix whose hub rows split in both parts)."""
+    csr = tsuite.table2_like("m4", scale_rows=20_000, seed=0).astype(dname)
+    fmt, _ = tspmm.plan_and_convert(csr)
+    dev = fmt.on(cuda)
+    assert dev.csr.units.nsplit and dev.bcsr.units.nsplit
+    b = torch.randn((3, csr.shape[1], 32), device=cuda).to(
+        getattr(torch, dname))
+    first = tspmm.loops_spmm(fmt, b)
+    for _ in range(3):
+        assert torch.equal(tspmm.loops_spmm(fmt, b), first)
 
 
 @pytest.mark.gpu
