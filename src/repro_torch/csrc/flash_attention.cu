@@ -20,35 +20,46 @@
 // Design.  The TPU kernel walks (batch*head, q block, k block) on a
 // sequential grid and carries m, l and acc in VMEM scratch from one k step
 // to the next.  Hopper blocks run in no order, so the k walk becomes a loop
-// inside the block: one CTA of 4 warps owns one (batch*head, 64-query
-// block), each warp 16 query rows, and it loops over 64-key tiles.  Two
-// bodies share that grid:
+// inside the block.  Two bodies:
 //
-// bf16 / f16 (flash_mma_kernel): QKᵀ and P·V on the tensor cores with
-// mma.sync m16n8k16 and fp32 accumulation, the FlashAttention-2 register
-// layout.  Q's fragments are loaded once into registers; K and V tiles are
-// staged in shared memory with 16-byte loads (rows padded by 8 elements, so
-// the fragment loads hit 32 distinct banks); K's B fragments are 32-bit
-// loads, V's come through ldmatrix.trans.  A lane holds two rows (g and
-// g + 8 of its warp's 16) of the scores, their m and l, and the same rows
-// of the output accumulator.  The score accumulators become P·V's A
-// fragments in registers.  P must enter that product in the input dtype:
-// rounded once to bf16 (8 bits) it moves the output by several bf16 ulps,
-// too close to the 1e-2 check against the fp32 plain version, so for bf16
-// P is split into hi + lo bf16 parts and multiplied twice (a third more
-// tensor-core work, P kept to ~16 bits); f16 keeps one product (11 bits).
-// mma.sync reaches a share of the tensor-core peak only: warpgroup wgmma
-// with TMA staging is later work.
+// bf16 / f16 (flash_wgmma_kernel): one CTA owns one 64-query block of one
+// batch row for `hpc` q-heads that read one kv-head (GQA sharing: at most
+// kMaxHeads, 2 of the 4 heads of llama3.2-1b that share each of its 8
+// kv-heads), one warpgroup per q-head.
+//   * Staging: TMA loads through 4-D tensor maps over the (B, S, heads, hd)
+//     layouts (a head's rows, heads * hd elements apart, need no copy):
+//     each q-head's Q block once, then each K and V tile once for all the
+//     CTA's heads, into a ring of kStages stages with full / empty
+//     mbarriers.  Thread 0 issues them: the first stages at the start, and
+//     during tile kt the tile kt + kStages - 1 into the stage tile
+//     kt - 1 has freed, so loads run two tiles ahead of the products.  TMA
+//     writes the tiles in the swizzled layout wgmma reads (128-byte rows at
+//     hd >= 64, 64 / 32 at hd 32 / 16; hd 128 as two 64-column halves) and
+//     zero-fills rows past S.
+//   * Products: warpgroup wgmma with fp32 accumulation.  S = Q Kᵀ takes Q
+//     and K from shared memory, both K-major along hd; P V takes P from
+//     registers (the score accumulators, rounded to T, are exactly the
+//     register A operand's fragments) and V from shared memory, marked
+//     MN-major in its descriptor, so V is read as stored.
+//   * Software pipeline inside a warpgroup: S for tile kt + 1 is issued,
+//     then P V for tile kt; the lanes wait for the first only and run the
+//     softmax of tile kt + 1 while P V runs on the tensor cores.
+//   * Softmax on the accumulators in registers, in the log2 domain (p =
+//     exp2(s * log2(e) / sqrt(hd) - m), one FFMA and one MUFU.EX2): a lane
+//     holds two rows of its warp's 16, each row's max and sum reduce over
+//     the 4 lanes of a quad.  P enters P·V rounded once to T, as
+//     scaled_dot_product_attention's kernels round it (PERF.md compares
+//     this with a hi + lo split of bf16 P, two products).
+//   * Causal: tiles past the frontier are skipped, and only the diagonal
+//     and the ragged last tile are masked.  The CTAs with the most tiles
+//     are launched first (the query block is the grid's slow dimension).
+// Registers: a warpgroup holds 64 x hd fp32 accumulators, a 64 x kKeys
+// score tile and P; 113 a thread at hd 64, so two 256-thread CTAs share an
+// SM.  kernel_sweep.py measured the choices (PERF.md).
 //
-// Both bodies skip the tiles wholly past the causal frontier (the
-// reference's `live` predicate; only the diagonal tile and a ragged last
-// tile are masked) and launch the CTAs with the most tiles first.  Rows and
-// keys past a ragged S load as zeros, keys are masked, rows are not
-// written; each output element is written once.
-//
-// fp32 (flash_fwd_kernel): FFMA on the CUDA cores, no TF32 (the port's
-// precision contract), so its floor is 68.7 GFLOP / 67 TFLOP/s = 1.03 ms at
-// the serving shape.
+// fp32 (flash_fwd_kernel): one CTA of 4 warps per (batch*head, 64-query
+// block), FFMA on the CUDA cores, no TF32 (the port's precision contract),
+// so its floor is 68.7 GFLOP / 67 TFLOP/s = 1.03 ms at the serving shape.
 //   * Staging: the Q block once, then each K and V tile, with coalesced
 //     16-byte loads widened to fp32 in shared memory (K transposed, with a
 //     padded stride, so the score loop reads it without bank conflicts).
@@ -61,9 +72,15 @@
 //   * P·V: the warp writes P (16 x 64) to its own shared slice and each lane
 //     accumulates a fixed (rows x columns) patch of the (16 x hd) output in
 //     registers, reading P as broadcast float4s and V conflict-free.
+//   * Both bodies skip the tiles wholly past the causal frontier (the
+//     reference's `live` predicate) and write each output element once;
+//     rows past a ragged S are computed on zeros and not written.
+#include <cuda.h>
+
 #include <type_traits>
 
 #include "panel_common.cuh"
+#include "wgmma.cuh"
 
 using namespace loops;
 
@@ -297,10 +314,91 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / f16: tensor cores (mma.sync m16n8k16, fp32 accumulation)
+// bf16 / f16: warpgroup wgmma, TMA staging in a ring, GQA sharing
 // ---------------------------------------------------------------------------
 
-constexpr int kPad = 8;   // elements of padding per staged K/V row
+// Tile choices, measured with kernel_sweep.py (PERF.md).
+constexpr int kKeys = 64;       // keys per staged K / V tile
+constexpr int kStages = 3;      // K / V tiles in flight (ring depth)
+constexpr int kMaxHeads = 2;    // most q-heads (warpgroups) a CTA serves
+
+// Tile kt + kStages - 1 is loaded during iteration kt, after S_kt+1 has
+// been issued: with 2 stages that would be the tile S_kt+1 waits for.
+static_assert(kStages >= 3, "the refill order needs 3 stages or more");
+
+constexpr int kWgRows = 64;   // query rows of one consumer warpgroup
+constexpr int kWgThreads = 128;
+
+// Shared-memory layout of one head-dim: tiles of `rows` x hd are stored as
+// hd / kCols column blocks of rows x kCols, each row kRowBytes, swizzled in
+// 8-row atoms (what the TMA box writes and the wgmma descriptor reads).
+template <int HD>
+struct Tiles {
+  static constexpr int kCols = HD < 64 ? HD : 64;
+  static constexpr int kRowBytes = kCols * 2;
+  static constexpr int kAtomBytes = 8 * kRowBytes;
+  static constexpr int kQTile = kWgRows * HD * 2;
+  static constexpr int kKvTile = kKeys * HD * 2;
+  static constexpr int bytes(int heads) {
+    return 1024 + heads * kQTile + kStages * 2 * kKvTile;
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.  A
+// wait that outlasts 2^22 polls (seconds) traps: a lost arrival fails the
+// launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 22)) __trap();
+  }
+}
+
+// One TMA box of the 4-D map (hd, heads, S, B) at (c0, c1, c2, c3) into
+// shared memory; completion is reported to `bar` as transaction bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
 
 template <typename T>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi);
@@ -315,44 +413,12 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// (a, b) as a packed pair of T, and the pair of what that rounding lost,
-// also as T: hi + lo carries a and b to ~2^-16 for bf16.
-template <typename T>
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
-                                       uint32_t& lo) {
-  hi = pack2<T>(a, b);
-  const T* h = reinterpret_cast<const T*>(&hi);
-  lo = pack2<T>(a - to_acc(h[0]), b - to_acc(h[1]));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), fp32 accumulators.
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// Four 8x8 b16 matrices from shared memory, transposed; lane l gives the
-// address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* row) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+// 2^x (MUFU.EX2, flushing denormals: P below 2^-126 of its row's max is
+// 0 either way in the half dtype).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -366,181 +432,350 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int seq,
-                 int heads, int kv_heads, float scale, int causal) {
-  constexpr int KS = HD / 16;            // k-steps of QKᵀ
-  constexpr int NB = kBlockK / 8;        // 8-key blocks of a tile
-  constexpr int NO = HD / 8;             // 8-column blocks of the output
-  constexpr int VN = 8;                  // elements per 16-byte load
-  constexpr int CHUNKS = HD / VN;
-  constexpr int STRIDE = HD + kPad;      // staged row stride (elements)
-  constexpr bool kSplitP = std::is_same<T, __nv_bfloat16>::value;
+__global__ void __launch_bounds__(kWgThreads * kMaxHeads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   T* __restrict__ o, int seq, int heads, int kv_heads,
+                   float scale_log2, int causal) {
+  using L = Tiles<HD>;
+  constexpr int kLayout = wg::layout_code(L::kRowBytes);
+  constexpr int KS = HD / 16;       // k-steps of QKᵀ
+  constexpr int NB = kKeys / 8;     // 8-key column blocks of the scores
+  constexpr int KK = kKeys / 16;    // k-steps of P·V
 
-  __shared__ __align__(16) uint16_t k_smem[kBlockK * STRIDE];
-  __shared__ __align__(16) uint16_t v_smem[kBlockK * STRIDE];
-  T* ks = reinterpret_cast<T*>(k_smem);
-  T* vs = reinterpret_cast<T*>(v_smem);
+  __shared__ __align__(8) uint64_t full_bar[kStages];
+  __shared__ __align__(8) uint64_t empty_bar[kStages];
+  __shared__ __align__(8) uint64_t q_bar;
+  extern __shared__ uint8_t smem_raw[];
+  // Tiles start on a 1024-byte boundary, the 128-byte swizzle's repeat.
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
 
-  const int nqb = gridDim.x;
-  const int qb = nqb - 1 - static_cast<int>(blockIdx.x);  // longest first
-  const int b = blockIdx.y / heads;
-  const int h = blockIdx.y % heads;
-  const int kvh = h / (heads / kv_heads);
-  const int tid = threadIdx.x;
-  const int warp = tid / kWarp;
-  const int lane = tid % kWarp;
-  const int g = lane / 4;                // fragment row (and row + 8)
-  const int t = lane % 4;                // fragment column pair
-  const int row0 = qb * kBlockQ + warp * kRowsPerWarp;
-  const int qrow[2] = {row0 + g, row0 + g + 8};
+  const int hpc = static_cast<int>(blockDim.x) / kWgThreads;
+  const int groups = heads / hpc;
+  const int b = static_cast<int>(blockIdx.x) / groups;
+  const int head0 = (static_cast<int>(blockIdx.x) % groups) * hpc;
+  const int kvh = head0 / (heads / kv_heads);
+  const int qb = static_cast<int>(gridDim.y - 1 - blockIdx.y);  // longest first
+  const int q0 = qb * kWgRows;
+  const int kend = causal ? min(seq, q0 + kWgRows) : seq;
+  const int nkt = (kend + kKeys - 1) / kKeys;
+  uint8_t* q_smem = smem;
+  uint8_t* kv_smem = smem + hpc * L::kQTile;  // stage s: K, then V
 
-  const int64_t q_stride = static_cast<int64_t>(heads) * HD;
-  const int64_t kv_stride = static_cast<int64_t>(kv_heads) * HD;
-  const T* qbase = q + (static_cast<int64_t>(b) * seq * heads + h) * HD;
-  const T* kbase = k + (static_cast<int64_t>(b) * seq * kv_heads + kvh) * HD;
-  const T* vbase = v + (static_cast<int64_t>(b) * seq * kv_heads + kvh) * HD;
-  T* obase = o + (static_cast<int64_t>(b) * seq * heads + h) * HD;
-
-  // Q's A fragments, once: rows g / g + 8, columns 16 ks + 2 t (+8).
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int s = 0; s < KS; ++s)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = qrow[e & 1];
-      const int c = s * 16 + (e >> 1) * 8 + 2 * t;
-      qf[s][e] = r < seq ? *reinterpret_cast<const uint32_t*>(
-                               qbase + r * q_stride + c)
-                         : 0u;
+  // Thread 0 issues every load: Q for all the CTA's heads and the first
+  // kStages K / V tiles now, each later tile into the stage of the tile
+  // before the current one (see the loop), so its warpgroup waits for the
+  // others only when they lag by a tile.
+  const bool issuer = threadIdx.x == 0;
+  auto load_tile = [&](int kt) {
+    const int s = kt % kStages;
+    mbar_expect_tx(&full_bar[s], 2 * L::kKvTile);
+    uint8_t* ks = kv_smem + s * 2 * L::kKvTile;
+    for (int c = 0; c < HD; c += L::kCols) {
+      const int off = (c / L::kCols) * kKeys * L::kRowBytes;
+      tma_load(ks + off, &tm_k, c, kvh, kt * kKeys, b, &full_bar[s]);
+      tma_load(ks + L::kKvTile + off, &tm_v, c, kvh, kt * kKeys, b,
+               &full_bar[s]);
     }
-
-  float acc[NO][4];
+  };
+  if (issuer) {
 #pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  const int nkt = causal ? qb + 1 : nqb;
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();   // every warp is done with the previous tile
-    for (int c = tid; c < kBlockK * CHUNKS; c += kThreads) {
-      const int r = c / CHUNKS;
-      const int d = (c % CHUNKS) * VN;
-      uint4 kx = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vx = kx;
-      if (k0 + r < seq) {
-        kx = *reinterpret_cast<const uint4*>(kbase + (k0 + r) * kv_stride + d);
-        vx = *reinterpret_cast<const uint4*>(vbase + (k0 + r) * kv_stride + d);
-      }
-      *reinterpret_cast<uint4*>(ks + r * STRIDE + d) = kx;
-      *reinterpret_cast<uint4*>(vs + r * STRIDE + d) = vx;
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], 4 * hpc);   // every warp
     }
-    __syncthreads();
+    mbar_init(&q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (issuer) {
+    mbar_expect_tx(&q_bar, hpc * L::kQTile);
+    for (int hh = 0; hh < hpc; ++hh)
+      for (int c = 0; c < HD; c += L::kCols)
+        tma_load(q_smem + hh * L::kQTile + (c / L::kCols) * kWgRows *
+                                               L::kRowBytes,
+                 &tm_q, c, head0 + hh, q0, b, &q_bar);
+    for (int kt = 0; kt < kStages && kt < nkt; ++kt) load_tile(kt);
+  }
+  __syncwarp();
 
-    // S = Q Kᵀ: s[n] holds rows g, g + 8 x keys 8 n + 2 t (+1).
-    float s[NB][4];
-#pragma unroll
-    for (int n = 0; n < NB; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int st = 0; st < KS; ++st)
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        const T* kr = ks + (n * 8 + g) * STRIDE + st * 16 + 2 * t;
-        mma16816<T>(s[n], qf[st], *reinterpret_cast<const uint32_t*>(kr),
-                    *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
+  const int wgi = static_cast<int>(threadIdx.x) / kWgThreads;
+  {
+    // Consumer warpgroup wgi: q-head head0 + wgi, query rows q0 .. q0 + 63.
+    const int tid = static_cast<int>(threadIdx.x) % kWgThreads;
+    const int warp = tid / kWarp;
+    const int lane = tid % kWarp;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int h = head0 + wgi;
+    const int qrow[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+    const uint8_t* qs = q_smem + wgi * L::kQTile;
 
-    // Online softmax on the lane's two rows.
-    const bool masked = (causal && kt == qb) || (k0 + kBlockK > seq);
-    float mx[2] = {kNegInf, kNegInf};
+    float acc[HD / 2];
 #pragma unroll
-    for (int n = 0; n < NB; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale;
-        if (masked) {
-          const int kpos = k0 + n * 8 + 2 * t + (e & 1);
-          if (kpos >= seq || (causal && kpos > qrow[e >> 1])) x = kNegInf;
-        }
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};   // running max, log2 domain
+    float l[2] = {0.f, 0.f};
     float corr[2];
-    float sum[2] = {0.f, 0.f};
+    float sc[kKeys / 2] = {};   // scores of the newest tile
+    uint32_t pa[KK][4];    // P of the tile whose P·V is in flight
+
+    // Issues S = Q K_kt^T (64 x kKeys) into sc once tile kt has landed:
+    // hd / 16 k-steps of 32 bytes along the rows, committed as one group.
+    // Descriptors: one base each, advanced by constant byte offsets (k-step
+    // and column block) and the stage's offset, so few registers hold them.
+    const uint64_t q_desc = wg::desc(qs, 16, L::kAtomBytes, kLayout);
+    const uint64_t k_desc = wg::desc(kv_smem, 16, L::kAtomBytes, kLayout);
+    const uint64_t v_desc = wg::desc(kv_smem + L::kKvTile,
+                                     kKeys * L::kRowBytes, L::kAtomBytes,
+                                     kLayout);
+    auto issue_scores = [&](int kt) {
+      const int s = kt % kStages;
+      mbar_wait(&full_bar[s], (kt / kStages) & 1);
+      const uint64_t dk = wg::advance(k_desc, s * 2 * L::kKvTile);
+      wg::fence();
+#pragma unroll
+      for (int st = 0; st < KS; ++st) {
+        const int blk = st * 16 / L::kCols;
+        const int cb = (st * 16 % L::kCols) * 2;
+        wg::mma_ss<T, kKeys>(
+            sc, wg::advance(q_desc, blk * kWgRows * L::kRowBytes + cb),
+            wg::advance(dk, blk * kKeys * L::kRowBytes + cb), st > 0);
+      }
+      wg::commit();
+    };
+    // Online softmax of tile kt's scores (in sc) on the lane's two rows:
+    // P (fp32) replaces the scores, corr = exp2(m_old - m_new), m and l
+    // are updated.  The max is taken on the raw scores (the scale is
+    // positive), and p = exp2(s * scale_log2 - m) is one FFMA and one EX2.
+    auto softmax = [&](int kt) {
+      const int k0 = kt * kKeys;
+      const bool masked = (causal && k0 + kKeys - 1 > q0) || (k0 + kKeys > seq);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * n + e];
+          if (masked) {
+            const int kpos = k0 + n * 8 + 2 * t + (e & 1);
+            if (kpos >= seq || (causal && kpos > qrow[e >> 1])) x = kNegInf;
+          }
+          sc[4 * n + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float neg_m[2];
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], quad_max(mx[i]) * scale_log2);
+        corr[i] = ex2(m[i] - m_new);
+        m[i] = m_new;
+        neg_m[i] = -m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = ex2(fmaf(sc[4 * n + e], scale_log2, neg_m[e >> 1]));
+          sc[4 * n + e] = x;
+          sum[e >> 1] += x;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_sum(sum[i]);
+    };
+    // P, rounded to T, into the register A operand: its fragments for keys
+    // 16 kk .. 16 kk + 15 are the score accumulators of column blocks 2 kk
+    // and 2 kk + 1.  Done once the previous P·V has retired, so only one
+    // packed P is live.
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack2<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    };
+
+    // acc = acc * corr + P V_kt: P (pa) from registers, V from stage kt's
+    // shared memory, committed as one group.  The caller has fenced.
+    auto issue_pv = [&](int kt) {
+      const uint64_t ds = wg::advance(v_desc, (kt % kStages) * 2 * L::kKvTile);
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        const uint64_t dv = wg::advance(ds, kk * 16 * L::kRowBytes);
+        wg::mma_rs_mn<T, HD>(acc, pa[kk], dv);
+      }
+      wg::commit();
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * j + e] *= corr[e >> 1];
+      wg::hold(acc);
+    };
+    // After P V_kt has completed: P's registers and stage kt are free.
+    auto retire_pv = [&](int kt) {
+      wg::hold(acc);
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) wg::hold(pa[kk]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_bar[kt % kStages]);
+    };
+
+    // Software pipeline inside the warpgroup: while P_kt V_kt runs on the
+    // tensor cores, the lanes run the softmax of tile kt + 1, whose scores
+    // were issued just before it (a warpgroup's wgmma groups complete in
+    // order, so waiting for all but the newest group waits for S_kt+1).
+    // The steady-state body has no branch around a wgmma, commit or wait,
+    // so ptxas can tell which group each wait retires.
+    mbar_wait(&q_bar, 0);
+    issue_scores(0);
+    wg::wait<0>();
+    wg::hold(sc);
+    softmax(0);
+    pack();
+    for (int kt = 0; kt + 1 < nkt; ++kt) {
+      rescale();
+      issue_scores(kt + 1);   // its fence also orders acc and pa
+      issue_pv(kt);
+      if (threadIdx.x < kWarp && kt >= 1 && kt + kStages - 1 < nkt) {
+        // The whole of warp 0 waits (no lane may reach an aligned wgmma
+        // instruction alone); its first lane issues.
+        mbar_wait(&empty_bar[(kt - 1) % kStages], ((kt - 1) / kStages) & 1);
+        if (issuer) load_tile(kt + kStages - 1);
+        __syncwarp();
+      }
+      wg::wait<1>();
+      wg::hold(sc);
+      softmax(kt + 1);
+      wg::wait<0>();
+      retire_pv(kt);
+      pack();
+    }
+    rescale();
+    wg::fence();
+    issue_pv(nkt - 1);
+    wg::wait<0>();
+    retire_pv(nkt - 1);
+
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      corr[i] = expf(m[i] - m_new);
-      m[i] = m_new;
+      if (qrow[i] >= seq) continue;
+      const float denom = fmaxf(l[i], 1e-30f);
+      T* orow = o + ((static_cast<int64_t>(b) * seq + qrow[i]) * heads + h) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
+            pack2<T>(acc[4 * j + 2 * i] / denom, acc[4 * j + 2 * i + 1] / denom);
     }
-#pragma unroll
-    for (int n = 0; n < NB; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);
-        sum[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_sum(sum[i]);
-#pragma unroll
-    for (int j = 0; j < NO; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
-
-    // acc += P V: P's A fragments come from the score registers.  For bf16
-    // P is split into hi + lo bf16 parts (two products), so it enters P·V
-    // with ~16 bits instead of 8; f16's 11 bits are used as they are.
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t pa[4];
-      uint32_t pl[4];
-      split2<T>(s[2 * kk][0], s[2 * kk][1], pa[0], pl[0]);
-      split2<T>(s[2 * kk][2], s[2 * kk][3], pa[1], pl[1]);
-      split2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1], pa[2], pl[2]);
-      split2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3], pa[3], pl[3]);
-#pragma unroll
-      for (int j = 0; j < NO; j += 2) {
-        uint32_t vb[4];
-        const int mi = lane / 8;
-        ldsm_x4_trans(vb, vs + (kk * 16 + (mi & 1) * 8 + lane % 8) * STRIDE +
-                              (j + (mi >> 1)) * 8);
-        mma16816<T>(acc[j], pa, vb[0], vb[1]);
-        mma16816<T>(acc[j + 1], pa, vb[2], vb[3]);
-        if constexpr (kSplitP) {
-          mma16816<T>(acc[j], pl, vb[0], vb[1]);
-          mma16816<T>(acc[j + 1], pl, vb[2], vb[3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (qrow[i] >= seq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < NO; ++j)
-      *reinterpret_cast<uint32_t*>(obase + qrow[i] * q_stride + j * 8 + 2 * t) =
-          pack2<T>(acc[j][2 * i] / denom, acc[j][2 * i + 1] / denom);
   }
 }
 
+// The CUDA driver API's cuTensorMapEncodeTiled, through the runtime's
+// entry-point query (so the library needs no -lcuda); null if missing.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// The map of a (batch, seq, heads, HD) tensor whose box is `rows` rows of
+// one head and one swizzle atom's columns.
+template <typename T, int HD>
+bool tensor_map(CUtensorMap* map, const void* base, int64_t batch,
+                int64_t seq, int64_t heads, int rows) {
+  using L = Tiles<HD>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(HD) * 2, static_cast<cuuint64_t>(heads * HD) * 2,
+      static_cast<cuuint64_t>(seq * heads * HD) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(L::kCols), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : (L::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B);
+  const CUtensorMapDataType dtype = std::is_same<T, __nv_bfloat16>::value
+                                        ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  return encode(map, dtype, 4, const_cast<void*>(base), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
+                 float scale, int causal, cudaStream_t stream) {
+  const int64_t rep = heads / kv_heads;
+  int hpc = 1;   // the largest divisor of rep up to kMaxHeads
+  for (int c = kMaxHeads; c > 1; --c) {
+    if (rep % c == 0) {
+      hpc = c;
+      break;
+    }
+  }
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!tensor_map<T, HD>(&tm_q, q, batch, seq, heads, kWgRows) ||
+      !tensor_map<T, HD>(&tm_k, k, batch, seq, kv_heads, kKeys) ||
+      !tensor_map<T, HD>(&tm_v, v, batch, seq, kv_heads, kKeys)) {
+    return static_cast<int>(encode_tiled() == nullptr ? cudaErrorNotSupported
+                                                      : cudaErrorInvalidValue);
+  }
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_wgmma_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Tiles<HD>::bytes(kMaxHeads));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid(static_cast<unsigned>(batch * heads / hpc),
+                  static_cast<unsigned>((seq + kWgRows - 1) / kWgRows));
+  flash_wgmma_kernel<T, HD>
+      <<<grid, kWgThreads * hpc, Tiles<HD>::bytes(hpc), stream>>>(
+          tm_q, tm_k, tm_v, static_cast<T*>(o), static_cast<int>(seq),
+          static_cast<int>(heads), static_cast<int>(kv_heads),
+          scale * 1.4426950408889634f, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // fp32 runs the FFMA body (dynamic shared memory, above 48 KB at hd 64 and
-// 128); bf16 / f16 the tensor-core body (static shared memory, <= 35 KB).
+// 128); bf16 / f16 the wgmma body.
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o,
            int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
            float scale, int causal, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((seq + kBlockQ - 1) / kBlockQ),
-                  static_cast<unsigned>(batch * heads));
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
+    return launch_wgmma<T, HD>(q, k, v, o, batch, seq, heads, kv_heads, scale,
+                               causal, stream);
+  } else {
+    const dim3 grid(static_cast<unsigned>((seq + kBlockQ - 1) / kBlockQ),
+                    static_cast<unsigned>(batch * heads));
     constexpr int bytes = smem_floats<HD>() * static_cast<int>(sizeof(float));
     static bool configured = false;
     if (!configured) {
@@ -554,13 +789,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), static_cast<int>(seq),
         static_cast<int>(heads), static_cast<int>(kv_heads), scale, causal);
-  } else {
-    flash_mma_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), static_cast<int>(seq),
-        static_cast<int>(heads), static_cast<int>(kv_heads), scale, causal);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>

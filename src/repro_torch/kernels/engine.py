@@ -490,8 +490,9 @@ def loops_sdd(fmt, dy: torch.Tensor, b: torch.Tensor, *,
             dev.csr.rows, dev.csr.cols, dev.csr.mask, dy3, b3))
     if has_bcsr:
         # B4 reads the BCSR rows of dY in place (row offset r_boundary,
-        # rows past nrows read as zero): no padded copy of the cotangent.
+        # rows past nrows read as zero): no padded copy of the cotangent;
+        # it walks the forward's B2 unit table, one CTA a unit.
         d_bcsr = dev.bcsr.gather_values(get_kernel("bcsr", "sdd", "panels")(
             dev.bcsr.rows, dev.bcsr.cols, dev.bcsr.mask, dy3, b3, br=bc.br,
-            row_offset=fmt.r_boundary, nrows=bc.nrows))
+            row_offset=fmt.r_boundary, nrows=bc.nrows, units=dev.bcsr.units))
     return d_csr, d_bcsr

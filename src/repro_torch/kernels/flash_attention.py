@@ -9,13 +9,16 @@ reading kv-head ``h // (H // KV)``, with the online-softmax statistics and
 the accumulator in fp32 and the output in q's dtype.  The layout at this
 boundary is the reference's ``(B, S, H, hd)``.
 
-On a CUDA tensor the wrapper launches the kernel (one CTA of 4 warps per
-(batch*head, 64-query block); QKᵀ and P·V on the tensor cores with
-``mma.sync`` for bf16 / f16, FFMA for fp32; see the source's note) or
-raises; on a CPU
-tensor it runs :func:`flash_attention_plain`, chunked online softmax in
-plain PyTorch mirroring ``repro/models/layers.py::_flash_body``, which the
-tests and ``chip_smoke.py`` hold the kernel against.  The kernel takes what
+On a CUDA tensor the wrapper launches the kernel or raises.  For bf16 /
+f16 one CTA serves a 64-query block of up to 2 q-heads that share a
+kv-head (GQA sharing): its thread 0 issues the TMA loads that stage each
+K / V tile once for those heads into a ring of 3 shared-memory stages, and
+one warpgroup per q-head runs QKᵀ and P·V as ``wgmma`` on the tensor
+cores; fp32 runs an FFMA body (one CTA of 4 warps per (batch*head,
+64-query block)).  See the source's note.  On a CPU tensor it runs
+:func:`flash_attention_plain`, chunked online softmax in plain PyTorch
+mirroring ``repro/models/layers.py::_flash_body``, which the tests and
+``chip_smoke.py`` hold the kernel against.  The kernel takes what
 the reference kernel takes: Sq == Sk (no prefix offset), no sliding window,
 hd in {16, 32, 64, 128}, fp32 / bf16 / f16.
 
@@ -144,6 +147,9 @@ def flash_attention(q, k, v, *, causal: bool,
     if bsz * heads > 65535:
         raise ValueError(f"batch*heads {bsz * heads} exceeds the grid's y "
                          "limit 65535")
+    if seq > 64 * 65535:
+        raise ValueError(f"S={seq} exceeds the grid's {64 * 65535} query "
+                         "rows")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")

@@ -18,7 +18,9 @@ values are shared across it).  Both kernels walk the forward panels:
 
     where a row ``rows[p]*Br + r >= nrows`` reads as zero, so the kernel
     takes the whole cotangent with the BCSR part's row offset instead of
-    the reference's zero-padded copy of its BCSR rows.
+    the reference's zero-padded copy of its BCSR rows.  It walks the
+    block-rows' work units (:func:`sdd_unit_table`, the forward's B2 table),
+    one CTA a unit: the unit's panels share one dY slab, staged once.
 
 Masked (padding) lanes are written as exactly 0 by the kernels and by the
 plain versions, so whole panel arrays compare; callers read the real slots
@@ -38,11 +40,12 @@ import ctypes
 import torch
 
 from . import _build
-from .csr_spmm import _PLAIN_CHUNK
+from .bcsr_spmm import UNIT_PANELS
+from .csr_spmm import _PLAIN_CHUNK, UnitTable, _units_for
 from .engine import acc_dtype_for, register_kernel
 
 __all__ = ["csr_sdd_panels", "bcsr_sdd_panels", "csr_sdd_panels_plain",
-           "bcsr_sdd_panels_plain", "KERNEL_BRS"]
+           "bcsr_sdd_panels_plain", "sdd_unit_table", "KERNEL_BRS"]
 
 # Tile heights B4 is instantiated for.
 KERNEL_BRS = (4, 8, 16)
@@ -177,9 +180,26 @@ _BCSR_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 9
                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
+def sdd_unit_table(panel_rows: torch.Tensor, nblocks: int,
+                   units: UnitTable | None = None) -> UnitTable:
+    """The work units B4 walks over a part of ``nblocks`` block-rows:
+    ``units`` as given (the forward's B2 table, ``DevicePanels.units``),
+    checked to cover those block-rows and every panel, else the block-rows
+    of ``panel_rows`` (nondecreasing) cut at
+    :data:`~repro_torch.kernels.bcsr_spmm.UNIT_PANELS`, on their device."""
+    npanels = int(panel_rows.shape[0])
+    if units is None:
+        units = _units_for(panel_rows, None, None, nblocks, UNIT_PANELS)
+    if units.ngroups != nblocks or units.npanels != npanels:
+        raise ValueError(f"the unit table covers {units.ngroups} block-rows "
+                         f"and {units.npanels} panels; the call has "
+                         f"{nblocks} and {npanels}")
+    return units
+
+
 def bcsr_sdd_panels(panel_rows, panel_cols, panel_mask, dy, b, *, br: int,
-                    row_offset: int = 0,
-                    nrows: int | None = None) -> torch.Tensor:
+                    row_offset: int = 0, nrows: int | None = None,
+                    units: UnitTable | None = None) -> torch.Tensor:
     """B4 on ``b``'s device.
 
     Args:
@@ -192,6 +212,10 @@ def bcsr_sdd_panels(panel_rows, panel_cols, panel_mask, dy, b, *, br: int,
       br:         tile height, in :data:`KERNEL_BRS` for the kernel.
       nrows:      rows of the part (default: the rest of ``dy``); block
                   rows past it read as zero.
+      units:      the :class:`UnitTable` of the part's ceil(nrows / br)
+                  block-rows on ``b``'s device (one CTA a unit); built by
+                  :func:`sdd_unit_table` when not given.  The plain version
+                  does not read it.
     Returns (P, Br, G) gradients in the accumulation dtype, summed over the
     batch, 0 at masked lanes.
     """
@@ -212,13 +236,17 @@ def bcsr_sdd_panels(panel_rows, panel_cols, panel_mask, dy, b, *, br: int,
         raise ValueError(f"rows [{row_offset}, {row_offset + nrows}) are not "
                          f"inside dy's {dy3.shape[1]} rows")
     npanels, g = panel_cols.shape
+    units = sdd_unit_table(panel_rows, max(-(-nrows // br), 1), units)
+    if units.units.device != b3.device or not units.units.is_contiguous():
+        raise ValueError(f"units must be contiguous on {b3.device}, not "
+                         f"{units.units.device}")
     out = torch.empty((npanels, br, g), dtype=acc_dtype_for(b3.dtype),
                       device=b3.device)
     fn = _build.kernel_fn("bcsr_sdd", "bcsr_sdd_panels", _BCSR_ARGTYPES)
     with torch.cuda.device(b3.device):
-        rc = fn(panel_rows.data_ptr(), panel_cols.data_ptr(),
+        rc = fn(units.units.data_ptr(), panel_cols.data_ptr(),
                 panel_mask.data_ptr(), dy3.data_ptr(), b3.data_ptr(),
-                out.data_ptr(), npanels, br, g, dy3.shape[1], b3.shape[1],
+                out.data_ptr(), units.nunits, br, g, dy3.shape[1], b3.shape[1],
                 b3.shape[2], b3.shape[0], row_offset, nrows,
                 _build.DTYPE_CODES[dy3.dtype], _build.DTYPE_CODES[b3.dtype],
                 torch.cuda.current_stream(b3.device).cuda_stream)

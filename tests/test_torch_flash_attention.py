@@ -1,13 +1,22 @@
 """B5 on the CPU: the port's ``flash_attention`` (its plain version on CPU
 tensors) against the reference's Pallas kernel in interpret mode and its
 XLA-level ``layers.flash_attention``, with the reference test's shapes and
-tolerances (fp32 2e-5, bf16 3e-2), plus ragged S, chunk invariance and the
-inputs the kernel refuses.  Inputs come from numpy with a seed."""
+tolerances (fp32 2e-5, bf16 3e-2), plus ragged S, chunk invariance, the
+inputs the kernel refuses, and the per-row bound ``chip_smoke.py`` holds
+the kernel to on the card against faults of a model of the kernel.  Inputs
+come from numpy with a seed."""
+import math
+import pathlib
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.models.layers import flash_attention as ref_flash
 from repro_torch.kernels import flash_attention as b5
@@ -136,3 +145,63 @@ def test_refuses_what_the_kernel_does_not_take(rng, case, exc, entry):
         else:
             tlayers.flash_attention(q, k, v, causal=True, window=window,
                                     backend="torch")
+
+
+def _tiled_model(q, k, v, causal, *, drop=None, swap_v=None, tile=64):
+    """B5's wgmma body modelled in fp32: online softmax over ``tile``-key
+    tiles, P rounded to q's dtype before P·V, the output rounded once.  The
+    faults: ``drop`` leaves tile ``drop`` out; ``swap_v`` = (i, j) reads
+    tile j's V for tile i and i's for j."""
+    B, S, H, hd = q.shape
+    kv = k.shape[2]
+    qf = q.float().reshape(B, S, kv, H // kv, hd)
+    vf = v.float().clone()
+    if swap_v is not None:
+        i, j = (slice(t * tile, (t + 1) * tile) for t in swap_v)
+        vf[:, i], vf[:, j] = vf[:, j].clone(), vf[:, i].clone()
+    s = torch.einsum("bqgrh,bkgh->bgrqk", qf, k.float()) / math.sqrt(hd)
+    pos = torch.arange(S)
+    keep = (pos[None, :] <= pos[:, None]) if causal else torch.ones(
+        S, S, dtype=torch.bool)
+    if drop is not None:
+        keep[:, drop * tile:(drop + 1) * tile] = False
+    s = torch.where(keep, s, torch.tensor(b5.NEG_INF))
+    m = torch.full(s.shape[:-1], b5.NEG_INF)
+    den = torch.zeros(s.shape[:-1])
+    acc = torch.zeros(s.shape[:-1] + (hd,))
+    for k0 in range(0, S, tile):
+        m_new = torch.maximum(m, s[..., k0:k0 + tile].amax(-1))
+        p = torch.exp(s[..., k0:k0 + tile] - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        den = den * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bgrqk,bkgh->bgrqh", p.to(q.dtype).float(), vf[:, k0:k0 + tile])
+        m = m_new
+    o = acc / den.clamp_min(1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("dname", ["bfloat16", "float16"])
+@pytest.mark.parametrize("S,causal", [(1000, True), (1000, False),
+                                      (2049, True), (2049, False)])
+@pytest.mark.parametrize("hd", [16, 64])
+def test_row_bound_passes_rounding_and_fails_a_lost_tile(rng, dname, S,
+                                                         causal, hd):
+    """``chip_smoke.FLASH_ROW_TOL``, the per-row bound B5 is held to on the
+    card, against the plain version: the kernel's model passes it, and the
+    model fails it with a K / V tile left out (the first, a middle one, the
+    last full one and the ragged last) or two tiles' V swapped.  Not the
+    ragged last tile of 1 key at S 2049 when causal: it reaches one row a
+    head, which it moves by that one key's weight only."""
+    q, k, v = (_torch(a, dname) for a in _qkv(rng, 1, S, 4, 1, hd))
+    want = b5.flash_attention_plain(q, k, v, causal=causal)
+    tol = chip_smoke.FLASH_ROW_TOL[dname]
+    assert chip_smoke.row_err(_tiled_model(q, k, v, causal), want) < tol
+    last = (S - 1) // 64
+    faults = [{"drop": t} for t in (0, last // 2, last - 1)]
+    faults += [{"swap_v": (1, last // 2)}]
+    if not causal or S % 64 > 1:
+        faults += [{"drop": last}]
+    for fault in faults:
+        got = _tiled_model(q, k, v, causal, **fault)
+        assert chip_smoke.row_err(got, want) > tol, fault

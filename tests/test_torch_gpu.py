@@ -274,6 +274,96 @@ def test_cuda_sdd_kernels_match_plain(cuda, rng, dname):
                 assert torch.equal(outs[1], outs[2]), name
 
 
+# (dY dtype, B dtype): the pairs B3/B4 take (LOOPS_DISPATCH_SDD).
+SDD_PAIRS = [("float32", "float32"), ("float64", "float64"),
+             ("float16", "float16"), ("bfloat16", "bfloat16"),
+             ("float32", "float16"), ("float32", "bfloat16")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dy_name,b_name", SDD_PAIRS)
+@pytest.mark.parametrize("br", [4, 8, 16])
+def test_cuda_bcsr_sdd_unit_edges(cuda, rng, dy_name, b_name, br):
+    """B4 (one CTA a work unit, the dY chunk staged once a unit) at its
+    edges, against the plain version: hub block-rows of 140 panels split
+    over two units of the uploaded table and over 47 units of a table at
+    U = 3, a block-row of one panel, G = 5 (a job of 5 live lanes), batch
+    1, 2 and 3 and none, N 40 and 600 and 37 (B rows not 16-byte aligned:
+    staged with plain loads), every dtype pair; masked lanes exactly 0,
+    and two calls bitwise equal.  Tolerances are B's dtype's (fp32
+    1e-5, fp64 1e-12, half 1e-2) of max(1, max |plain|), except fp32 dY
+    against bf16 B: the hi + mid + lo split keeps dY's fp32 precision, so
+    1e-4 (one bf16 rounding of dY is ~1e-3 off at these sums)."""
+    dyt, bt = getattr(torch, dy_name), getattr(torch, b_name)
+    tol = {"float32": 1e-5, "float64": 1e-12}.get(b_name, 1e-2)
+    if (dy_name, b_name) == ("float32", "bfloat16"):
+        tol = 1e-4
+    a = hub_case(rng, 700)
+    fmt = tf.loops_from_csr(tf.csr_from_dense(a), 4, br, panel_g=5)
+    p = fmt.on(cuda).bcsr
+    assert np.bincount(p.units.units[:, 0].cpu().numpy()).max() > 1
+    assert 1 in np.diff(p.ptr.cpu().numpy())
+    kw = {"br": br, "row_offset": fmt.r_boundary,
+          "nrows": fmt.nrows - fmt.r_boundary}
+    for lead, n in (((), 40), ((3,), 600), ((1,), 40), ((2,), 37)):
+        b = torch.randn(lead + (a.shape[1], n), device=cuda).to(bt)
+        dy = torch.randn(lead + (fmt.nrows, n), device=cuda).to(dyt)
+        want = spmm_sdd.bcsr_sdd_panels_plain(p.rows, p.cols, p.mask, dy, b,
+                                              **kw)
+        scale = max(1.0, float(want.abs().max()))
+        for units in (p.units, csr_spmm.unit_table_of(p.ptr, 3)):
+            got = spmm_sdd.bcsr_sdd_panels(p.rows, p.cols, p.mask, dy, b,
+                                           units=units, **kw)
+            again = spmm_sdd.bcsr_sdd_panels(p.rows, p.cols, p.mask, dy, b,
+                                             units=units, **kw)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and got.dtype == want.dtype
+            assert torch.equal(got, again)
+            dead = ~p.mask[:, None, :].expand_as(got)
+            assert bool((got[dead] == 0).all())
+            err = float((got.double() - want.double()).abs().max())
+            assert err <= tol * scale, (lead, n, units.unit_panels, err)
+
+
+# B5's bound on |got - plain| / |plain| of each output row (norms over
+# hd), as chip_smoke.FLASH_ROW_TOL.
+ROW_TOL = {"bfloat16": 1.5e-2, "float16": 3e-3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname", ["bfloat16", "float16"])
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (1, 1, 4, 1, 64), (1, 63, 3, 1, 32), (2, 65, 4, 4, 16),
+    (1, 65, 4, 1, 16), (1, 1000, 12, 3, 128), (2, 200, 6, 2, 128),
+    (1, 1000, 3, 3, 32), (1, 2049, 8, 2, 64), (4, 2048, 32, 8, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_edges(cuda, dname, B, S, H, KV, hd, causal):
+    """B5's wgmma body at its edges: hd 16/32/64/128 (each its own swizzle
+    and descriptors), 1, 3 and 4 q-heads a kv-head (a CTA serves at most 2
+    heads of a group: 2 of 4, 1 of 3), ragged S (1, 63, 65, 1000, 2049:
+    rows TMA zero-fills, keys masked), and the serving shape (1,024 CTAs,
+    32 tiles deep), causal and not, against the plain version at 1e-2 of
+    max(1, max |plain|), and each output row within ``ROW_TOL`` of its own
+    norm (``chip_smoke.FLASH_ROW_TOL``): a long row's output is ~1e-2 of
+    that scale, and a lost or misplaced K / V tile moves it by more."""
+    g = torch.Generator(device=cuda).manual_seed(S + 7 * H + hd)
+    dt = getattr(torch, dname)
+    q = torch.randn((B, S, H, hd), generator=g, device=cuda).to(dt)
+    k = torch.randn((B, S, KV, hd), generator=g, device=cuda).to(dt)
+    v = torch.randn((B, S, KV, hd), generator=g, device=cuda).to(dt)
+    before = b5.flash_attention.launches
+    got = b5.flash_attention(q, k, v, causal=causal)
+    want = b5.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert b5.flash_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    scale = max(1.0, float(want.double().abs().max()))
+    assert float((got.double() - want.double()).abs().max()) <= 1e-2 * scale
+    d = (got.double() - want.double()).norm(dim=-1)
+    row = float((d / want.double().norm(dim=-1).clamp_min(1e-300)).max())
+    assert row <= ROW_TOL[dname], row
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
 def test_cuda_loops_spmm_values_backward_matches_flat(cuda, dname):

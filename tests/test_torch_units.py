@@ -24,7 +24,7 @@ from repro.kernels import engine as rengine
 from repro.kernels.bcsr_spmm import bcsr_panels_spmm_pallas
 from repro.kernels.csr_spmm import csr_panels_spmm_pallas
 from repro_torch.core import formats as tf
-from repro_torch.kernels import bcsr_spmm, csr_spmm
+from repro_torch.kernels import bcsr_spmm, csr_spmm, spmm_sdd
 
 from test_torch_gpu import adversarial_cases, hub_case
 from test_torch_kernels import assert_close, ref_format, to_torch, x64_if
@@ -218,3 +218,51 @@ def test_wrapper_helpers(rng):
     unsplit = csr_spmm.unit_table_of(p.ptr, 10_000)
     assert unsplit.nslots == 0
     assert csr_spmm._workspace(unsplit, b3, 1, torch.float32) is None
+
+
+@pytest.mark.parametrize("br", [4, 8, 16])
+def test_sdd_unit_table_covers_every_panel_once(rng, br):
+    """B4's grid is one CTA a unit of the forward's B2 table (or of the
+    table built from the panel rows when none is given): every panel lies
+    in exactly one unit and every unit holds panels of one block-row; a
+    table of other panels or of another block-row count is refused, and on
+    CPU tensors the wrapper runs the plain version whatever table it is
+    given."""
+    a = hub_case(rng, 700)
+    fmt = tf.loops_from_csr(tf.csr_from_dense(a), 4, br, panel_g=5)
+    p = fmt.on("cpu").bcsr
+    nblocks = fmt.bcsr_part.nblocks
+    assert nblocks == -(-(fmt.nrows - fmt.r_boundary) // br)
+    rows = p.rows.numpy()
+    built = spmm_sdd.sdd_unit_table(p.rows, nblocks)
+    assert built.unit_panels == bcsr_spmm.UNIT_PANELS
+    assert spmm_sdd.sdd_unit_table(p.rows, nblocks, p.units) is p.units
+    for t in (built, p.units, csr_spmm.unit_table_of(p.ptr, 3)):
+        group, begin, end, _ = t.units.numpy().T
+        walked = np.concatenate([np.arange(s, e) for s, e in
+                                 zip(begin, end)])
+        assert np.array_equal(walked, np.arange(rows.size))
+        for blk, s, e in zip(group, begin, end):
+            assert np.all(rows[s:e] == blk)
+    assert np.bincount(built.units[:, 0].numpy()).max() > 1
+    assert spmm_sdd.sdd_unit_table(p.rows[:0], 0).nunits == 0
+    with pytest.raises(ValueError, match="covers"):
+        spmm_sdd.sdd_unit_table(p.rows[:-1], nblocks, p.units)
+    # Equal panels, other block-rows: the panels of the last block-row
+    # moved into one more, empty before.
+    moved = p.rows.clone()
+    moved[moved == nblocks - 1] = nblocks
+    other = csr_spmm.unit_table_of(
+        csr_spmm.panel_ptr_of(moved, nblocks + 1), bcsr_spmm.UNIT_PANELS)
+    assert other.npanels == p.units.npanels
+    with pytest.raises(ValueError, match="block-rows"):
+        spmm_sdd.sdd_unit_table(p.rows, nblocks, other)
+    b = torch.randn((3, a.shape[1], 40), dtype=torch.float64)
+    dy = torch.randn((3, fmt.nrows, 40), dtype=torch.float64)
+    kw = {"br": br, "row_offset": fmt.r_boundary,
+          "nrows": fmt.nrows - fmt.r_boundary}
+    want = spmm_sdd.bcsr_sdd_panels_plain(p.rows, p.cols, p.mask, dy, b, **kw)
+    got = spmm_sdd.bcsr_sdd_panels(p.rows, p.cols, p.mask, dy, b,
+                                   units=csr_spmm.unit_table_of(p.ptr, 3),
+                                   **kw)
+    assert torch.equal(got, want)
