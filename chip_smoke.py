@@ -34,6 +34,10 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  times of the whole call, of each kernel, of
                  its plain version and of cuSPARSE (``torch.sparse``), and
                  the bound from the bytes and operations the call needs;
+                 at m4 fp32 also B3 alone on the CSR part (its hub rows),
+                 after the launch counts are read: against its plain
+                 version and a second call, with its block table's counts,
+                 bound and ``torch.sparse.sampled_addmm`` as the yardstick;
   4. gcn      -- the 2-layer GCN at ogbn-arxiv's published widths answering
                  three requests, checked against the flat PyTorch path;
   5. train_gcn -- the paper's §4.5 workload: that GCN trained by plain SGD
@@ -48,9 +52,10 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  (2, 1024, 2048) activation, fp32 and bf16: the value and
                  activation gradients (B3/B4 and B1/B2 on the transposed
                  weight) against the flat path's autograd, a few SGD steps,
-                 B3/B4 timed alone with their bounds, TFLOP/s, share of
-                 the bound and ``torch.sparse.sampled_addmm`` as the
-                 yardstick, and one step's kernels by device time;
+                 B3/B4 timed alone (two calls bitwise equal) with their
+                 bounds, TFLOP/s, share of the bound and
+                 ``torch.sparse.sampled_addmm`` as the yardstick, and one
+                 step's kernels by device time;
   7. serve_lm -- llama3.2-1b at full width (16 layers, d 2048, 32 heads,
                  8 kv heads, vocab 128,256) in bf16 with seeded random
                  weights, serving 4 requests of 2048 prompt + 32 generated
@@ -127,6 +132,9 @@ GCN_TOL = 1e-4
 MAIN_MATRICES = (("m6", 200_000, ("float32", "float64", "float16")),
                  ("m4", 1_400_000, ("float32", "float64")))
 MAIN_N = 32
+# (matrix, dtype) of the main path at which B3 is timed alone on the CSR
+# part: in-2004's hub rows, where no two rows share columns.
+B3_MAIN = ("m4", "float32")
 # ogbn-arxiv: 169,343 nodes, ~1.17M edges (avg degree ~7), 128 features,
 # 40 classes; 256 hidden is OGB's GCN baseline width.
 GCN_NODES, GCN_DEGREE, F_IN, F_HID, F_OUT = 169_343, 7, 128, 256, 40
@@ -593,7 +601,7 @@ def phase_kernels() -> dict:
     dy = torch.as_tensor(rng.standard_normal((300, 32)).astype(
         np.float32)).to(dev)
     ms["csr_sdd_panels"] = time_ms(lambda: spmm_sdd.csr_sdd_panels(
-        cp.rows, cp.cols, cp.mask, dy, b))
+        cp.rows, cp.cols, cp.mask, dy, b, blocks=cp.sdd_blocks))
     ms["bcsr_sdd_panels"] = time_ms(lambda: spmm_sdd.bcsr_sdd_panels(
         bp.rows, bp.cols, bp.mask, dy, b, br=8, row_offset=152, nrows=148,
         units=bp.units))
@@ -860,11 +868,78 @@ def phase_main(launches: dict) -> list:
                    "dense_matmul": "not run: the dense A does not fit",
                    "kernels": kernels,
                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if (mid, dname) == B3_MAIN:
+                # After the launch counts and the phase's own times: B3 is
+                # not on the forward path.
+                kernels["csr_sdd_panels"] = _b3_main(fmt, csr, gen, dname)
             phase(rec)
             out.append(rec)
             del fmt, dev, buf, y, want, absprod
             torch.cuda.empty_cache()
     return out
+
+
+def block_counts(blocks) -> dict:
+    """What B3's block table (``kernels/spmm_sdd.py::SddBlockTable``)
+    holds: blocks of each kind, the staged blocks' distinct columns (the B
+    rows they stage) and dY rows, and the largest of each."""
+    staged = blocks.blocks[:blocks.nstaged]   # the staged blocks come first
+    return {"blocks": blocks.nblocks, "staged_blocks": blocks.nstaged,
+            "direct_blocks": blocks.ndirect,
+            "staged_cols": int(blocks.cols.numel()),
+            "staged_dy_rows": int(staged[:, 6].sum()),
+            "staged_outputs": int(blocks.outs.numel()),
+            "max_cols": blocks.max_cols, "max_rows": blocks.max_rows}
+
+
+def _b3_main(fmt, csr, gen, dname) -> dict:
+    """B3 alone on the main path's CSR part (at in-2004's size, its hub
+    rows), N = ``MAIN_N``, dY and B from the phase's generator: against its
+    plain version at ``TOL`` of |dY|·|B| and a second call (bitwise equal),
+    its time, device time, bound and ``torch.sparse.sampled_addmm``'s time,
+    and the part's block table."""
+    import torch
+    from repro_torch.core.formats import csr_slice_rows
+    from repro_torch.kernels import spmm_sdd
+    dt = getattr(torch, dname)
+    p = fmt.on(DEVICE).csr
+    r_b = fmt.r_boundary
+    t0 = time.perf_counter()
+    blocks = p.sdd_blocks
+    table_s = time.perf_counter() - t0
+    b3 = torch.randn((1, csr.shape[1], MAIN_N), generator=gen, device=DEVICE,
+                     dtype=torch.float32).to(dt)
+    dy3 = torch.randn((1, csr.nrows, MAIN_N), generator=gen, device=DEVICE,
+                      dtype=torch.float32).to(dt)
+
+    def run():
+        return spmm_sdd.csr_sdd_panels(p.rows, p.cols, p.mask, dy3, b3,
+                                       blocks=blocks)
+
+    def plain(d=dy3, b=b3):
+        return spmm_sdd.csr_sdd_panels_plain(p.rows, p.cols, p.mask, d, b)
+    got, again = run(), run()
+    want = plain()
+    absprod = plain(dy3.abs(), b3.abs())
+    torch.cuda.synchronize()
+    err, rel = sum_err(got, want, absprod)
+    check(rel <= TOL[dname], f"B3 on the {dname} main-path CSR part vs "
+          f"plain: err {err:.3g}, {rel:.3g} of |dY||B| > {TOL[dname]:g}")
+    check(torch.equal(got, again), f"B3 on the {dname} main-path CSR part: "
+          "two calls differ")
+    lib, lib_what = library_sdd_ms(csr_slice_rows(csr, 0, r_b), dy3[0, :r_b],
+                                   b3[0].t(), dt)
+    rec = {"ms": time_ms(run), "device_ms": device_ms(run),
+           "plain_ms": time_ms(plain, samples=3, reps=1, warmup=1),
+           "library_ms": lib, "library": lib_what,
+           "max_abs_err": err, "max_err_of_absprod": rel,
+           "bitwise_repeatable": True, "npanels": int(p.rows.numel()),
+           "stored_values": int(p.mask.sum()), "rows": r_b,
+           "table_s": table_s, **block_counts(blocks),
+           **sdd_bound(p, dy3, b3, got, br=1, dy_rows=r_b, dtype=dname)}
+    rec.update(rate(rec))
+    del got, again, want, absprod, b3, dy3
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1152,7 +1227,8 @@ def phase_train_ffn(launches: dict) -> list:
         for name, panels, kbr, rows, run, plain, part_rows in (
                 ("csr_sdd_panels", dev.csr, 1, r_b,
                  lambda: spmm_sdd.csr_sdd_panels(
-                     dev.csr.rows, dev.csr.cols, dev.csr.mask, dy3, b3),
+                     dev.csr.rows, dev.csr.cols, dev.csr.mask, dy3, b3,
+                     blocks=dev.csr.sdd_blocks),
                  lambda d=dy3, b=b3: spmm_sdd.csr_sdd_panels_plain(
                      dev.csr.rows, dev.csr.cols, dev.csr.mask, d, b),
                  (0, r_b)),
@@ -1166,12 +1242,15 @@ def phase_train_ffn(launches: dict) -> list:
                      br=br, row_offset=r_b, nrows=nrows_b),
                  (r_b, fmt.nrows))):
             got = run()
+            again = run()
             want = plain()
             absprod = plain(d=dy3.abs(), b=b3.abs())
             torch.cuda.synchronize()
             k_err, k_rel = sum_err(got, want, absprod)
             check(k_rel <= tol, f"train_ffn {dname} {name} vs plain: err "
                   f"{k_err:.3g}, {k_rel:.3g} of |dY||B| > {tol:g}")
+            check(torch.equal(got, again), f"train_ffn {dname} {name}: two "
+                  "calls differ")
             dy_rows = dy3[:, part_rows[0]:part_rows[1]].permute(
                 1, 0, 2).reshape(part_rows[1] - part_rows[0], zn)
             lib, lib_what = library_sdd_ms(
@@ -1181,11 +1260,14 @@ def phase_train_ffn(launches: dict) -> list:
                 "plain_ms": time_ms(plain, samples=3, reps=1, warmup=1),
                 "library_ms": lib, "library": lib_what,
                 "max_abs_err": k_err, "max_err_of_absprod": k_rel,
+                "bitwise_repeatable": True,
                 "npanels": int(panels.rows.numel()),
                 **sdd_bound(panels, dy3, b3, got, br=kbr, dy_rows=rows,
                             dtype=dname)}
+            if name == "csr_sdd_panels":
+                kernels[name].update(block_counts(panels.sdd_blocks))
             kernels[name].update(rate(kernels[name]))
-            del got, want, absprod, dy_rows
+            del got, again, want, absprod, dy_rows
         del dy, dy3, bt
         # The live values' per-step copies: the scatter into both parts'
         # panels (forward) and the carry into Wᵀ's layout (dx).

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Build variants of the CUDA kernels B5 (flash attention) and B4 (BCSR
-SDD) and check and time them on one GPU.
+"""Build variants of the CUDA kernels B5 (flash attention), B4 (BCSR SDD)
+and B3 (CSR SDD) and check and time them on one GPU.
 
 Run from the repository root, on a machine with an NVIDIA H100:
 
     python3 kernel_sweep.py b5 [--variants k64s3h2,...] [--check-only]
     python3 kernel_sweep.py b4 [--variants w8s2r4b2,...]
-    (either also takes [--root DIR] [--out DIR])
+    python3 kernel_sweep.py b3 [--variants t512k16s2c2r64b1d128j8e6,...]
+                               [--base DIR] [--probe stage|compute]
+    (each also takes [--root DIR] [--out DIR])
 
 A variant sets the tile constants of the kernel's source in a copy of it:
 
@@ -20,6 +22,15 @@ A variant sets the tile constants of the kernel's source in a copy of it:
   takes w x r x 4 jobs a pass), ``b`` CTAs an SM must hold
   (``kMinBlocks``, ``__launch_bounds__``' second argument, which caps the
   registers).
+* B3 (``src/repro_torch/csrc/csr_sdd.cu``), staged blocks: ``t`` threads
+  a CTA (``kThreads``), ``k`` outputs a lane group keeps (``kOuts``), ``s``
+  buffers of the ring (``kStages``), ``c`` lines of a row a chunk holds
+  (``kChunkLines``), ``r`` rows of a row group (the block table's
+  ``BLOCK_ROWS``), ``b`` CTAs an SM must hold (``kMinBlocks``); direct
+  blocks: ``d`` threads a CTA (``kDirectThreads``), ``j`` outputs a lane
+  group keeps (``kDirectOuts``), ``e`` CTAs an SM must hold
+  (``kDirectMinBlocks``).  The table's ``BLOCK_OUTS`` and ``DIRECT_OUTS``
+  follow t / 8 x k and d / 8 x j.
 
 The variants are compiled with the build's own flags (``_build.NVCC_FLAGS``)
 into ``build/kernel_sweep/``, all at once, and loaded with ctypes beside the
@@ -44,6 +55,21 @@ port's wrapper.  Each prints one JSON line with its registers and spills
   ``chip_smoke.TOL``), whether two calls are bitwise equal, the CUDA-event
   time, the device time (``chip_smoke.device_ms``) and the bound
   (``chip_smoke.sdd_bound``).
+* B3, at phase ``train_ffn``'s shapes (the layer's CSR part, fp32 and bf16
+  as for B4) and on the CSR part of phase ``main``'s in-2004-like m4
+  (1.4M rows, its hub rows; N = 32, fp32): for each variant its block
+  table's counts, the error against ``csr_sdd_panels_plain`` relative to
+  |dY|·|B| (at ``chip_smoke.TOL``), whether two calls are bitwise equal,
+  two CUDA-event times taken in turns (every kernel once in order, then
+  once in the reverse order), the device time, the bound and
+  ``torch.sparse.sampled_addmm``'s time.  ``--base DIR`` also builds the
+  B3 source of another checkout as it is (its own constants and C
+  interface, the first design's included) and times it in the same turns.
+  ``--probe stage`` builds the variants with the staged kernel's compute
+  loop cut out (staging only), ``--probe compute`` with its staging cut
+  out (compute on whatever shared memory holds): their times say which of
+  the two bounds the staged blocks; their results are wrong by design and
+  are not checked.
 
 ``--root DIR`` builds the kernel source of another checkout instead (for
 instance an earlier commit unpacked with ``git archive`` into a git-ignored
@@ -60,8 +86,10 @@ import json
 import math
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
+import time
 
 HERE = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
@@ -78,7 +106,20 @@ KERNELS = {
            {"w": "kSddWarps", "s": "kBStages", "r": "kMaxRounds",
             "b": "kMinBlocks"},
            "w8s2r4b2,w8s3r4b1,w8s4r4b1,w4s4r8b2,w4s3r8b3"),
+    # r is the block table's BLOCK_ROWS, not a constant of the source.
+    "b3": ("csr_sdd.cu",
+           {"t": "kThreads", "k": "kOuts", "s": "kStages",
+            "c": "kChunkLines", "r": "BLOCK_ROWS", "b": "kMinBlocks",
+            "d": "kDirectThreads", "j": "kDirectOuts",
+            "e": "kDirectMinBlocks"},
+           "t512k16s2c2r64b1d128j8e6,t512k16s2c2r64b1d128j8e5,"
+           "t512k16s3c2r64b1d128j8e6,t256k16s2c2r64b2d128j8e6,"
+           "t512k16s2c1r64b1d128j8e6,t512k16s2c2r96b1d128j8e6,"
+           "t512k16s2c2r64b1d256j8e3"),
 }
+# B3's first design (before its block table): the C interface it had.
+B3_FIRST_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6
+                     + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 # B5, (B, S, H, KV, hd): the GPU tests' edges beside chip_smoke's shapes.
 EDGE_SHAPES = ((1, 1, 4, 1, 64), (1, 63, 3, 1, 32), (2, 65, 4, 4, 16),
                (1, 1000, 12, 3, 128), (1, 2049, 8, 2, 64),
@@ -101,8 +142,11 @@ def parse(kernel: str, name: str) -> dict:
 
 def variant_source(text: str, consts: dict) -> str:
     """``text`` with each ``constexpr int <name> = <n>;`` set to the
-    variant's value; each constant must be defined exactly once."""
+    variant's value; each constant must be defined exactly once.  Names
+    that are not the source's constants (``k...``) are skipped."""
     for name, value in consts.items():
+        if not name.startswith("k"):
+            continue
         text, hits = re.subn(rf"(constexpr int {name} = )\d+;",
                              rf"\g<1>{value};", text)
         if hits != 1:
@@ -110,21 +154,44 @@ def variant_source(text: str, consts: dict) -> str:
     return text
 
 
-def build(kernel: str, names, root: pathlib.Path):
-    """Compile every variant of ``root``'s source at once; return
-    {name: (library or None, ptxas log)}."""
+# B3 probes: the staged kernel's source with one half cut out.
+PROBES = {
+    "stage": ("        for (int o = 0; o < kOuts; ++o) {\n          if (o == 0",
+              "        for (int o = 0; o < 0; ++o) {\n          if (o == 0"),
+    "compute": ("  auto stage = [&](int buf) {\n",
+                "  auto stage = [&](int buf) {\n    return;\n"),
+}
+
+
+def probe_source(text: str, probe: str) -> str:
+    """``text`` (csr_sdd.cu) with the probe's half of the staged kernel cut
+    out; the cut must match exactly once."""
+    old, new = PROBES[probe]
+    if text.count(old) != 1:
+        raise SystemExit(f"probe {probe}: the source does not match once")
+    return text.replace(old, new)
+
+
+def build(kernel: str, names, root: pathlib.Path, *, as_is: bool = False,
+          probe: str | None = None):
+    """Compile every variant of ``root``'s source at once (``as_is``: the
+    source itself, under the first name; ``probe``: B3 with one half cut
+    out); return {name: (library or None, ptxas log)}."""
     from repro_torch.kernels import _build
     csrc = root / "src" / "repro_torch" / "csrc"
     src_name = KERNELS[kernel][0]
     text = (csrc / src_name).read_text()
-    tag = hashlib.sha1(str(root).encode()).hexdigest()[:8]
+    if probe is not None:
+        text = probe_source(text, probe)
+    tag = hashlib.sha1(f"{root}{probe}".encode()).hexdigest()[:8]
     out_dir = HERE / "build" / "kernel_sweep" / tag
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         stem = f"{src_name[:-3]}_{name}"
         src = out_dir / f"{stem}.cu"
-        src.write_text(variant_source(text, parse(kernel, name)))
+        src.write_text(text if as_is else
+                       variant_source(text, parse(kernel, name)))
         lib = out_dir / f"{stem}.so"
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
@@ -327,6 +394,164 @@ def sweep_b4(names, built, base: dict):
     return records, failed
 
 
+def _b3_shapes():
+    """Yield (shape, dtype, panels, dy3, b3, part CSR, part rows) for B3:
+    the sparse FFN's CSR part (fp32, bf16), then m4's (fp32, N 32)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (csr_from_dense, plan_and_convert, suite)
+    from repro_torch.core.formats import csr_slice_rows
+    from repro_torch.models import magnitude_prune, sparse_linear_from_dense
+    rng = np.random.default_rng(4)
+    w = (rng.standard_normal((cs.FFN_D_OUT, cs.FFN_D_IN)) * 0.02).astype(
+        np.float32)
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    for dname in cs.FFN_DTYPES:
+        dt = getattr(torch, dname)
+        wt = torch.from_numpy(w).to(dt)
+        fmt = sparse_linear_from_dense(wt, cs.FFN_SPARSITY,
+                                       device="cuda").fmt
+        x = torch.randn(cs.FFN_X_SHAPE, generator=gen, device="cuda").to(dt)
+        b3 = x.transpose(-1, -2).contiguous()
+        dy3 = torch.randn((cs.FFN_X_SHAPE[0], cs.FFN_D_OUT,
+                           cs.FFN_X_SHAPE[1]), generator=gen, device="cuda")
+        csr = csr_from_dense(magnitude_prune(wt.float().numpy(),
+                                             cs.FFN_SPARSITY))
+        yield ("ffn", dname, fmt.on("cuda").csr, dy3, b3,
+               csr_slice_rows(csr, 0, fmt.r_boundary), fmt.r_boundary)
+    mid, rows, _ = next(m for m in cs.MAIN_MATRICES if m[0] == "m4")
+    csr = suite.table2_like(mid, scale_rows=rows, seed=0, dtype=np.float32)
+    fmt, _ = plan_and_convert(csr, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b3 = torch.randn((1, csr.shape[1], cs.MAIN_N), generator=gen,
+                     device="cuda")
+    dy3 = torch.randn((1, csr.nrows, cs.MAIN_N), generator=gen,
+                      device="cuda")
+    yield ("m4", "float32", fmt.on("cuda").csr, dy3, b3,
+           csr_slice_rows(csr, 0, fmt.r_boundary), fmt.r_boundary)
+
+
+def sweep_b3(names, built, base: dict, based, probe: str | None = None):
+    """Records a variant (and the ``--base`` build, ``based``: (library,
+    log) or None) and shape; returns (records, failed).  Under a probe the
+    results are not checked."""
+    import torch
+    from repro_torch.kernels import _build, spmm_sdd
+    records, failed = [], False
+    entries = []                      # (label, parsed constants, fn, log)
+    if based is not None:
+        lib, log = based
+        if lib is None:
+            return [{"variant": "base", **base,
+                     "build_error": log[-3000:]}], True
+        text = (pathlib.Path(base["base"]) / "src" / "repro_torch" / "csrc"
+                / "csr_sdd.cu").read_text()
+        first = "kOuts" not in text     # the first design's interface
+        entries.append(("base", None if first else {}, load(
+            lib, "csr_sdd_panels",
+            B3_FIRST_ARGTYPES if first else spmm_sdd._CSR_ARGTYPES), log))
+    for name in names:
+        lib, log = built[name]
+        if lib is None:
+            failed = True
+            records.append({"variant": name, **base,
+                            "build_error": log[-3000:]})
+            continue
+        entries.append((name, parse("b3", name), load(
+            lib, "csr_sdd_panels", spmm_sdd._CSR_ARGTYPES), log))
+    for shape, dname, p, dy3, b3, part, r_b in _b3_shapes():
+        dt = getattr(torch, dname)
+        want = spmm_sdd.csr_sdd_panels_plain(p.rows, p.cols, p.mask, dy3, b3)
+        absprod = spmm_sdd.csr_sdd_panels_plain(p.rows, p.cols, p.mask,
+                                                dy3.abs(), b3.abs())
+        zn = b3.shape[0] * b3.shape[2]
+        lib_ms, lib_what = cs.library_sdd_ms(
+            part, dy3[:, :r_b].permute(1, 0, 2).reshape(r_b, zn),
+            b3.permute(0, 2, 1).reshape(zn, b3.shape[1]), dt)
+        npanels, g = p.cols.shape
+        runs, recs = [], []
+        for label, consts, fn, log in entries:
+            table = None
+            if consts is not None and "BLOCK_ROWS" in consts:
+                table = spmm_sdd.sdd_block_table(
+                    p.rows, p.cols, p.mask, block_rows=consts["BLOCK_ROWS"],
+                    block_outs=consts["kThreads"] // 8 * consts["kOuts"],
+                    direct_outs=consts["kDirectThreads"] // 8
+                    * consts["kDirectOuts"])
+            elif consts is not None:
+                table = p.sdd_blocks
+
+            def run(fn=fn, table=table):
+                out = torch.empty(want.shape, dtype=want.dtype,
+                                  device="cuda")
+                args = [p.rows.data_ptr(), p.cols.data_ptr(),
+                        p.mask.data_ptr(), dy3.data_ptr(), b3.data_ptr(),
+                        out.data_ptr()]
+                shape = [g, dy3.shape[1], b3.shape[1], b3.shape[2],
+                         b3.shape[0]]
+                if table is None:
+                    args += [npanels] + shape
+                else:
+                    args = [table.blocks.data_ptr(), table.outs.data_ptr(),
+                            table.info.data_ptr(), table.cols.data_ptr(),
+                            *args, table.nblocks, table.nstaged,
+                            table.max_rows, table.max_cols, *shape]
+                rc = fn(*args, _build.DTYPE_CODES[dy3.dtype],
+                        _build.DTYPE_CODES[b3.dtype],
+                        torch.cuda.current_stream().cuda_stream)
+                _build.check_launch("csr_sdd variant", rc)
+                return out
+            rec = {"variant": label, **base, "shape": shape, "dtype": dname,
+                   "registers_spills": regs(log, "IffE" if dname ==
+                                            "float32" else
+                                            "If13__nv_bfloat16E"),
+                   "npanels": npanels, "library_ms": lib_ms,
+                   "library": lib_what}
+            if consts:
+                rec.update({k: v for k, v in consts.items()})
+            if table is not None:
+                rec.update(cs.block_counts(table))
+            try:
+                got = run()
+                again = run()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                failed = True
+                rec["launch_error"] = str(e)[:300]
+                records.append(rec)
+                print(json.dumps(rec), flush=True)
+                continue
+            err, rel = cs.sum_err(got, want, absprod)
+            same = bool(torch.equal(got, again))
+            if probe is None:
+                failed |= not (rel <= cs.TOL[dname] and same)
+            rec.update({"max_abs_err": err, "max_err_of_absprod": rel,
+                        "bitwise_repeatable": same,
+                        **cs.sdd_bound(p, dy3, b3, got, br=1, dy_rows=r_b,
+                                       dtype=dname)})
+            runs.append(run)
+            recs.append(rec)
+            del got, again
+        # In turns: each kernel once in order, then once in reverse.
+        for i in list(range(len(runs))) + list(reversed(range(len(runs)))):
+            recs[i].setdefault("ms_in_turns", []).append(cs.time_ms(runs[i]))
+        for rec, run in zip(recs, runs):
+            rec["ms"] = statistics.median(rec["ms_in_turns"])
+            rec["device_ms"] = cs.device_ms(run)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                run()
+            rec["host_issue_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+            torch.cuda.synchronize()
+            rec.update(cs.rate(rec))
+            records.append(rec)
+            print(json.dumps(rec), flush=True)
+        del p, dy3, b3, want, absprod, runs
+        torch.cuda.empty_cache()
+    return records, failed
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernel", choices=sorted(KERNELS))
@@ -335,6 +560,12 @@ def main(argv=None) -> int:
                     help="B5: skip the timings")
     ap.add_argument("--root", type=pathlib.Path, default=HERE,
                     help="checkout whose kernel source is built")
+    ap.add_argument("--probe", choices=sorted(PROBES), default=None,
+                    help="B3: time the staged kernel's staging or compute "
+                         "alone")
+    ap.add_argument("--base", type=pathlib.Path, default=None,
+                    help="B3: a checkout whose source is built as it is "
+                         "and timed in turns with the variants")
     ap.add_argument("--out", type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
     names = (args.variants or KERNELS[args.kernel][2]).split(",")
@@ -349,12 +580,22 @@ def main(argv=None) -> int:
                          text=True).stdout.strip()
     print(smi, flush=True)
     root = args.root.resolve()
-    built = build(args.kernel, names, root)
-    base = {"kernel": args.kernel, "root": str(root), "nvidia_smi": smi}
+    if args.probe is not None and args.kernel != "b3":
+        raise SystemExit("--probe is for b3")
+    built = build(args.kernel, names, root, probe=args.probe)
+    base = {"kernel": args.kernel, "root": str(root), "nvidia_smi": smi,
+            "probe": args.probe}
     if args.kernel == "b5":
         records, failed = sweep_b5(names, built, base, args.check_only)
-    else:
+    elif args.kernel == "b4":
         records, failed = sweep_b4(names, built, base)
+    else:
+        based = None
+        if args.base is not None:
+            base["base"] = str(args.base.resolve())
+            based = build("b3", ["base"], args.base.resolve(),
+                          as_is=True)["base"]
+        records, failed = sweep_b3(names, built, base, based, args.probe)
     for rec in records:
         if "build_error" in rec:
             print(json.dumps(rec), flush=True)

@@ -38,6 +38,7 @@ import torch
 
 if TYPE_CHECKING:
     from ..kernels.csr_spmm import UnitTable
+    from ..kernels.spmm_sdd import SddBlockTable
 
 __all__ = [
     "CSR", "VectorBCSR", "PanelCSR", "PanelBCSR", "LoopsFormat",
@@ -266,6 +267,18 @@ class DevicePanels:
     @property
     def ngroups(self) -> int:
         return int(self.ptr.shape[0] - 1)
+
+    @functools.cached_property
+    def sdd_blocks(self) -> "SddBlockTable":
+        """A CSR part's block table for B3
+        (``kernels/spmm_sdd.py::sdd_block_table``), built on first use and
+        kept: only the value gradient reads it, so a format that is never
+        trained (the transposed one, a served one) never builds it."""
+        if self.vals.ndim != 2:
+            raise ValueError("only a CSR part's panels have an SDD block "
+                             "table")
+        from ..kernels.spmm_sdd import sdd_block_table
+        return sdd_block_table(self.rows, self.cols, self.mask)
 
     def scatter_values(self, vals: torch.Tensor) -> torch.Tensor:
         """Live item values (``(nnz,)`` or ``(ntiles, Br)``) in this part's

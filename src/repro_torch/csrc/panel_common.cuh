@@ -1,9 +1,10 @@
 // Shared pieces of the LOOPS panel kernels (csr_spmm.cu, bcsr_spmm.cu and the
 // SDD kernels csr_sdd.cu, bcsr_sdd.cu): dtype codes shared with the Python
 // wrappers, the accumulator type of each storage type, conversions, warp
-// reduction, the (value dtype, output dtype) and (dY dtype, B dtype)
-// dispatches, and the work-unit pieces of the two SpMM kernels (vector
-// loads, the column-tile width, the second pass over split groups).
+// reduction, 16-byte cp.async copies, the (value dtype, output dtype) and
+// (dY dtype, B dtype) dispatches, and the work-unit pieces of the two SpMM
+// kernels (vector loads, the column-tile width, the second pass over split
+// groups).
 //
 // Precision contract (the reference's kernels/engine.py::acc_dtype_for):
 // fp32 accumulates in fp32 with FFMA (no TF32 anywhere), fp64 in fp64 with
@@ -26,8 +27,6 @@ enum DType : int { kF32 = 0, kF64 = 1, kF16 = 2, kBF16 = 3 };
 constexpr int kUnsupported = -1;
 
 constexpr int kWarp = 32;
-// Warps per block of the SDD kernels (one warp per panel).
-constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> struct AccOf { using type = float; };
@@ -47,6 +46,27 @@ __device__ __forceinline__ void store(__half* p, float v) {
 }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; `bytes` = 0
+// writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Sum of v over the 32 lanes of a warp, in every lane (butterfly order, the

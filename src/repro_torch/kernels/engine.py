@@ -486,8 +486,10 @@ def loops_sdd(fmt, dy: torch.Tensor, b: torch.Tensor, *,
                   units=int(panels.rows.shape[0]), batch=nb, n=n,
                   pipeline_depth=int(fmt.pipeline_depth))
     if has_csr:
+        # B3 walks the part's block table (built once, kept on the part).
         d_csr = dev.csr.gather_values(get_kernel("csr", "sdd", "panels")(
-            dev.csr.rows, dev.csr.cols, dev.csr.mask, dy3, b3))
+            dev.csr.rows, dev.csr.cols, dev.csr.mask, dy3, b3,
+            blocks=dev.csr.sdd_blocks))
     if has_bcsr:
         # B4 reads the BCSR rows of dY in place (row offset r_boundary,
         # rows past nrows read as zero): no padded copy of the cotangent;

@@ -65,6 +65,28 @@ def hub_case(rng, k):
     return a
 
 
+def sdd_block_case(rng, k=3000):
+    """A 200 x ``k`` matrix whose CSR part (rows 0-191 at a boundary of
+    192) has B3's three kinds of row group (``kernels/spmm_sdd.py``'s
+    ``BLOCK_ROWS`` = 64): rows 0-63 at 10% over 700 columns (shared
+    columns, like the sparse FFN: staged), rows 64-127 a hub row of ``k``
+    columns among sparse ones (no shared columns: direct blocks cut across
+    the hub), and rows 128-191 where every column has two values (rows
+    128-129 share 600 columns, rows 130-191 pair up on 31 more): staged
+    bands at the distinct-column cap."""
+    a = np.zeros((200, k))
+    a[:64, :700] = (rng.random((64, 700)) < 0.1) * rng.standard_normal(
+        (64, 700))
+    a[64] = rng.standard_normal(k)
+    for r in range(65, 128):
+        a[r, rng.choice(k, 3, replace=False)] = rng.standard_normal(3)
+    a[128:130, :600] = rng.standard_normal((2, 600))
+    for r in range(130, 192):
+        a[r, 600 + r % 31] = rng.standard_normal()
+    a[192:] = (rng.random((8, k)) < 0.01) * rng.standard_normal((8, k))
+    return a
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -323,6 +345,51 @@ def test_cuda_bcsr_sdd_unit_edges(cuda, rng, dy_name, b_name, br):
             assert bool((got[dead] == 0).all())
             err = float((got.double() - want.double()).abs().max())
             assert err <= tol * scale, (lead, n, units.unit_panels, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dy_name,b_name", SDD_PAIRS)
+@pytest.mark.parametrize("g", [3, 8])
+def test_cuda_csr_sdd_block_edges(cuda, rng, dy_name, b_name, g):
+    """B3 (one CTA a block of its table) at its edges, against the plain
+    version: staged and direct blocks in one call (``sdd_block_case``), a
+    hub row cut across direct blocks, staged bands at the distinct-column
+    cap, blocks larger than a CTA holds (walked in passes, at caps of
+    4096), G 3 and 8, batch 1 and 3 and none, N 1, 33, 40, 600 and 1000
+    (N 33: B rows not 16-byte aligned, staged with plain loads), every
+    dtype pair; masked lanes exactly 0, and two calls bitwise equal.  B3
+    accumulates in fp32 as the plain version does (fp64 in fp64), so the
+    tolerance is 1e-5 (fp64 1e-12) of max(1, max |plain|)."""
+    dyt, bt = getattr(torch, dy_name), getattr(torch, b_name)
+    tol = 1e-12 if b_name == "float64" else 1e-5
+    a = sdd_block_case(rng)
+    fmt = tf.loops_from_csr(tf.csr_from_dense(a), 192, 8, panel_g=g)
+    p = fmt.on(cuda).csr
+    tables = {"uploaded": p.sdd_blocks,
+              "passes": spmm_sdd.sdd_block_table(
+                  p.rows, p.cols, p.mask, block_outs=4096, direct_outs=4096)}
+    own = p.sdd_blocks
+    assert own.nstaged and own.ndirect
+    assert own.max_cols == spmm_sdd.BLOCK_COLS
+    for lead, n in (((1,), 40), ((3,), 600), ((), 33), ((1,), 1000),
+                    ((3,), 1)):
+        b = torch.randn(lead + (a.shape[1], n), device=cuda).to(bt)
+        dy = torch.randn(lead + (a.shape[0], n), device=cuda).to(dyt)
+        want = spmm_sdd.csr_sdd_panels_plain(p.rows, p.cols, p.mask, dy, b)
+        scale = max(1.0, float(want.abs().max()))
+        for name, t in tables.items():
+            launches = spmm_sdd.csr_sdd_panels.launches
+            got = spmm_sdd.csr_sdd_panels(p.rows, p.cols, p.mask, dy, b,
+                                          blocks=t)
+            again = spmm_sdd.csr_sdd_panels(p.rows, p.cols, p.mask, dy, b,
+                                            blocks=t)
+            torch.cuda.synchronize()
+            assert spmm_sdd.csr_sdd_panels.launches == launches + 2
+            assert got.shape == want.shape and got.dtype == want.dtype
+            assert torch.equal(got, again), (name, lead, n)
+            assert bool((got[~p.mask] == 0).all())
+            err = float((got.double() - want.double()).abs().max())
+            assert err <= tol * scale, (name, lead, n, err)
 
 
 # B5's bound on |got - plain| / |plain| of each output row (norms over
