@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU: the LOOPS
-SpMM paths and the llama3.2-1b server.
+SpMM paths, its autotuner and the llama3.2-1b server.
 
 Run from the repository root, on a machine with an NVIDIA H100:
 
@@ -38,16 +38,30 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  after the launch counts are read: against its plain
                  version and a second call, with its block table's counts,
                  bound and ``torch.sparse.sampled_addmm`` as the yardstick;
-  4. gcn      -- the 2-layer GCN at ogbn-arxiv's published widths answering
+  4. tune     -- the autotuner (``repro_torch.tune``) at m6 and m4, fp32,
+                 N=32, in a fresh ``$REPRO_TUNE_CACHE``: a miss whose search
+                 measures its ``TUNE_TOP_K`` survivors on the card (none
+                 failing), an exact hit with no measurement, a near hit
+                 (the same generator across a quantisation edge of the row
+                 count) promoted to its own key, the tuned ``loops_spmm``
+                 against the flat path and a second call and timed beside
+                 the default plan's; at m6 a ``TraceRecorder`` on the
+                 search, a second search ranked by replay from its
+                 records, and dB through ``fmt.transposed(tuner=...)``
+                 against the flat path's autograd; an ``Obs`` capture over
+                 the phase whose dispatch counts equal the B1/B2 launches
+                 and whose ``tune.cache.*`` gauges equal the cache's stats,
+                 written as JSONL and Chrome trace and read back;
+  5. gcn      -- the 2-layer GCN at ogbn-arxiv's published widths answering
                  three requests, checked against the flat PyTorch path;
-  5. train_gcn -- the paper's §4.5 workload: that GCN trained by plain SGD
+  6. train_gcn -- the paper's §4.5 workload: that GCN trained by plain SGD
                  (``examples/gcn_train.py``'s loss) for ``GCN_TRAIN_STEPS``
                  steps through B1/B2 forward and B1/B2 on the transposed
                  adjacency backward; the step-1 gradients of ``w0``/``w1``
                  and the loss trajectory against the flat path's autograd;
                  the transposed build's time, ms per step, and one step's
                  kernels by device time (``torch.profiler``);
-  6. train_ffn -- one weight-sparse linear layer at llama3.2-1b's MLP
+  7. train_ffn -- one weight-sparse linear layer at llama3.2-1b's MLP
                  up-projection shape (8192 x 2048, 90% pruned) on a
                  (2, 1024, 2048) activation, fp32 and bf16: the value and
                  activation gradients (B3/B4 and B1/B2 on the transposed
@@ -56,7 +70,7 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  bounds, TFLOP/s, share of the bound and
                  ``torch.sparse.sampled_addmm`` as the yardstick, and one
                  step's kernels by device time;
-  7. serve_lm -- llama3.2-1b at full width (16 layers, d 2048, 32 heads,
+  8. serve_lm -- llama3.2-1b at full width (16 layers, d 2048, 32 heads,
                  8 kv heads, vocab 128,256) in bf16 with seeded random
                  weights, serving 4 requests of 2048 prompt + 32 generated
                  tokens (greedy) through ``ServeQueue``: prefill ms, decode
@@ -70,15 +84,27 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  version, ``scaled_dot_product_attention`` as the
                  yardstick, TFLOP/s and share of the bound), and at the
                  serving batch without the mask and at hd 128; one prefill
-                 call's and one decode step's kernels by device time.
+                 call's and one decode step's kernels by device time;
+  9. serve_obs -- ``python -m repro_torch.launch.serve --obs`` at the same
+                 model and batch with 16 generated tokens: the plan-cache
+                 warm-up of the 16 layers' pruned FFN weights (layer 0
+                 searches on B1/B2, the rest hit, the serving pool installs
+                 each distinct key once and a second warm-up none),
+                 ``loops_spmm`` at the pool's plan for layer 0 (N=8)
+                 against the flat path and a second call, the
+                 capture's histograms against the requests and calls, the
+                 tokens against a run without obs, and a run with one
+                 injected ``serve.step`` fault (retried, counted, the same
+                 tokens); prefill, TTFT and tokens/s beside phase 8's.
 
-Each kernel's launch count is set to 0 just before phases 3-7 drive their
+Each kernel's launch count is set to 0 just before phases 3-9 drive their
 path and read just after; a kernel of a path that did not launch fails the
 run, and so does a launch of a kernel that is not on the path (B5 in
-phases 3-6, B1-B4 in phase 7).  The last two lines are ``{"kernels": [...]}`` and
+phases 3-7, B1-B4 in phase 8, B3/B4 in phase 9).  The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero with no
 result.  ``--out DIR`` also writes the full record to
-``DIR/chip_smoke.json``.
+``DIR/chip_smoke.json`` and phases 4 and 9's obs captures (JSONL and
+Chrome trace) beside it.
 
 Tolerances: fp32 1e-5, fp64 1e-12, bf16/f16 1e-2 (the sums run in another
 order; half inputs are exact in the fp32 accumulator).  In phase 2 they
@@ -86,11 +112,11 @@ bound max |kernel - plain| / max(1, max |plain|).  At the published sizes a
 hub row sums ~1e5 products, so phase 3 bounds the error of each element by
 the summation bound instead: |kernel - plain| / max(1, (|A|·|B|)) <= tol.
 The GCN's logits: 1e-4 of max(1, max |logits|) in fp32 (two aggregations and
-two matmuls deep).  Gradients (phases 5 and 6) are bounded per element by
-their own summation bound, the same products on magnitudes: in phase 6
+two matmuls deep).  Gradients (phases 4, 6 and 7) are bounded per element by
+their own summation bound, the same products on magnitudes: in phase 7
 |dY|·|B| for the values and |W|ᵀ·|dY| for the activation, at the dtype's
 tolerance (bf16 1e-2: the kernel path casts dY to bf16 before dx, as the
-reference does); in phase 5 the chain of |Â|ᵀ, |h|, |w1| and |x| products at
+reference does); in phase 6 the chain of |Â|ᵀ, |h|, |w1| and |x| products at
 ``GCN_TOL``, four SpMMs and four matmuls deep, with relu's mask taken as
 all-ones (it may flip where an activation is within rounding of 0), and the
 reference example's own check, max |g - g_flat| <= 1e-4.  B5 against its
@@ -113,6 +139,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -166,6 +193,20 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 1e-2, "float16": 1e-2}
 # < 1e-3, and a lost or misplaced K / V tile by 0.3 or more at S 1000 and
 # 2049 (tests/test_torch_flash_attention.py models both).
 FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 1.5e-2, "float16": 3e-3}
+# Phase tune: the autotuner at phase main's matrices (fp32, N = MAIN_N):
+# the search's survivors, the replay search's, and the transposed search's.
+TUNE_TOP_K, TUNE_REPLAY_TOP_K, TUNE_T_TOP_K = 4, 2, 2
+# The near-hit matrix: phase main's generator and seed at the row count
+# whose log2 lies 0.05 past the quantisation edge nearest phase main's (the
+# plan cache buckets features in 0.5-wide bins): a different exact key
+# within the near-match distance.  (Another seed does not do at m4: the
+# power law's longest row moves with the seed, and a seed-1 in-2004-like
+# matrix lay 0.80 away, a miss; PERF.md.)
+# Phase serve_obs: the launcher with --obs at phase serve_lm's model and
+# batch, 16 generated tokens; one injected serve.step fault in its last run.
+OBS_GEN = 16
+OBS_FAULT_PLAN = "serve.step:raise:0"
+
 # B1/B2 in phase 2: unit tables that force splits (panels per unit), and
 # the width of the hub case's dense rows (> 50 units at U <= 3 and G = 8,
 # and at B1's own unit size with G = 1).
@@ -943,7 +984,339 @@ def _b3_main(fmt, csr, gen, dname) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the served GCN
+# phase 4: the autotuner (tune/) on the card
+# ---------------------------------------------------------------------------
+
+def near_rows(rows: int) -> int:
+    """``rows`` moved to 0.05 past its nearest quantisation edge in log2
+    (the plan cache's 0.5-wide bins sit at x.25 and x.75)."""
+    import math
+    x = math.log2(rows)
+    edges = (math.floor(x - 0.25) + 0.25, math.floor(x - 0.25) + 0.75,
+             math.floor(x - 0.25) + 1.25)
+    edge = min(edges, key=lambda e: abs(e - x))
+    return int(round(2 ** (edge + (0.05 if edge > x else -0.05))))
+
+
+def _dispatches(obs) -> dict:
+    """The capture's ``engine.dispatch`` counts of kernel launches
+    (``backend=cuda``, ``impl=panels``) by part."""
+    out = {"csr": 0.0, "bcsr": 0.0}
+    for kind, inst in obs.metrics.instruments():
+        if (kind == "counter" and inst.name == "engine.dispatch"
+                and inst.labels.get("backend") == "cuda"
+                and inst.labels.get("impl") == "panels"
+                and inst.labels.get("op") == "spmm"):
+            out[inst.labels["part"]] += inst.value
+    return out
+
+
+def phase_tune(launches: dict, out_dir, work_dir) -> list:
+    """``autotune`` at phase main's m6 and m4, fp32, N = MAIN_N: a miss
+    that searches (every survivor measured on the card, none failed), an
+    exact hit with no measurement, a near hit (the same generator across a
+    quantisation edge of the row count) reusing the plan and promoted to
+    its own key; the tuned ``loops_spmm`` against the flat path and a
+    second call, timed beside the default plan's; at m6 dB through
+    ``fmt.transposed(tuner=...)`` against the flat path's autograd, a
+    ``TraceRecorder`` on the search and a second search ranked by replay
+    from its records.  An ``Obs`` capture spans the phase: its dispatch
+    counts equal the phase's B1/B2 launches, its ``tune.cache.*`` gauges
+    the cache's stats; its JSONL and Chrome trace are written (to
+    ``out_dir``, else ``work_dir``) and read back.  The plan cache lives in
+    ``work_dir``."""
+    import importlib
+    import os
+
+    from repro_torch.obs import Obs, load_obs, set_active
+    from repro_torch.tune import PlanCache, SearchBudget
+    search_mod = importlib.import_module("repro_torch.tune.search")
+    api_mod = importlib.import_module("repro_torch.tune.api")
+
+    os.environ["REPRO_TUNE_CACHE"] = str(pathlib.Path(work_dir) / "tune")
+    cache = PlanCache()
+    obs = Obs(source="chip_smoke_tune")
+    obs.watch_cache(cache, name="tune")
+    measured = []                  # (plan, gflops) of every measurement
+    real_measure = search_mod.measure_plan_gflops
+
+    def counting_measure(csr, plan, b, **kw):
+        fmt, g = real_measure(csr, plan, b, **kw)
+        measured.append((plan, g))
+        return fmt, g
+    real_search = api_mod.search
+    prev_obs = set_active(obs)
+    search_mod.measure_plan_gflops = counting_measure
+    budget = SearchBudget(top_k=TUNE_TOP_K)
+    recs = []
+    _reset_counts()
+    try:
+        with obs.attach_engine():
+            for mid, rows, _ in MAIN_MATRICES:
+                recs.append(_tune_matrix(mid, rows, cache, budget, measured,
+                                         api_mod, real_search))
+    finally:
+        search_mod.measure_plan_gflops = real_measure
+        api_mod.search = real_search
+        set_active(prev_obs)
+    counts = _read_counts()
+    for k, v in counts.items():
+        launches[k] += v
+        if k in ("csr_panels_spmm", "bcsr_panels_spmm"):
+            check(v > 0, f"tune: {k} never launched")
+        else:
+            check(v == 0, f"tune: {k} launched {v} times off its path")
+    disp = _dispatches(obs)
+    check(disp["csr"] == counts["csr_panels_spmm"]
+          and disp["bcsr"] == counts["bcsr_panels_spmm"],
+          f"tune: engine.dispatch {disp} against launches {counts}")
+    check(not any(inst.name == "tune.search.trial_failed"
+                  for _, inst in obs.metrics.instruments()),
+          "tune: tune.search.trial_failed is not 0")
+    st = cache.stats
+    gauges = {r["metric"]: r["value"] for r in obs.records()
+              if r["kind"] == "gauge" and r["labels"].get("cache") == "tune"}
+    check(gauges["tune.cache.hits"] == st.hits
+          and gauges["tune.cache.near_hits"] == st.near_hits
+          and gauges["tune.cache.misses"] == st.misses
+          and gauges["tune.cache.hit_rate"] == st.hit_rate,
+          f"tune: gauges {gauges} against stats {st}")
+    jsonl, chrome = obs.save(out_dir or work_dir, stem="chip_smoke_tune")
+    back = load_obs(jsonl)
+    trace = json.loads(pathlib.Path(chrome).read_text())
+    check(back[0]["kind"] == "meta" and len(back) == len(obs.records())
+          and trace["traceEvents"], "tune: the capture did not read back")
+    rec = {"phase": "tune", "cache_stats": {"hits": st.hits, "near_hits": st.near_hits,
+                           "misses": st.misses, "hit_rate": st.hit_rate},
+           "engine_dispatch": disp, "launches": counts,
+           "obs_records": len(back), "obs_jsonl": str(jsonl),
+           "matrices": recs}
+    phase(rec)
+    return recs
+
+
+def _tune_matrix(mid, rows, cache, budget, measured, api_mod,
+                 real_search) -> dict:
+    """One matrix of phase ``tune`` (see :func:`phase_tune`): ``measured``
+    collects every measurement, ``api_mod.search`` is swapped for
+    ``real_search`` with a recorder at m6."""
+    import cProfile
+    import functools
+
+    import numpy as np
+    import torch
+    from repro_torch.core import loops_spmm, plan_and_convert, suite
+    from repro_torch.perf import TraceRecorder
+    from repro_torch.tune import (autotune, cache_key, feature_distance,
+                                  fingerprint)
+
+    def key_of(fp):
+        return cache_key(fp, n_cols=MAIN_N, dtype=np.float32, backend="cuda")
+
+    t0 = time.perf_counter()
+    csr = suite.table2_like(mid, scale_rows=rows, seed=0, dtype=np.float32)
+    gen_s = time.perf_counter() - t0
+    rec = {"matrix": mid, "rows": rows, "nnz": csr.nnz, "generate_s": gen_s}
+
+    # miss: the search, with a recorder at m6
+    recorder = TraceRecorder(source=f"chip_smoke_tune_{mid}") \
+        if mid == "m6" else None
+    if recorder is not None:
+        api_mod.search = functools.partial(real_search, recorder=recorder)
+    n0, st0 = len(measured), lookup_counts(cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fmt, plan = autotune(csr, n_cols=MAIN_N, cache=cache, budget=budget,
+                         device=DEVICE)
+    torch.cuda.synchronize()
+    rec["search_s"] = time.perf_counter() - t0
+    api_mod.search = real_search
+    trials = measured[n0:]
+    fp = fingerprint(csr)
+    stored = cache.peek(key_of(fp))
+    check(lookup_counts(cache)["misses"] == st0["misses"] + 1,
+          f"tune {mid}: the first autotune was not a miss")
+    check(len(trials) == TUNE_TOP_K and stored["trials"] == TUNE_TOP_K,
+          f"tune {mid}: {len(trials)} of {TUNE_TOP_K} survivors measured")
+    check(all(g > 0 for _, g in trials), f"tune {mid}: a trial measured "
+          "no throughput")
+    best = max(trials, key=lambda t: t[1])
+    check(best[0] == plan and stored["gflops"] == best[1],
+          f"tune {mid}: the winner is not the best measured trial")
+    rec.update({"trials": [{"plan": plan_dict(p), "gflops": g}
+                           for p, g in trials],
+                "winner": plan_dict(plan), "winner_gflops": best[1]})
+
+    # exact hit: no measurement
+    n0, st0 = len(measured), lookup_counts(cache)
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fmt2, plan2 = autotune(csr, n_cols=MAIN_N, cache=cache, budget=budget,
+                           device=DEVICE)
+    prof.disable()
+    rec["hit_s"] = time.perf_counter() - t0
+    rec["hit_profile"] = host_profile(prof)
+    check(len(measured) == n0 and plan2 == plan
+          and lookup_counts(cache)["hits"] == st0["hits"] + 1,
+          f"tune {mid}: the repeat autotune was not an exact hit without "
+          "measurement")
+    rec["hit_measurements"] = len(measured) - n0
+    del fmt2
+
+    # near hit: the same generator across a quantisation edge
+    rows_near = near_rows(rows)
+    csr_near = suite.table2_like(mid, scale_rows=rows_near, seed=0,
+                                 dtype=np.float32)
+    fp_near = fingerprint(csr_near)
+    dist = feature_distance(fp.features(), fp_near.features())
+    n0, st0 = len(measured), lookup_counts(cache)
+    t0 = time.perf_counter()
+    fmt_n, plan_n = autotune(csr_near, n_cols=MAIN_N, cache=cache,
+                             budget=budget, device=DEVICE)
+    rec["near_s"] = time.perf_counter() - t0
+    promoted = cache.peek(key_of(fp_near))
+    check(key_of(fp_near) != key_of(fp) and len(measured) == n0
+          and lookup_counts(cache)["near_hits"] == st0["near_hits"] + 1
+          and promoted is not None and promoted["plan"] == stored["plan"]
+          and (plan_n.br, plan_n.panel_g, plan_n.macro_m, plan_n.t_vpu)
+          == (plan.br, plan.panel_g, plan.macro_m, plan.t_vpu),
+          f"tune {mid}: the matrix of {rows_near} rows (distance "
+          f"{dist:.3f}) was not a promoted near hit")
+    rec.update({"near_rows": rows_near, "near_distance": dist,
+                "near_plan": plan_dict(plan_n)})
+    del fmt_n, csr_near
+
+    # the tuned product against the flat path and a second call, timed
+    # beside the default plan's
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    b = torch.randn((csr.shape[1], MAIN_N), generator=gen, device=DEVICE)
+    y = loops_spmm(fmt, b, device=DEVICE)
+    again = loops_spmm(fmt, b, device=DEVICE)
+    want = loops_spmm(fmt, b, device=DEVICE, backend="torch")
+    absprod = loops_spmm(abs_format(fmt), b.abs(), device=DEVICE,
+                         backend="torch")
+    torch.cuda.synchronize()
+    err, rel = sum_err(y, want, absprod)
+    check(rel <= TOL["float32"], f"tune {mid}: tuned loops_spmm vs flat: "
+          f"err {err:.3g}, {rel:.3g} of |A||B|")
+    check(torch.equal(y, again), f"tune {mid}: two tuned calls differ")
+    del y, again, want, absprod
+    t0 = time.perf_counter()
+    fmt_d, plan_d = plan_and_convert(csr, device=DEVICE)
+    torch.cuda.synchronize()
+    rec.update({"default_convert_s": time.perf_counter() - t0,
+                "default_plan": plan_dict(plan_d),
+                "tuned_ms": time_ms(lambda: loops_spmm(fmt, b, device=DEVICE)),
+                "default_ms": time_ms(lambda: loops_spmm(fmt_d, b, device=DEVICE)),
+                "tuned_max_abs_err": err, "tuned_max_err_of_absprod": rel,
+                "bitwise_repeatable": True})
+    del fmt_d
+
+    if mid == "m6":
+        rec.update(_tune_m6_extras(csr, fmt, b, cache, recorder, measured))
+    del fmt, b
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _tune_m6_extras(csr, fmt, b, cache, recorder, measured) -> dict:
+    """Phase tune at m6: the recorder's records, a search ranked by replay
+    from them, and dB through the tuned transposed format."""
+    import importlib
+
+    import torch
+    from repro_torch.core import loops_spmm
+    from repro_torch.perf import TraceDB, replay
+    from repro_torch.tune import SearchBudget, Tuner
+    search_mod = importlib.import_module("repro_torch.tune.search")
+
+    out = {}
+    trial_recs = [r for r in recorder.records if r["kind"] == "search_trial"]
+    check(len(trial_recs) == TUNE_TOP_K, f"tune m6: the recorder holds "
+          f"{len(trial_recs)} search_trial records for {TUNE_TOP_K} trials")
+    db = TraceDB(records=list(recorder.records))
+    coef = db.step_cost("cuda")
+    check(coef is not None, "tune m6: the trace records fit no step cost")
+    n0 = len(measured)
+    t0 = time.perf_counter()
+    res = search_mod.search(csr, n_cols=MAIN_N, trace_db=db,
+                            budget=SearchBudget(top_k=TUNE_REPLAY_TOP_K),
+                            device=DEVICE)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    check(res.measured == TUNE_REPLAY_TOP_K
+          and len(measured) - n0 == TUNE_REPLAY_TOP_K,
+          f"tune m6: the replay search measured {res.measured}")
+    out["replay_search"] = {
+        "search_s": replay_s, "step_cost": [float(c) for c in coef],
+        "trials": [{"plan": plan_dict(p), "gflops": g,
+                    "replay_s": replay(p, db, csr=csr, n_cols=MAIN_N,
+                                       backend="cuda")}
+                   for p, g in res.trials],
+        "winner": plan_dict(res.plan)}
+    del res
+
+    # dB = Aᵀ·dY through the transposed format the tuner planned
+    tuner = Tuner(cache=cache, n_cols=MAIN_N, device=DEVICE,
+                  budget=SearchBudget(top_k=TUNE_T_TOP_K))
+    n0 = len(measured)
+    t0 = time.perf_counter()
+    tl = fmt.transposed(tuner=tuner)
+    tl.fmt.on(DEVICE)
+    torch.cuda.synchronize()
+    out["transposed_tuned_s"] = time.perf_counter() - t0
+    out["transposed_trials"] = len(measured) - n0
+    # The backward pinned to the tuned plan files its own entry (one key
+    # per call, as the reference's cache): one rebuild, timed here.
+    t0 = time.perf_counter()
+    tp = fmt.transposed(plan=tl.plan)
+    out["transposed_pinned_s"] = time.perf_counter() - t0
+    check(tp.plan == tl.plan, "tune m6: the pinned backward's Aᵀ has "
+          f"plan {tp.plan}, not the tuned {tl.plan}")
+    del tp
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    dy = torch.randn((csr.nrows, MAIN_N), generator=gen, device=DEVICE)
+    bk = b.clone().requires_grad_(True)
+    (db_k,) = torch.autograd.grad(
+        loops_spmm(fmt, bk, device=DEVICE, transpose_plan=tl.plan), bk, dy)
+    bf = b.clone().requires_grad_(True)
+    (db_f,) = torch.autograd.grad(loops_spmm(fmt, bf, device=DEVICE, backend="torch"), bf,
+                                  dy)
+    with torch.no_grad():
+        bnd = loops_spmm(abs_format(tl.fmt), dy.abs(), device=DEVICE,
+                         backend="torch")
+    out["transposed_plan"] = plan_dict(tl.plan)
+    out["db"] = _grad_check("tune m6 dB through the tuned Aᵀ", db_k, db_f,
+                            bnd, GCN_TOL)
+    del bk, bf, db_k, db_f, bnd, dy
+    return out
+
+
+def host_profile(prof, top: int = 10) -> list:
+    """The ``top`` functions of a ``cProfile`` run by cumulative seconds
+    (host time; numpy's work counts in the caller that ran it)."""
+    import pstats
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((v[3], f"{k[0].rsplit('/', 1)[-1]}:{k[1]}:{k[2]}")
+                   for k, v in stats.items()), reverse=True)
+    return [{"fn": name, "cum_s": cum} for cum, name in rows[:top]]
+
+
+def plan_dict(plan) -> dict:
+    import dataclasses
+    return dataclasses.asdict(plan)
+
+
+def lookup_counts(cache) -> dict:
+    """The plan cache's lookup buckets."""
+    st = cache.stats
+    return {"hits": st.hits, "near_hits": st.near_hits,
+            "misses": st.misses}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the served GCN
 # ---------------------------------------------------------------------------
 
 def phase_gcn(launches: dict) -> dict:
@@ -1005,7 +1378,7 @@ def phase_gcn(launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: GCN training (paper §4.5)
+# phase 6: GCN training (paper §4.5)
 # ---------------------------------------------------------------------------
 
 def _grad_check(name: str, got, want, bnd, tol: float) -> dict:
@@ -1145,7 +1518,7 @@ def phase_train_gcn(launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: sparse-FFN training (llama3.2-1b MLP up-projection)
+# phase 7: sparse-FFN training (llama3.2-1b MLP up-projection)
 # ---------------------------------------------------------------------------
 
 def phase_train_ffn(launches: dict) -> list:
@@ -1326,7 +1699,7 @@ def phase_train_ffn(launches: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: serving llama3.2-1b at full width
+# phase 8: serving llama3.2-1b at full width
 # ---------------------------------------------------------------------------
 
 def flash_bound(q, k, *, causal: bool) -> dict:
@@ -1571,6 +1944,269 @@ def phase_serve_lm(launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the launcher with --obs (obs/, the plan-cache warm-up, faults)
+# ---------------------------------------------------------------------------
+
+def _obs_value(recs, kind, metric, /, **labels):
+    """A metric's value (a histogram's count) in a loaded capture, 0 when
+    absent."""
+    for r in recs:
+        if r["kind"] == kind and r["metric"] == metric \
+                and r["labels"] == {k: str(v) for k, v in labels.items()}:
+            return r["count"] if kind == "hist" else r["value"]
+    return 0
+
+
+def _served(queue) -> dict:
+    """Tokens and wall-clock numbers of a finished launcher run."""
+    reqs = sorted(queue.completed, key=lambda r: r.rid)
+    n_tokens = sum(r.tokens_generated for r in reqs)
+    span = max(r.wall_finish_s for r in reqs) - min(r.wall_arrival_s
+                                                    for r in reqs)
+    return {"tokens": [list(map(int, r.tokens)) for r in reqs],
+            "prefill_ms": [t * 1e3 for t in queue.engine_s["prefill"]],
+            "decode_ms_median": statistics.median(
+                queue.engine_s["decode"]) * 1e3,
+            "ttft_ms": [r.wall_ttft_s * 1e3 for r in reqs],
+            "tokens_per_s": n_tokens / span, "prefill_calls":
+            queue.sched.counters["prefill_batches"],
+            "decode_calls": len(queue.engine_s["decode"])}
+
+
+def _warm_csr(w):
+    """``warm_spmm_plan_cache``'s pruned CSR of one ``wi``ᵀ (host fp32)."""
+    from repro_torch.core.formats import csr_from_dense
+    from repro_torch.launch.serve import warm_spmm_plan_cache
+    from repro_torch.models.sparse_ffn import magnitude_prune
+    from repro_torch.resilience.validate import validate_csr
+    sparsity = warm_spmm_plan_cache.__kwdefaults__["sparsity"]
+    csr, _ = validate_csr(csr_from_dense(magnitude_prune(w, sparsity)),
+                          repair="drop")
+    return csr
+
+
+def _warm_key(csr) -> str:
+    """The warm-up's plan-cache key of ``csr``."""
+    from repro_torch.launch.serve import warm_spmm_plan_cache
+    from repro_torch.tune import cache_key, fingerprint
+    n_cols = warm_spmm_plan_cache.__kwdefaults__["n_cols"]
+    return cache_key(fingerprint(csr), n_cols=n_cols, dtype=csr.vals.dtype,
+                     backend="cuda")
+
+
+def _pool_plan_check(csr, rec) -> dict:
+    """``csr`` converted with the serving pool's plan ``rec``, its
+    ``loops_spmm`` on the card at the warm-up's N against the flat path at
+    ``TOL`` of |A|·|B| and against a second call (bitwise equal); each
+    kernel of the plan's parts must launch in both calls."""
+    import torch
+    from repro_torch.core import loops_spmm
+    from repro_torch.core.formats import loops_from_csr
+    from repro_torch.launch.serve import warm_spmm_plan_cache
+    from repro_torch.tune import plan_from_record
+
+    n_cols = warm_spmm_plan_cache.__kwdefaults__["n_cols"]
+    plan = plan_from_record(rec, csr.nrows)
+    fmt = loops_from_csr(csr, plan.r_boundary, plan.br, panel_g=plan.panel_g,
+                         macro_m=plan.macro_m,
+                         pipeline_depth=plan.pipeline_depth)
+    fmt.on(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    b = torch.randn((csr.ncols, n_cols), generator=gen, device=DEVICE)
+    _reset_counts()
+    y = loops_spmm(fmt, b, device=DEVICE)
+    again = loops_spmm(fmt, b, device=DEVICE)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    want = loops_spmm(fmt, b, device=DEVICE, backend="torch")
+    absprod = loops_spmm(abs_format(fmt), b.abs(), device=DEVICE,
+                         backend="torch")
+    err, rel = sum_err(y, want, absprod)
+    check(rel <= TOL["float32"], f"serve_obs: loops_spmm at the pool's plan "
+          f"vs flat: err {err:.3g}, {rel:.3g} of |A||B| > {TOL['float32']:g}")
+    check(torch.equal(y, again), "serve_obs: two loops_spmm calls at the "
+          "pool's plan differ")
+    for k, rows in (("csr_panels_spmm", plan.r_boundary),
+                    ("bcsr_panels_spmm", csr.nrows - plan.r_boundary)):
+        check(counts[k] == (2 if rows else 0), f"serve_obs: {k} launched "
+              f"{counts[k]} times in two calls at {rows} rows of its part")
+    return {"plan": plan_dict(plan), "n_cols": n_cols, "nnz": csr.nnz,
+            "launches": {k: v for k, v in counts.items() if v},
+            "max_abs_err": err, "max_err_of_absprod": rel,
+            "bitwise_repeatable": True}
+
+
+def phase_serve_obs(launches: dict, lm_rec: dict, out_dir,
+                    work_dir) -> dict:
+    """``python -m repro_torch.launch.serve --obs`` at phase serve_lm's
+    model and batch (16 generated tokens): the plan-cache warm-up (layer 0
+    searches, layers 1-15 hit; B1/B2 launch in its trials and validation
+    SpMMs for the parts the plans have, every launch seen by a capture;
+    the pool installs each distinct key once, a second warm-up none), the
+    capture's histograms against the requests and calls, the tokens
+    against a run without obs, and a run with one injected ``serve.step``
+    fault (retried, counted, the same tokens); then layer 0's
+    ``loops_spmm`` at the pool's plan against the flat path
+    (:func:`_pool_plan_check`).  The plan caches live in ``work_dir``; the
+    captures go to ``out_dir``, else ``work_dir``."""
+    import os
+
+    import torch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.obs import Obs, load_obs
+    from repro_torch.resilience import inject
+
+    os.environ["REPRO_TUNE_CACHE"] = str(pathlib.Path(work_dir) / "serve")
+    cap_dir = pathlib.Path(out_dir or work_dir)
+    argv = ["--arch", LM_ARCH, "--device", DEVICE, "--batch", str(LM_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen-len", str(OBS_GEN),
+            "--seed", str(LM_SEED), "--max-batch", "8", "--obs-dir",
+            str(cap_dir)]
+    _reset_counts()
+
+    # 1. --obs: the warm-up, then serving under the capture
+    t0 = time.perf_counter()
+    q_obs = launch_serve.main(argv + ["--obs", "chip_smoke_serve_obs"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    recs = load_obs(cap_dir / "chip_smoke_serve_obs.jsonl")
+    cfg = q_obs.cfg
+    layers = cfg.num_layers
+    served_obs = _served(q_obs)
+    warm_spans = [r for r in recs if r["kind"] == "span"
+                  and r["name"] == "serve.warm_plan"]
+    warm = {k: _obs_value(recs, "gauge", f"tune.cache.{k}",
+                          cache="serve-warm")
+            for k in ("hits", "near_hits", "misses", "hit_rate")}
+    installed = _obs_value(recs, "gauge", "serve.prewarmed_plans")
+    check(len(warm_spans) == layers and warm["misses"] == 1
+          and warm["hits"] + warm["near_hits"] == layers - 1,
+          f"serve_obs: warm-up lookups {warm} over {layers} layers")
+    check(installed >= 1 and _obs_value(
+        recs, "gauge", "tune.cache.prewarmed", cache="serve-pool")
+        == installed, f"serve_obs: the pool installed {installed}")
+    n_req, n_pre = LM_BATCH, served_obs["prefill_calls"]
+    n_dec = served_obs["decode_calls"]
+    hists = {m: _obs_value(recs, "hist", m) for m in (
+        "serve.prefill_us", "serve.ttft_us", "serve.request_us",
+        "serve.decode_token_us")}
+    check(hists["serve.prefill_us"] == hists["serve.ttft_us"]
+          == hists["serve.request_us"] == n_req
+          and hists["serve.decode_token_us"] == n_req * (OBS_GEN - 1)
+          and _obs_value(recs, "hist", "step.wall_us", op="prefill") == n_pre
+          and _obs_value(recs, "hist", "step.wall_us", op="decode") == n_dec
+          and _obs_value(recs, "counter", "serve.requests") == n_req
+          and _obs_value(recs, "counter", "serve.prefill_calls") == n_pre
+          and _obs_value(recs, "counter", "serve.decode_calls") == n_dec,
+          f"serve_obs: histograms {hists} against {n_req} requests, "
+          f"{n_pre} prefill and {n_dec} decode calls")
+    check(len(served_obs["tokens"]) == n_req
+          and all(len(t) == OBS_GEN for t in served_obs["tokens"]),
+          "serve_obs: not every request got its tokens")
+
+    # 2. a second warm-up into the same pool installs nothing
+    warm2 = Obs(source="chip_smoke_rewarm")
+    t0 = time.perf_counter()
+    with warm2.attach_engine():
+        pool = launch_serve.warm_spmm_plan_cache(cfg, q_obs.params, warm2)
+    torch.cuda.synchronize()
+    rewarm_s = time.perf_counter() - t0
+    pool_plans = [rec["plan"] for rec in pool._load().values()]
+    # layer 0's wiᵀ and the pool's record of it, for the check of B1/B2 at
+    # this path's plan and shapes below
+    w0 = q_obs.params.layers[0].mlp.wi.detach().float().cpu().numpy().T
+    csr0 = _warm_csr(w0)
+    rec0 = pool.peek(_warm_key(csr0))
+    check(rec0 is not None, "serve_obs: the pool holds no plan for layer 0")
+    re_stats = {r["metric"]: r["value"] for r in warm2.records()
+                if r["kind"] == "gauge"
+                and r["labels"].get("cache") == "serve-warm"}
+    check(pool.stats.prewarmed == 0
+          and warm2.metrics.find("gauge", "serve.prewarmed_plans").value == 0
+          and re_stats["tune.cache.misses"] == 0,
+          f"serve_obs: the second warm-up installed {pool.stats.prewarmed}, "
+          f"lookups {re_stats}")
+    del q_obs, pool
+    torch.cuda.empty_cache()
+
+    # 3. the same run without obs (and without the warm-up): same tokens
+    q_plain = launch_serve.main(argv)
+    served_plain = _served(q_plain)
+    check(served_plain["tokens"] == served_obs["tokens"],
+          "serve_obs: the tokens with obs differ from those without")
+    del q_plain
+    torch.cuda.empty_cache()
+
+    # 4. one injected serve.step fault: retried, counted, same tokens
+    os.environ[inject.ENV_VAR] = OBS_FAULT_PLAN
+    try:
+        q_fault = launch_serve.main(argv + ["--obs", "chip_smoke_serve_fault",
+                                            "--no-warm-spmm-cache"])
+    finally:
+        del os.environ[inject.ENV_VAR]
+        inject.set_plan(None)
+    served_fault = _served(q_fault)
+    recs_f = load_obs(cap_dir / "chip_smoke_serve_fault.jsonl")
+    retries = _obs_value(recs_f, "counter", "serve.retries")
+    fired = _obs_value(recs_f, "counter", "inject.fired", site="serve.step",
+                       kind="raise")
+    check(retries == 1 and fired == 1
+          and served_fault["tokens"] == served_obs["tokens"],
+          f"serve_obs: the injected fault gave {retries} retries, {fired} "
+          "fired faults, or other tokens")
+    del q_fault
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    runs = n_pre + served_plain["prefill_calls"] + \
+        served_fault["prefill_calls"]
+    # B1/B2 run in the two warm-ups only (the trials and the validation
+    # SpMMs), for the parts their plans have; the captures saw each launch.
+    warm_disp = {part: _obs_value(recs, "counter", "engine.dispatch",
+                                  backend="cuda", impl="panels", op="spmm",
+                                  part=part)
+                 + _dispatches(warm2)[part] for part in ("csr", "bcsr")}
+    check(counts["csr_panels_spmm"] + counts["bcsr_panels_spmm"] > 0,
+          "serve_obs: the warm-up launched no LOOPS kernel")
+    for k, v in counts.items():
+        launches[k] += v
+        if k == "flash_attention":
+            check(v == layers * runs, f"serve_obs: B5 launched {v} times "
+                  f"for {runs} prefill calls")
+        elif k in ("csr_panels_spmm", "bcsr_panels_spmm"):
+            part = k.split("_")[0]
+            check(v == warm_disp[part], f"serve_obs: {k} launched {v} "
+                  f"times, the warm-ups dispatched {warm_disp[part]}")
+        else:
+            check(v == 0, f"serve_obs: {k} launched {v} times off its path")
+    # B1/B2 at this path's plan and N against the plain version (after the
+    # counts are read: a comparison is no launch of the path)
+    pool_check = _pool_plan_check(csr0, rec0)
+    del csr0, w0
+    rec = {"phase": "serve_obs", "arch": LM_ARCH, "requests": LM_BATCH,
+           "prompt_len": LM_PROMPT, "gen_len": OBS_GEN, "layers": layers,
+           "run_s": run_s, "warm_s": sum(r["dur"] for r in warm_spans) / 1e6,
+           "warm_layer_s": [r["dur"] / 1e6 for r in warm_spans],
+           "warm_lookups": warm, "pool_installed": installed,
+           "pool_plans": pool_plans, "pool_plan_check": pool_check,
+           "warm_dispatches": warm_disp,
+           "rewarm_s": rewarm_s, "rewarm_lookups": re_stats,
+           "histogram_counts": hists, "launches": counts,
+           "with_obs": {k: v for k, v in served_obs.items() if k != "tokens"},
+           "without_obs": {k: v for k, v in served_plain.items()
+                           if k != "tokens"},
+           "with_fault": {k: v for k, v in served_fault.items()
+                          if k != "tokens"},
+           "fault_plan": OBS_FAULT_PLAN, "retries": retries,
+           "serve_lm": {k: lm_rec[k] for k in (
+               "prefill_ms", "ttft_ms", "tokens_per_s", "decode_ms_median",
+               "gen_len")},
+           "nvidia_smi": RECORD["phases"][0].get("nvidia_smi"),
+           "tokens_equal": True}
+    phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "csr_panels_spmm": ("src/repro_torch/csrc/csr_spmm.cu",
@@ -1591,7 +2227,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
                     help="directory to write the full record into, as "
-                         "chip_smoke.json")
+                         "chip_smoke.json, and phases 4 and 9's obs "
+                         "captures beside it")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1615,10 +2252,15 @@ def main(argv=None) -> int:
     phase_kernels()
     launches = {k: 0 for k in KERNELS}
     main_recs = phase_main(launches)
-    phase_gcn(launches)
-    phase_train_gcn(launches)
-    ffn_recs = phase_train_ffn(launches)
-    lm_rec = phase_serve_lm(launches)
+    # The plan caches of phases 4 and 9 (and their captures without --out)
+    # live in a directory removed at exit.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        phase_tune(launches, args.out, work)
+        phase_gcn(launches)
+        phase_train_gcn(launches)
+        ffn_recs = phase_train_ffn(launches)
+        lm_rec = phase_serve_lm(launches)
+        phase_serve_obs(launches, lm_rec, args.out, work)
     for k, v in launches.items():
         check(v > 0, f"{k} never launched on the port's paths")
 

@@ -12,7 +12,9 @@ ported file has a twin at the same relative path:
     of the product, B3/B4 (``spmm_sdd``) of its value gradient and B5
     (``flash_attention``) of the LM's prefill, with their plain PyTorch
     versions, the flat references and the engine;
-  * ``resilience``: validated ingestion;
+  * ``tune``, ``perf``, ``obs`` and ``resilience``: the plan layer -- the
+    autotuner and its plan cache, perf traces and replay, runtime metrics
+    and spans, validated ingestion, fault injection and retries;
   * ``models``: the §4.5 GCN and the weight-sparse linear layer, both
     trainable, and the dense LM (``layers``, ``transformer``, ``api``);
   * ``configs``: the dense architectures (llama3.2-1b and its reduced

@@ -364,29 +364,35 @@ class LoopsFormat:
                 bcsr=DevicePanels.upload(self.bcsr_panels, device))
         return cache[key]
 
-    def transposed(self, *, plan=None, total_workers: int = 8,
+    def transposed(self, *, plan=None, tuner=None, total_workers: int = 8,
                    dtype=None) -> "TransposedLoops":
         """Aᵀ as a LOOPS format plus the value-linear maps from A's stored
         values: the operand of the backward ``dB = Aᵀ·dY``.
 
         ``plan`` pins the transposed plan (a ``core.spmm.SpmmPlan``);
-        otherwise it is planned from Aᵀ's own rows with ``total_workers``
-        and the tile height of ``dtype``, the dtype the values run in
-        (default: the host values' dtype).  Cached on this instance per
-        ``(plan, total_workers, dtype)``, so every training step after the
-        first pays nothing; the transposed format's device panels and value
-        maps are cached per device on the result.
+        otherwise it comes from ``tuner`` (a ``repro_torch.tune.Tuner``:
+        the measured plan cache, tuned on Aᵀ's own structure), or is
+        planned from Aᵀ's own rows with ``total_workers`` and the tile
+        height of ``dtype``, the dtype the values run in (default: the
+        host values' dtype).  Cached on this instance per ``(plan, tuner,
+        total_workers, dtype)``, so every training step after the first
+        pays nothing.  The transposed format's device panels and value maps
+        are cached per device on the result.
         """
         from ..kernels.engine import torch_dtype
         dt = torch_dtype(self.csr_part.vals.dtype if dtype is None
                          else dtype)
-        key = (plan, total_workers, str(dt))
+        key = (plan, id(tuner) if tuner is not None else None,
+               total_workers, str(dt))
         cache = self.__dict__.setdefault("_transposed_cache", {})
         if key not in cache:
-            cache[key] = _build_transposed(self, plan=plan,
-                                           total_workers=total_workers,
-                                           dtype=dt)
-        return cache[key]
+            # The entry pins the tuner: id() is only a safe key while the
+            # object is alive (a freed address can be recycled by a new
+            # tuner, which must not hit this entry).
+            cache[key] = (tuner, _build_transposed(
+                self, plan=plan, tuner=tuner, total_workers=total_workers,
+                dtype=dt))
+        return cache[key][1]
 
 
 # ---------------------------------------------------------------------------
@@ -763,16 +769,20 @@ def _transposed_csr(fmt: LoopsFormat) -> Tuple[CSR, np.ndarray, np.ndarray]:
     return csr_t, entry_src, entry_slot
 
 
-def _build_transposed(fmt: LoopsFormat, *, plan=None, total_workers: int = 8,
+def _build_transposed(fmt: LoopsFormat, *, plan=None, tuner=None,
+                      total_workers: int = 8,
                       dtype=None) -> TransposedLoops:
     """Materialise :class:`TransposedLoops` (cached by
-    :meth:`LoopsFormat.transposed`).  Without ``plan``, Aᵀ is planned like a
-    forward matrix (``core.spmm.plan_for``, the planning half of
-    ``plan_and_convert``) from its own row statistics, at the tile height of
-    ``dtype``."""
+    :meth:`LoopsFormat.transposed`).  Without ``plan``, Aᵀ is planned
+    through ``tuner`` when given (``tuner.tune(csr_t)``, as the reference's
+    ``plan_and_convert(csr_t, tuner=...)``), else like a forward matrix
+    (``core.spmm.plan_for``, the planning half of ``plan_and_convert``)
+    from its own row statistics, at the tile height of ``dtype``."""
     from .spmm import default_br, plan_for   # spmm imports this module
     csr_t, entry_src, entry_slot = _transposed_csr(fmt)
-    if plan is None:
+    if plan is None and tuner is not None:
+        _, plan = tuner.tune(csr_t)
+    elif plan is None:
         plan = plan_for(csr_t, total_workers=total_workers,
                         br=default_br(dtype if dtype is not None
                                       else csr_t.vals.dtype),

@@ -3,7 +3,9 @@ execute).
 
 Port of ``repro/core/spmm.py``.  ``plan_and_convert`` is the host half:
 pick the Eq. 2/3 split, solve Eq. 1 for ``r_boundary``, run Algorithm 1 and
-upload the panels to the device.  ``loops_spmm`` executes the hybrid
+upload the panels to the device; with ``tuner=`` (a
+:class:`repro_torch.tune.Tuner`) the plan comes from the measured,
+fingerprint-keyed plan cache instead.  ``loops_spmm`` executes the hybrid
 ``C = A @ B``: on the default ``"cuda"`` backend both parts fill disjoint
 row ranges of one buffer through the CUDA kernels B1 and B2
 (:func:`repro_torch.kernels.engine.loops_spmm_fused`); the ``"torch"``
@@ -90,7 +92,7 @@ def plan_and_convert(csr: CSR, *, total_workers: int = 8,
                      tp_vpu: float = 1.0, tp_mxu: float = 4.0,
                      br: int | None = None, panel_g: int | None = None,
                      paper_literal: bool = False,
-                     validate: str | None = "strict",
+                     tuner=None, validate: str | None = "strict",
                      pipeline_depth: int = 1, macro_m: int = 1,
                      device=None) -> tuple[LoopsFormat, SpmmPlan]:
     """Pick (t_vpu, t_mxu) via the perf model, solve Eq. 1, run Algorithm
@@ -99,16 +101,23 @@ def plan_and_convert(csr: CSR, *, total_workers: int = 8,
 
     ``tp_vpu``/``tp_mxu`` are per-worker row throughputs.  With ``model``
     the allocation is the model argmax (Eq. 3); otherwise it is
-    proportional to the throughputs.  ``validate`` gates ingestion
-    validation of ``csr``: ``"strict"`` raises a classified
-    ``SparseInputError``, ``"drop"``/``"clip"`` repair, ``None`` trusts the
-    caller.
+    proportional to the throughputs.  ``tuner`` (a
+    :class:`repro_torch.tune.Tuner`, or anything with ``.tune(csr) ->
+    (fmt, plan)``) replaces the model-only path entirely: the plan comes
+    from the measured plan cache, so repeated call sites never re-derive
+    it.  ``validate`` gates ingestion validation of ``csr``: ``"strict"``
+    raises a classified ``SparseInputError``, ``"drop"``/``"clip"``
+    repair, ``None`` trusts the caller.
     """
     dev = engine.resolve_device(device)
     if validate is not None:
         from ..resilience.validate import validate_csr
         csr, _ = validate_csr(
             csr, repair=None if validate == "strict" else validate)
+    if tuner is not None:
+        fmt, plan = tuner.tune(csr)
+        fmt.on(dev)
+        return fmt, plan
     plan = plan_for(csr, total_workers=total_workers, model=model,
                     tp_vpu=tp_vpu, tp_mxu=tp_mxu, br=br, panel_g=panel_g,
                     paper_literal=paper_literal,

@@ -82,16 +82,21 @@ def _layer(fmt: LoopsFormat, d_in: int, d_out: int, dtype,
 
 
 def sparse_linear_from_dense(w, sparsity: float, *, total_workers: int = 8,
-                             device=None) -> SparseLinear:
+                             tuner=None, device=None) -> SparseLinear:
     """Prune a dense ``(d_out, d_in)`` weight (numpy array or tensor; its
     dtype is the layer's) and convert it with ``plan_and_convert`` on
-    ``device`` (``None`` -> CUDA)."""
+    ``device`` (``None`` -> CUDA).
+
+    ``tuner`` (a :class:`repro_torch.tune.Tuner`) routes planning through
+    the measured plan cache: same-shaped layers of a deep model
+    fingerprint alike, so the first layer pays for the search and every
+    later layer is a cache hit — conversion only, no measurement."""
     dev = resolve_device(device)
     host, dt = _host_values(w)
     pruned = magnitude_prune(host, sparsity)
     fmt, _ = plan_and_convert(csr_from_dense(pruned),
                               total_workers=total_workers,
-                              br=default_br(dt), device=dev)
+                              br=default_br(dt), tuner=tuner, device=dev)
     return _layer(fmt, host.shape[1], host.shape[0], dt, dev)
 
 

@@ -7,8 +7,8 @@ default.  A malformed CSR must never reach Algorithm 1 or the kernels,
 which index with it.
 
 Repairs are counted in :data:`repair_counts` (defect kind -> entries
-fixed) until the observability layer is ported; the reference records them
-as ``validate.repaired`` counters on its obs capture.
+fixed) and, as in the reference, as ``validate.repaired`` counters on the
+active obs capture.
 
 Taxonomy (``SparseInputError.kind``), checked in this order::
 
@@ -27,6 +27,8 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from .inject import note_degraded
 
 __all__ = ["SparseInputError", "ValidationReport", "DEFECT_KINDS",
            "csr_defects", "validate_coo", "validate_csr", "repair_counts"]
@@ -95,10 +97,12 @@ def _finite_mask(vals: np.ndarray) -> np.ndarray:
         return np.isfinite(vals.astype(np.float32))
 
 
-def _note_repairs(repaired: Dict[str, int]) -> None:
+def _note_repairs(repaired: Dict[str, int], mode: str) -> None:
     for kind, n in repaired.items():
         if n:
             repair_counts[kind] += int(n)
+            note_degraded("validate.repaired", n=float(n), defect=kind,
+                          mode=mode)
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +168,7 @@ def validate_coo(rows, cols, vals, shape, *, repair: Optional[str] = None):
         rows = np.clip(rows, 0, max(shape[0] - 1, 0))
         cols = np.clip(cols, 0, max(shape[1] - 1, 0))
         vals = np.where(nonfin, np.zeros((), vals.dtype), vals)
-    _note_repairs(repaired)
+    _note_repairs(repaired, repair)
     return rows, cols, vals, ValidationReport(defects=defects,
                                               repaired=repaired)
 
@@ -258,7 +262,7 @@ def validate_csr(csr, *, repair: Optional[str] = None):
     else:
         col = np.clip(col, 0, max(csr.shape[1] - 1, 0))
         vals = np.where(nonfin, np.zeros((), vals.dtype), vals)
-    _note_repairs(repaired)
+    _note_repairs(repaired, repair)
     out = _csr_from_arrays(ptr, col, vals, csr.shape)
     return out, ValidationReport(defects=defects,
                                  repaired={k: v for k, v in repaired.items()

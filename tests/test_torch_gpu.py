@@ -2,8 +2,8 @@
 PyTorch versions, ``loops_spmm`` / ``loops_spmm_values`` (forward and
 backward) and the GCN against the flat PyTorch path, and a full-width
 llama3.2-1b prefill (two layers) through B5 against its plain attention
-path.  Every test here
-needs a CUDA device and skips without one.
+path, and the tuner's timed window and cache hits on the card.  Every
+test here needs a CUDA device and skips without one.
 
 This file imports neither JAX nor the reference package, so it runs on the
 GPU machine as it is:
@@ -523,3 +523,64 @@ def test_cuda_full_width_prefill_matches_plain_attention(cuda):
         scale = max(1.0, float(w.abs().max()))
         assert float((g - w).abs().max()) <= 1e-4 * scale
 
+
+
+@pytest.mark.gpu
+def test_cuda_tuner_timed_window_syncs_and_excludes_the_upload(cuda,
+                                                               monkeypatch):
+    """``measure_plan_gflops`` uploads both parts' panels (and B1/B2's unit
+    tables) before the first timed call, and each timed call ends in a
+    device sync before the next starts."""
+    import importlib
+    from repro_torch.kernels import engine
+    search = importlib.import_module("repro_torch.tune.search")
+    csr = tsuite.table2_like("m4", scale_rows=4096, seed=1)
+    events = []
+    upload = tf.DevicePanels.upload.__func__
+    monkeypatch.setattr(tf.DevicePanels, "upload", classmethod(
+        lambda cls, panels, device: (events.append("upload"),
+                                     upload(cls, panels, device))[1]))
+    fused = engine.loops_spmm_fused
+    monkeypatch.setattr(engine, "loops_spmm_fused", lambda *a, **k: (
+        events.append("call"), fused(*a, **k))[1])
+    sync = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: (
+        events.append("sync"), sync(*a))[1])
+    plan = tspmm.SpmmPlan(r_boundary=1024, t_vpu=2, t_mxu=6, br=8,
+                          panel_g=4)
+    b = torch.randn((csr.ncols, 32), device=cuda)
+    launches = csr_spmm.csr_panels_spmm.launches
+    fmt, gflops = search.measure_plan_gflops(
+        csr, plan, b, budget=search.SearchBudget(repeats=3, warmup=0))
+    assert events == ["upload", "upload"] + ["call", "sync"] * 3
+    assert csr_spmm.csr_panels_spmm.launches == launches + 3
+    assert gflops > 0 and str(b.device) in fmt._device_cache
+
+
+@pytest.mark.gpu
+def test_cuda_exact_hit_makes_no_measurement(cuda, tmp_path, monkeypatch):
+    """A repeat ``autotune`` on the card is an exact hit: no measurement,
+    the same plan, and the tuned format runs B1/B2 to the flat result."""
+    import importlib
+    from repro_torch.tune import PlanCache, SearchBudget, autotune
+    search = importlib.import_module("repro_torch.tune.search")
+    calls = []
+    real = search.measure_plan_gflops
+    monkeypatch.setattr(search, "measure_plan_gflops", lambda *a, **k: (
+        calls.append(1), real(*a, **k))[1])
+    csr = tsuite.table2_like("m12", scale_rows=4096, seed=1)
+    cache = PlanCache(str(tmp_path))
+    budget = SearchBudget(top_k=3, repeats=2, warmup=1)
+    fmt, plan = autotune(csr, n_cols=32, cache=cache, budget=budget)
+    assert len(calls) == 3 and cache.stats.misses == 1
+    assert plan.pipeline_depth == 1
+    fmt2, plan2 = autotune(csr, n_cols=32, cache=cache, budget=budget)
+    assert len(calls) == 3 and cache.stats.hits == 1 and plan2 == plan
+    b = torch.randn((csr.ncols, 32), device=cuda)
+    launches = bcsr_spmm.bcsr_panels_spmm.launches
+    got = tspmm.loops_spmm(fmt2, b)
+    want = tspmm.loops_spmm(fmt2, b, backend="torch")
+    assert bcsr_spmm.bcsr_panels_spmm.launches == launches + int(
+        plan.r_boundary < csr.nrows)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-5 * scale

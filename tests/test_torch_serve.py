@@ -10,7 +10,12 @@
   and 0.7, and the port's streams equal the reference's *sequential*
   queue (its coalesced 0.7 case is a known red of the reference,
   ROADMAP §C) on the same fp32 weights, at the reduced llama config.
-* ``launch.serve.main`` end to end on the CPU.
+* The queue's seams: with an ``Obs`` capture and one injected
+  ``serve.step`` fault under retries, the tokens equal a plain run's, the
+  retry is counted and the histograms count every request and call.
+* ``launch.serve.main`` end to end on the CPU, with ``--obs`` writing a
+  capture that the reference's loader reads (the plan-cache warm-up: layer
+  0 searches, later layers hit).
 """
 import dataclasses
 import pathlib
@@ -32,6 +37,8 @@ from repro_torch.kernels import engine
 from repro_torch.kernels import flash_attention as b5
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import transformer
+from repro_torch.obs import Obs, set_active
+from repro_torch.resilience import inject
 from repro_torch.serve import queue, scheduler
 from repro_torch.serve.scheduler import SchedulerConfig
 
@@ -181,3 +188,86 @@ def test_launch_serve_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main(["--arch", ARCH, "--reduced", "--batch", "1",
                            "--prompt-len", "4", "--gen-len", "2"])
+
+
+def _counter(obs, name, **labels):
+    inst = obs.metrics.find("counter", name, **labels)
+    return inst.value if inst is not None else 0.0
+
+
+def test_queue_obs_and_injected_step_fault_keep_the_tokens(serving):
+    _, _, cfg, params, prompts = serving
+    coalesced = _configs(SchedulerConfig)[0]
+    plain = queue.ServeQueue(cfg, params, config=coalesced, seed=TEST_SEED)
+    want = [r.tokens for r in _drive(plain, prompts)]
+    obs = Obs(source="t")
+    prev = set_active(obs)
+    inject.set_plan(inject.FaultPlan.parse("serve.step:raise:1"))
+    try:
+        q = queue.ServeQueue(
+            cfg, params, config=coalesced, seed=TEST_SEED, obs=obs,
+            retry_kw=dict(retries=2, backoff_s=1e-4,
+                          on_retry=lambda n, e: inject.note_degraded(
+                              "serve.retries")))
+        got = [r.tokens for r in _drive(q, prompts)]
+        fired = _counter(obs, "inject.fired", site="serve.step",
+                         kind="raise")
+        # without retries the same fault propagates
+        inject.get_plan().reset()
+        bare = queue.ServeQueue(cfg, params, config=coalesced,
+                                seed=TEST_SEED)
+        with pytest.raises(inject.InjectedFault):
+            _drive(bare, prompts)
+    finally:
+        inject.set_plan(None)
+        set_active(prev)
+    assert got == want
+    assert fired == 1 and _counter(obs, "serve.retries") == 1
+    n_decode = len(q.engine_s["decode"])
+    assert _counter(obs, "serve.requests") == len(prompts)
+    assert _counter(obs, "serve.prefill_calls") == 1
+    assert _counter(obs, "serve.decode_calls") == n_decode
+    hist = {n: obs.metrics.find("hist", n).count for n in (
+        "serve.prefill_us", "serve.request_us", "serve.ttft_us",
+        "serve.decode_token_us")}
+    assert hist["serve.prefill_us"] == hist["serve.request_us"] == \
+        hist["serve.ttft_us"] == len(prompts)
+    assert hist["serve.decode_token_us"] == sum(g - 1 for g in GEN_LENS)
+    assert obs.metrics.find("hist", "step.wall_us", op="decode").count == \
+        n_decode
+    assert obs.metrics.find("gauge", "serve.queue_depth").value == 0
+
+
+def test_launch_serve_obs_writes_a_capture(tmp_path, monkeypatch, capsys):
+    from repro.obs.export import load_obs as ref_load_obs
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune"))
+    monkeypatch.setenv("REPRO_FAULT_PLAN", "serve.step:raise:0")
+    try:
+        q = launch_serve.main([
+            "--arch", ARCH, "--reduced", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "8", "--gen-len", "3", "--obs", "cap",
+            "--obs-dir", str(tmp_path / "obs"), "--retry-backoff-ms", "0.1"])
+    finally:
+        inject.set_plan(None)
+    assert "obs summary" in capsys.readouterr().out
+    assert len(q.completed) == 2
+    recs = ref_load_obs(tmp_path / "obs" / "cap.jsonl")
+    assert (tmp_path / "obs" / "cap.trace.json").exists()
+
+    def value(kind, metric, **labels):
+        return next(r["value"] if kind != "hist" else r["count"]
+                    for r in recs if r["kind"] == kind
+                    and r["metric"] == metric and r["labels"] == labels)
+    layers = REDUCED[ARCH]().num_layers
+    assert value("gauge", "serve.warm_layers") == layers
+    assert value("gauge", "tune.cache.misses", cache="serve-warm") == 1
+    assert value("gauge", "tune.cache.hits", cache="serve-warm") + value(
+        "gauge", "tune.cache.near_hits", cache="serve-warm") == layers - 1
+    assert value("gauge", "tune.cache.prewarmed", cache="serve-pool") == \
+        value("gauge", "serve.prewarmed_plans") >= 1
+    assert value("counter", "serve.retries") == 1
+    assert value("counter", "serve.degraded", reason="retry") == 1
+    assert value("hist", "serve.ttft_us") == 2
+    assert value("counter", "serve.tokens_generated") == 6
+    assert any(r["kind"] == "counter" and r["metric"] == "engine.dispatch"
+               for r in recs)
