@@ -73,18 +73,27 @@ Phases (one JSON line each, ``{"phase": ...}``):
   8. serve_lm -- llama3.2-1b at full width (16 layers, d 2048, 32 heads,
                  8 kv heads, vocab 128,256) in bf16 with seeded random
                  weights, serving 4 requests of 2048 prompt + 32 generated
-                 tokens (greedy) through ``ServeQueue``: prefill ms, decode
-                 ms per step, tokens/s, time to first token, peak memory,
-                 B5's launches (16 per prefill call); the same model in fp32,
-                 one 2048-token prompt and 8 teacher-forced decode steps
-                 through B5 and through the plain attention path, and
-                 decode(token S | prefill(S)) against prefill(S + 1); the
-                 bf16 greedy tokens' agreement with the plain path; B5 alone
+                 tokens (greedy) through ``ServeQueue`` and its
+                 ``ExecutorPool`` (the bucket's prefill and decode captured
+                 as CUDA graphs by ``warm()`` before traffic, then
+                 replayed): the warm-up's seconds, buckets and slots,
+                 prefill ms, decode ms per step, tokens/s, time to first
+                 token, peak memory, B5's launches (16 per prefill replay);
+                 the graphed prefill and decode steps against eager
+                 ``api.prefill`` / ``api.decode_step`` at the same bucket and
+                 cache, in turns; the served (graphed) bf16 greedy tokens
+                 against the eager path's (equal) and the plain attention
+                 path's (their agreement), teacher-forced; the same model
+                 in fp32, one 2048-token prompt and 8 teacher-forced decode
+                 steps graphed, eager through B5 and through the plain
+                 attention path, and decode(token S | prefill(S)) against
+                 prefill(S + 1); B5 alone
                  at the serving shape in bf16 and fp32 (bound, plain
                  version, ``scaled_dot_product_attention`` as the
                  yardstick, TFLOP/s and share of the bound), and at the
                  serving batch without the mask and at hd 128; one prefill
-                 call's and one decode step's kernels by device time;
+                 call's and one decode step's kernels (eager and replayed)
+                 by device time;
   9. serve_obs -- ``python -m repro_torch.launch.serve --obs`` at the same
                  model and batch with 16 generated tokens: the plan-cache
                  warm-up of the 16 layers' pruned FFN weights (layer 0
@@ -95,16 +104,28 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  capture's histograms against the requests and calls, the
                  tokens against a run without obs, and a run with one
                  injected ``serve.step`` fault (retried, counted, the same
-                 tokens); prefill, TTFT and tokens/s beside phase 8's.
+                 tokens); prefill, TTFT and tokens/s beside phase 8's;
+ 10. serve_traffic -- ``repro_torch.benchmarks.serve_traffic`` at phase 8's
+                 model and width: the reference's closed-loop load (6
+                 clients x 3 rounds of its mixed shapes), batched against
+                 sequential, two passes each through one pool: every request
+                 completed, batched engine calls <= sequential, each mode's
+                 goodput, p50/p99 and TTFT p50/p99, the pool's buckets and
+                 slots, B5's launches; then two requests of one bucket in
+                 flight at once, which take two slots and emit what each
+                 emits alone.
 
-Each kernel's launch count is set to 0 just before phases 3-9 drive their
+Each kernel's launch count is set to 0 just before phases 3-10 drive their
 path and read just after; a kernel of a path that did not launch fails the
 run, and so does a launch of a kernel that is not on the path (B5 in
-phases 3-7, B1-B4 in phase 8, B3/B4 in phase 9).  The last two lines are ``{"kernels": [...]}`` and
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero with no
-result.  ``--out DIR`` also writes the full record to
-``DIR/chip_smoke.json`` and phases 4 and 9's obs captures (JSONL and
-Chrome trace) beside it.
+phases 3-7, B1-B4 in phases 8 and 10, B3/B4 in phase 9).  A replayed CUDA
+graph adds the launches it captured (``repro_torch.dist.step``), and each
+slot the pool builds runs its prefill once eagerly before the capture, so
+B5 counts 16 launches per prefill replay and per slot built.  The last
+two lines are ``{"kernels": [...]}`` and ``{"ok": true, "device":
+{...}}``.  Any failed check exits non-zero with no result.  ``--out DIR``
+also writes the full record to ``DIR/chip_smoke.json`` and phases 4 and
+9's obs captures (JSONL and Chrome trace) beside it.
 
 Tolerances: fp32 1e-5, fp64 1e-12, bf16/f16 1e-2 (the sums run in another
 order; half inputs are exact in the fp32 accumulator).  In phase 2 they
@@ -1792,6 +1813,16 @@ def _b5_timed(dt, heads: int, kv: int, hd: int, causal: bool, *,
     return rec
 
 
+def _wall_ms(fn) -> float:
+    """Host-clock milliseconds of one call of ``fn`` that ends in a copy
+    to the host (which waits for the device)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def phase_serve_lm(launches: dict) -> dict:
     import dataclasses
 
@@ -1799,7 +1830,8 @@ def phase_serve_lm(launches: dict) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import api
-    from repro_torch.serve.queue import ServeQueue, pad_cache
+    from repro_torch.serve.queue import (DEFAULT_LEN_QUANTUM, ExecutorPool,
+                                         ServeQueue, pad_cache)
     from repro_torch.serve.scheduler import SchedulerConfig
 
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -1815,13 +1847,22 @@ def phase_serve_lm(launches: dict) -> dict:
     n_params = api.num_params(params)
     rng = np.random.default_rng(LM_SEED + 1)
     prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
-    # First use of cuBLAS's kernels at these shapes, outside the counts.
-    warm = ServeQueue(cfg, params)
-    warm.submit(prompts[0, :256].tolist(), 2)
-    warm.drain()
+    # The pool's bucket for the served group (the queue rounds the budget
+    # up to its quantum), warmed before traffic: its slot's prefill and
+    # decode graphs are captured here, outside the counts.
+    max_len = LM_PROMPT + -(-LM_GEN // DEFAULT_LEN_QUANTUM) * \
+        DEFAULT_LEN_QUANTUM
+    pool = ExecutorPool(cfg, params)
+    t0 = time.perf_counter()
+    pool.warm([(LM_BATCH, LM_PROMPT, max_len)])
     torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    bucket = pool.bundle(LM_BATCH, LM_PROMPT, max_len)
+    check(len(pool) == 1 and pool.slots == 1,
+          f"serve_lm: warm() built {len(pool)} buckets, {pool.slots} slots")
 
-    queue = ServeQueue(cfg, params, config=SchedulerConfig(max_batch=8))
+    queue = ServeQueue(cfg, params, config=SchedulerConfig(max_batch=8),
+                       pool=pool)
     _reset_counts()
     t0 = time.perf_counter()
     reqs = [queue.submit(row.tolist(), LM_GEN) for row in prompts]
@@ -1834,50 +1875,89 @@ def phase_serve_lm(launches: dict) -> dict:
         launches[k] += v
         want = layers * n_prefill if k == "flash_attention" else 0
         check(v == want, f"serve_lm: {k} launched {v} times for {n_prefill} "
-              f"prefill calls (expected {want})")
-    check(n_prefill == 1 and len(done) == LM_BATCH,
+              f"prefill replays (expected {want})")
+    check(n_prefill == 1 and len(done) == LM_BATCH and pool.slots == 1,
           f"serve_lm: {len(done)} of {LM_BATCH} requests in {n_prefill} "
-          "prefill calls")
+          f"prefill calls, {pool.slots} slots")
     served = np.array([r.tokens for r in reqs])
     check(served.shape == (LM_BATCH, LM_GEN) and served.min() >= 0
           and served.max() < cfg.vocab_size,
           f"serve_lm: tokens {served.shape} in [{served.min()}, "
           f"{served.max()}]")
+    # allocated: live tensors (static caches, graph outputs); reserved:
+    # also the graph pool's and the allocator's cached blocks
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_reserved_gb = torch.cuda.max_memory_reserved() / 1e9
     decode_ms = [s * 1e3 for s in queue.engine_s["decode"]]
+    prefill_ms = [s * 1e3 for s in queue.engine_s["prefill"]]
     n_tokens = int(served.size)
 
-    # bf16: the plain attention path, teacher-forced with the served tokens;
-    # the share of its greedy tokens equal to the served (B5) ones.
+    # bf16, teacher-forced with the served tokens: the greedy tokens of the
+    # eager path (B5, one launch per operation, as the queue ran before the
+    # pool), which must equal the served (graphed) ones, and of the plain
+    # attention path (their share of agreement).
     prompts_t = torch.as_tensor(prompts, device=DEVICE)
     served_t = torch.as_tensor(served, device=DEVICE)
+
+    def greedy(backend):
+        cache, logits = api.prefill(cfg, params, {"tokens": prompts_t},
+                                    backend=backend)
+        toks = [logits[:, :cfg.vocab_size].argmax(-1)]
+        cache = pad_cache(cfg, cache, max_len)
+        for i in range(LM_GEN - 1):
+            cache, logits = api.decode_step(
+                cfg, params, cache, served_t[:, i:i + 1], LM_PROMPT + i)
+            toks.append(logits[:, :cfg.vocab_size].argmax(-1))
+        return torch.stack(toks, 1) == served_t
+    same_eager = greedy(None)
+    agree_eager = float(same_eager.float().mean())
+    check(bool(same_eager.all()), f"serve_lm: the graphed streams differ "
+          f"from the eager path's (agreement {agree_eager:.4f})")
     before = _read_counts()
-    cache, logits = api.prefill(cfg, params, {"tokens": prompts_t},
-                                backend="torch")
-    plain_tokens = [logits[:, :cfg.vocab_size].argmax(-1)]
-    cache = pad_cache(cfg, cache, LM_PROMPT + LM_GEN)
-    for i in range(LM_GEN - 1):
-        cache, logits = api.decode_step(cfg, params, cache,
-                                        served_t[:, i:i + 1], LM_PROMPT + i)
-        plain_tokens.append(logits[:, :cfg.vocab_size].argmax(-1))
-    agree = float((torch.stack(plain_tokens, 1) == served_t).float().mean())
+    agree = float(greedy("torch").float().mean())
     check(_read_counts() == before, "serve_lm: the plain path launched a "
           "kernel")
+
+    # Graphed against eager at the bucket's shapes and on the slot's cache,
+    # in turns: prefill (3 each), then every decode position of the run.
+    slot = pool.acquire(bucket)
+    prefill_g, prefill_e, decode_g, decode_e = [], [], [], []
+    for _ in range(3):
+        prefill_g.append(_wall_ms(lambda: slot.prefill_fn(
+            {"tokens": prompts})[1].cpu()))
+        prefill_e.append(_wall_ms(lambda: api.prefill(cfg, params, {
+            "tokens": torch.as_tensor(prompts, device=DEVICE)})[1].cpu()))
+    slot.prefill_fn({"tokens": prompts})
+    for i in range(LM_GEN - 1):
+        tok = served[:, i:i + 1]
+        decode_g.append(_wall_ms(lambda: slot.serve_fn(
+            tok, LM_PROMPT + i)[1].cpu()))
+        decode_e.append(_wall_ms(lambda: api.decode_step(
+            cfg, params, slot.cache, torch.as_tensor(tok, device=DEVICE),
+            LM_PROMPT + i)[1].cpu()))
     # One prefill call's and one decode step's kernels by device time (B5's
-    # share of the prefill; the device's idle share of a decode step).
+    # share of the prefill; the device's idle share of a decode step,
+    # eager and replayed).
     profile = profile_step(lambda: api.prefill(cfg, params,
                                                {"tokens": prompts_t}))
     b5_share = sum(r["device_ms"] for r in profile["top"]
                    if "flash_wgmma_kernel" in r["name"]
                    or "flash_fwd_kernel" in r["name"])
+    last = served[:, -1:]
     profile_dec = profile_step(lambda: api.decode_step(
-        cfg, params, cache, served_t[:, -1:], LM_PROMPT + LM_GEN - 1))
-    del cache, logits, params
+        cfg, params, slot.cache, torch.as_tensor(last, device=DEVICE),
+        LM_PROMPT + LM_GEN - 1))
+    profile_rep = profile_step(lambda: slot.serve_fn(
+        last, LM_PROMPT + LM_GEN - 1))
+    pool.release(bucket, slot)
+    pool_rec = {"warm_s": warm_s, "buckets": len(pool), "builds": pool.builds,
+                "slots": pool.slots, "build_s": pool.build_s}
+    del queue, pool, slot, params
+    torch.cuda.empty_cache()
 
     # fp32: logits through B5 and through the plain path, teacher-forced;
-    # decode against prefill of one more token (S + 1 = 2049: B5's ragged
-    # edge).
-    torch.cuda.empty_cache()
+    # the graphed prefill and decode steps against the eager ones; decode
+    # against prefill of one more token (S + 1 = 2049: B5's ragged edge).
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = api.init_params(
         cfg32, torch.Generator(device=DEVICE).manual_seed(LM_SEED),
@@ -1898,47 +1978,70 @@ def phase_serve_lm(launches: dict) -> dict:
                                             LM_PROMPT + i)
             outs.append(logits)
         return outs
+    pool32 = ExecutorPool(cfg32, params32)
+    b32 = pool32.bundle(1, LM_PROMPT, LM_PROMPT + LM_CHECK_STEPS)
+    slot32 = pool32.acquire(b32)
     n0 = _kernel_fns()["flash_attention"].launches
-    kernel_outs = run(None)
+    graph_outs = [slot32.prefill_fn({"tokens": toks})[1].clone()]
+    graph_outs += [slot32.serve_fn(teacher[:, i:i + 1],
+                                   LM_PROMPT + i)[1].clone()
+                   for i in range(LM_CHECK_STEPS)]
     check(_kernel_fns()["flash_attention"].launches == n0 + layers,
+          "serve_lm fp32: the graphed prefill did not count B5 once a layer")
+    kernel_outs = run(None)
+    check(_kernel_fns()["flash_attention"].launches == n0 + 2 * layers,
           "serve_lm fp32: the kernel path did not launch B5 once a layer")
     plain_outs = run("torch")
     torch.cuda.synchronize()
     step_errs = [_lm_logits_err(f"serve_lm fp32 logits step {i}", g, w)
                  for i, (g, w) in enumerate(zip(kernel_outs, plain_outs))]
+    graph_errs = [_lm_logits_err(f"serve_lm fp32 graphed step {i}", g, w)
+                  for i, (g, w) in enumerate(zip(graph_outs, kernel_outs))]
     _, longer = api.prefill(cfg32, params32, {"tokens": torch.cat(
         [toks, teacher[:, :1]], 1)})
     dec_err = _lm_logits_err("serve_lm fp32 decode(S) vs prefill(S+1)",
                              kernel_outs[1], longer)
-    del params32, kernel_outs, plain_outs, longer
+    del params32, kernel_outs, plain_outs, graph_outs, longer, pool32, slot32
     torch.cuda.empty_cache()
 
     alone = _b5_alone(torch.bfloat16)
     alone_fp32 = _b5_alone(torch.float32)
+    med = statistics.median
     rec = {"phase": "serve_lm", "arch": LM_ARCH, "params": n_params,
            "dtype": "bfloat16", "layers": layers, "d_model": cfg.d_model,
            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
            "vocab": cfg.vocab_size, "requests": LM_BATCH,
            "prompt_len": LM_PROMPT, "gen_len": LM_GEN,
            "bf16_reduced_precision_reduction": False,
-           "init_s": init_s, "serve_s": serve_s,
+           "init_s": init_s, "pool": pool_rec, "serve_s": serve_s,
            "prefill_calls": n_prefill,
-           "prefill_ms": [s * 1e3 for s in queue.engine_s["prefill"]],
+           "prefill_ms": prefill_ms,
            "decode_steps": len(decode_ms),
-           "decode_ms_median": statistics.median(decode_ms),
+           "decode_ms_median": med(decode_ms),
            "decode_ms": decode_ms,
            "ttft_ms": [r.wall_ttft_s * 1e3 for r in reqs],
            "tokens": n_tokens, "tokens_per_s": n_tokens / serve_s,
-           "decode_tokens_per_s": LM_BATCH / (
-               statistics.median(decode_ms) / 1e3),
-           "peak_mem_gb": peak_gb, "launches": counts,
+           "decode_tokens_per_s": LM_BATCH / (med(decode_ms) / 1e3),
+           "peak_mem_gb": peak_gb, "peak_reserved_gb": peak_reserved_gb,
+           "launches": counts,
+           "graphed_vs_eager": {
+               "prefill_ms": prefill_g, "eager_prefill_ms": prefill_e,
+               "prefill_ms_median": med(prefill_g),
+               "eager_prefill_ms_median": med(prefill_e),
+               "decode_ms": decode_g, "eager_decode_ms": decode_e,
+               "decode_ms_median": med(decode_g),
+               "eager_decode_ms_median": med(decode_e)},
+           "streams_equal_eager_bf16": True,
+           "greedy_agreement_bf16_vs_eager": agree_eager,
            "greedy_agreement_bf16_vs_plain": agree,
            "fp32_logits_err_rel": step_errs,
+           "fp32_graphed_vs_eager_err_rel": graph_errs,
            "fp32_decode_vs_prefill_err_rel": dec_err,
            "b5_alone": alone, "b5_alone_fp32": alone_fp32,
            "profiled_prefill": profile,
            "profiled_prefill_b5_device_ms": b5_share,
-           "profiled_decode_step": profile_dec}
+           "profiled_decode_step": profile_dec,
+           "profiled_decode_replay": profile_rep}
     phase(rec)
     return rec
 
@@ -1970,7 +2073,8 @@ def _served(queue) -> dict:
             "ttft_ms": [r.wall_ttft_s * 1e3 for r in reqs],
             "tokens_per_s": n_tokens / span, "prefill_calls":
             queue.sched.counters["prefill_batches"],
-            "decode_calls": len(queue.engine_s["decode"])}
+            "decode_calls": len(queue.engine_s["decode"]),
+            "pool_buckets": len(queue.pool), "pool_slots": queue.pool.slots}
 
 
 def _warm_csr(w):
@@ -2159,6 +2263,10 @@ def phase_serve_obs(launches: dict, lm_rec: dict, out_dir,
     counts = _read_counts()
     runs = n_pre + served_plain["prefill_calls"] + \
         served_fault["prefill_calls"]
+    # each launcher run's pool built its slot on first need: one eager
+    # prefill before the captures, then a replay per prefill call
+    slots = served_obs["pool_slots"] + served_plain["pool_slots"] + \
+        served_fault["pool_slots"]
     # B1/B2 run in the two warm-ups only (the trials and the validation
     # SpMMs), for the parts their plans have; the captures saw each launch.
     warm_disp = {part: _obs_value(recs, "counter", "engine.dispatch",
@@ -2170,8 +2278,8 @@ def phase_serve_obs(launches: dict, lm_rec: dict, out_dir,
     for k, v in counts.items():
         launches[k] += v
         if k == "flash_attention":
-            check(v == layers * runs, f"serve_obs: B5 launched {v} times "
-                  f"for {runs} prefill calls")
+            check(v == layers * (runs + slots), f"serve_obs: B5 launched "
+                  f"{v} times for {runs} prefill calls and {slots} slots")
         elif k in ("csr_panels_spmm", "bcsr_panels_spmm"):
             part = k.split("_")[0]
             check(v == warm_disp[part], f"serve_obs: {k} launched {v} "
@@ -2201,7 +2309,100 @@ def phase_serve_obs(launches: dict, lm_rec: dict, out_dir,
                "prefill_ms", "ttft_ms", "tokens_per_s", "decode_ms_median",
                "gen_len")},
            "nvidia_smi": RECORD["phases"][0].get("nvidia_smi"),
-           "tokens_equal": True}
+           "pool_slots_built": slots, "tokens_equal": True}
+    phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the closed-loop serving load (batched against sequential)
+# ---------------------------------------------------------------------------
+
+TRAFFIC_KEYS = ("n_requests", "completed", "rejected", "evicted",
+                "prefill_batches", "decode_steps", "engine_calls",
+                "padded_slots", "tokens", "goodput_tok_s", "p50_ms",
+                "p99_ms", "ttft_p50_ms", "ttft_p99_ms", "wall_s")
+
+
+def phase_serve_traffic(launches: dict) -> dict:
+    """``repro_torch.benchmarks.serve_traffic.main`` at phase serve_lm's
+    model (full width, bf16), the reference's shapes and load (6 clients x
+    3 rounds), both modes, two passes each through one pool; then two
+    requests of one bucket in flight at once (max_batch 1, max_in_flight
+    2), which must take two slots and emit what each emits alone."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import serve_traffic
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.queue import ExecutorPool, ServeQueue
+    from repro_torch.serve.scheduler import SchedulerConfig
+
+    cfg = get_config(LM_ARCH)
+    layers = cfg.num_layers
+    records, lines = [], []
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = serve_traffic.main(out=lines.append, record=records.append,
+                             arch=LM_ARCH, reduced=False, device=DEVICE)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = _read_counts()
+    b, s = res["batched"], res["sequential"]
+    for mode, r in (("batched", b), ("sequential", s)):
+        check(r["completed"] == r["n_requests"] and not r["rejected"],
+              f"serve_traffic {mode}: {r['completed']} of {r['n_requests']} "
+              f"requests completed, {r['rejected']} rejected")
+    check(b["engine_calls"] <= s["engine_calls"], f"serve_traffic: batched "
+          f"{b['engine_calls']} engine calls > sequential {s['engine_calls']}")
+    # two passes a mode, the same schedule each (a pure function of the
+    # seed); one eager prefill per slot before its captures
+    prefills = 2 * (b["prefill_batches"] + s["prefill_batches"])
+    slots = res["pool"]["slots"]
+    for k, v in counts.items():
+        launches[k] += v
+        want = layers * (prefills + slots) if k == "flash_attention" else 0
+        check(v == want, f"serve_traffic: {k} launched {v} times for "
+              f"{prefills} prefill calls and {slots} slots")
+
+    # Two groups of one bucket in flight at once.
+    params = api.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(LM_SEED),
+        device=DEVICE)
+    rng = np.random.default_rng(LM_SEED + 2)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 32)).tolist()
+    pool = ExecutorPool(cfg, params)
+
+    def drive(in_flight, rows):
+        q = ServeQueue(cfg, params, pool=pool, config=SchedulerConfig(
+            max_in_flight=in_flight, max_batch=1, min_batch=1,
+            max_wait_s=0.0))
+        reqs = [q.submit(p, 8, now=0.0) for p in rows]
+        t = 0.0
+        while q.pending and q.step(now=t):
+            t += 1.0
+        return [r.tokens for r in reqs]
+    both = drive(2, prompts)
+    check(pool.slots == 2 and pool.peak_in_use == 2 and len(pool) == 1,
+          f"serve_traffic: two groups of one bucket took {pool.slots} slots "
+          f"of {len(pool)} buckets (peak {pool.peak_in_use} at once)")
+    alone = [drive(1, [p])[0] for p in prompts]
+    check(alone == both and all(len(t) == 8 for t in both),
+          "serve_traffic: two groups in flight emitted other tokens than "
+          "each alone")
+    del params, pool
+    torch.cuda.empty_cache()
+    rec = {"phase": "serve_traffic", "arch": LM_ARCH, "dtype": "bfloat16",
+           "shapes": serve_traffic.SHAPES, "clients": 6, "rounds": 3,
+           "main_s": main_s, "lines": lines,
+           "modes": {m: {k: res[m][k] for k in TRAFFIC_KEYS}
+                     for m in ("batched", "sequential")},
+           "pool": res["pool"], "launches": counts,
+           "prefill_calls": prefills,
+           "batched_peak_in_use": res["pool"]["peak_in_use"],
+           "two_slot_run": {"slots": 2, "peak_in_use": 2,
+                            "tokens_equal_alone": True},
+           "nvidia_smi": RECORD["phases"][0].get("nvidia_smi")}
     phase(rec)
     return rec
 
@@ -2261,6 +2462,7 @@ def main(argv=None) -> int:
         ffn_recs = phase_train_ffn(launches)
         lm_rec = phase_serve_lm(launches)
         phase_serve_obs(launches, lm_rec, args.out, work)
+        phase_serve_traffic(launches)
     for k, v in launches.items():
         check(v > 0, f"{k} never launched on the port's paths")
 

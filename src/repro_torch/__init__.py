@@ -19,8 +19,10 @@ ported file has a twin at the same relative path:
     trainable, and the dense LM (``layers``, ``transformer``, ``api``);
   * ``configs``: the dense architectures (llama3.2-1b and its reduced
     twin);
-  * ``serve`` and ``launch.serve``: the continuous-batching queue and its
-    command line.
+  * ``serve``, ``dist`` and ``launch.serve``: the continuous-batching
+    queue, its executor pool of static-buffer steps (CUDA graphs per shape
+    bucket on the card) and its command line;
+  * ``benchmarks``: the closed-loop serving load (``serve_traffic``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

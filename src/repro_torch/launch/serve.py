@@ -4,9 +4,10 @@ Port of ``repro/launch/serve.py``.  Requests flow through
 :mod:`repro_torch.serve`: the pure injectable-clock scheduler coalesces
 same-prompt-length requests into ragged batches padded to the engine's
 batch-block grid, and ``ServeQueue`` runs the resulting prefill/decode
-actions through :mod:`repro_torch.models.api`, whose every prefill
-attention is the CUDA kernel B5.  Admission control sheds overload
-(counted in the scheduler's ``rejected``).
+actions through its :class:`~repro_torch.serve.queue.ExecutorPool`: on
+the card, CUDA graphs per shape bucket, replayed over static buffers,
+whose every prefill attention is the CUDA kernel B5.  Admission control
+sheds overload (counted in the scheduler's ``rejected``).
 
 Weights are random, drawn from ``--seed`` on the device.  On a GPU the
 launcher turns off cuBLAS's reduced-precision reductions for bf16 GEMMs
@@ -38,8 +39,8 @@ On the CPU, reduced, with a capture:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --reduced --device cpu --batch 2 --prompt-len 8 --gen-len 4 --obs
 
-Not ported yet: the executor pool (ROADMAP A.13), the engine fallback
-chains (A.11) and the mesh flags (A.12/A.13).
+Not ported yet: the engine fallback chains (A.11) and the mesh flags
+(A.12/A.13).
 """
 from __future__ import annotations
 
@@ -255,7 +256,8 @@ def main(argv=None):
           f"{t_total:.2f}s; {n_tokens} tokens at {tps:.1f} tok/s; "
           f"{counters['prefill_batches']} prefill batches, "
           f"{counters['decode_steps']} decode steps, "
-          f"{counters['rejected']} rejected; flash-attention kernel "
+          f"{counters['rejected']} rejected; pool: {len(queue.pool)} "
+          f"buckets, {queue.pool.slots} slots; flash-attention kernel "
           f"launches: {b5.flash_attention.launches - launches0}")
     if done:
         print("generated token ids (first request):",

@@ -3,8 +3,9 @@
 Every architecture exposes the same entry points regardless of family:
 
     init_params(cfg, generator, device=)       -> params (an nn.Module)
-    prefill(cfg, params, batch)                -> (cache, last_logits)
+    prefill(cfg, params, batch, cache=)        -> (cache, last_logits)
     decode_step(cfg, params, cache, tok, len)  -> (cache, logits)
+        (``len``: an int, or a 0-d int32/int64 tensor on the device)
     init_cache(cfg, batch, max_len)            -> cache dict
     num_params(params)                         -> int
 
@@ -30,8 +31,9 @@ def init_params(cfg: ModelConfig, generator, *, device=None):
     return _mod(cfg).init_params(cfg, generator, device=device)
 
 
-def prefill(cfg: ModelConfig, params, batch, *, backend=None):
-    return _mod(cfg).prefill(cfg, params, batch, backend=backend)
+def prefill(cfg: ModelConfig, params, batch, *, backend=None, cache=None):
+    return _mod(cfg).prefill(cfg, params, batch, backend=backend,
+                             cache=cache)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, length):

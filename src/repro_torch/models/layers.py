@@ -175,7 +175,8 @@ def decode_attention(q, k_cache, v_cache, length: int) -> torch.Tensor:
     """Single-token attention against a cache.
 
     q: (B, 1, H, hd); caches: (B, S, KV, hd); length: number of valid
-    cache entries (the new token's k/v already written at length - 1).
+    cache entries (the new token's k/v already written at length - 1), an
+    ``int`` or a 0-d integer tensor on q's device.
     """
     bsz, _, heads, hd = q.shape
     seq, kv = k_cache.shape[1], k_cache.shape[2]

@@ -13,7 +13,10 @@ PyTorch runs eagerly, so the layer loop is a Python loop.
   logits in fp32.
 * :func:`decode_step` writes the new token's k/v into the cache **in
   place** (the reference donates the cache buffer to the same effect) and
-  returns the same dict with the fp32 logits.
+  returns the same dict with the fp32 logits.  Its ``length`` may be a
+  0-d tensor on the device, so one captured CUDA graph serves every
+  position (:mod:`repro_torch.dist.step`); :func:`prefill` can write into
+  a given cache (the serving pool's static one).
 * The tied-embedding logits are fp32 (the reference's
   ``preferred_element_type=F32``): the table is widened to fp32 in chunks
   of :data:`LOGIT_CHUNK_ELEMS` elements, so no fp32 copy of the whole
@@ -198,9 +201,11 @@ def _attn_block(cfg: ModelConfig, lp: Block, x, positions, *, mode,
 
     if mode == "decode":
         k_cache, v_cache = cache
-        # in place: the reference donates the cache to the same effect
-        k_cache[:, length:length + 1] = k.to(k_cache.dtype)
-        v_cache[:, length:length + 1] = v.to(v_cache.dtype)
+        # in place, at the position the 0-d tensor ``length`` holds (the
+        # reference donates the cache to the same effect)
+        idx = length.reshape(1)
+        k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
         out = layers.decode_attention(q, k_cache, v_cache, length + 1)
         cache_out = (k_cache, v_cache)
     else:
@@ -264,10 +269,14 @@ def _tokens(params: LM, tokens) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def prefill(cfg: ModelConfig, params: LM, batch: Dict[str, Any], *,
-            backend: str | None = None):
+            backend: str | None = None, cache=None):
     """Build the serving cache.  ``batch["tokens"]``: (B, S) token ids.
     Returns (cache, last_token_logits (B, vocab_padded) fp32).
-    ``backend="torch"`` runs attention's plain version instead of B5."""
+    ``backend="torch"`` runs attention's plain version instead of B5.
+    ``cache`` (optional): a cache of :func:`init_cache`'s layout with
+    ``max_len >= S`` on the model's device, whose first S positions take
+    the k/v (in place) and which is returned in place of a new S-long one;
+    the serving pool's static caches take the prefill this way."""
     check_supported(cfg)
     tokens = _tokens(params, batch["tokens"])
     x = _embed_inputs(cfg, params, tokens)
@@ -275,36 +284,65 @@ def prefill(cfg: ModelConfig, params: LM, batch: Dict[str, Any], *,
     positions = torch.arange(seq, device=tokens.device)[None, :]
     shape = (cfg.num_layers, bsz, seq, cfg.num_kv_heads,
              cfg.resolved_head_dim)
-    cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
-             "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
+    if cache is None:
+        cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
+                 "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
+    else:
+        for name in ("k", "v"):
+            c = cache[name]
+            if (c.shape[:2] != shape[:2] or c.shape[3:] != shape[3:]
+                    or c.shape[2] < seq or c.dtype != x.dtype
+                    or c.device != x.device):
+                raise ValueError(
+                    f"cache[{name!r}] is {tuple(c.shape)} {c.dtype} on "
+                    f"{c.device}; the prefill needs {shape[:2]} x >= {seq} "
+                    f"x {shape[3:]} {x.dtype} on {x.device}")
     for i, lp in enumerate(params.layers):
         x, (k, v) = _layer_apply(cfg, lp, x, positions, mode="prefill",
                                  backend=backend)
-        cache["k"][i] = k
-        cache["v"][i] = v
+        cache["k"][i, :, :seq] = k
+        cache["v"][i, :, :seq] = v
     x = layers.norm_apply(cfg.norm, params.final_norm, x)
     return cache, _logits(cfg, params, x[:, -1])
 
 
-def decode_step(cfg: ModelConfig, params: LM, cache, tokens, length: int):
-    """One serving step: tokens (B, 1) + cache + current length -> logits.
-
-    ``length`` is the number of tokens already in the cache; the new
-    token's k/v are written at slot ``length`` of ``cache`` in place.
-    Returns (cache, logits (B, vocab_padded) fp32)."""
-    check_supported(cfg)
+def _position(length, cache, device) -> torch.Tensor:
+    """``decode_step``'s ``length`` as a 0-d int64 tensor on ``device``.
+    An ``int`` is checked against the cache's slots on the host; a 0-d
+    int32/int64 tensor on ``device`` is taken as it is, unread (its caller
+    checks its range: a captured graph replays it with new values)."""
+    if isinstance(length, torch.Tensor):
+        if length.ndim or length.device != device \
+                or length.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"length must be a 0-d int32/int64 tensor on "
+                             f"{device}, not {length.dtype} "
+                             f"{tuple(length.shape)} on {length.device}")
+        return length.long()
     length = int(length)
     if not 0 <= length < cache["k"].shape[2]:
         raise ValueError(f"length {length} outside the cache's "
                          f"{cache['k'].shape[2]} slots")
+    return torch.full((), length, dtype=torch.long, device=device)
+
+
+def decode_step(cfg: ModelConfig, params: LM, cache, tokens, length):
+    """One serving step: tokens (B, 1) + cache + current length -> logits.
+
+    ``length`` is the number of tokens already in the cache: an ``int``
+    (range-checked on the host) or a 0-d int32/int64 tensor on the model's
+    device (the reference's traced ``int32``; never read on the host, so a
+    captured CUDA graph serves every position).  The new token's k/v are
+    written at slot ``length`` of ``cache`` in place.  Both forms run the
+    same operations.  Returns (cache, logits (B, vocab_padded) fp32)."""
+    check_supported(cfg)
     tokens = _tokens(params, tokens)
+    pos = _position(length, cache, tokens.device)
     x = _embed_inputs(cfg, params, tokens)
-    positions = torch.full((1, 1), length, dtype=torch.int32,
-                           device=tokens.device)
+    positions = pos.reshape(1, 1)
     for i, lp in enumerate(params.layers):
         x, _ = _layer_apply(cfg, lp, x, positions, mode="decode",
                             cache=(cache["k"][i], cache["v"][i]),
-                            length=length)
+                            length=pos)
     x = layers.norm_apply(cfg.norm, params.final_norm, x)
     return cache, _logits(cfg, params, x[:, 0])
 

@@ -7,8 +7,9 @@ Split along the device boundary, as in the reference:
     shape-keyed coalescing, prefill/decode interleave), copies of the
     reference's modules; no array library in their import chain.
   * :mod:`.queue` -- the device half: ``ServeQueue`` turns scheduler
-    actions into coalesced prefill/decode calls of
-    :mod:`repro_torch.models.api`.
+    actions into coalesced prefill/decode calls through ``ExecutorPool``
+    (static-buffer steps of :mod:`repro_torch.dist.step`, CUDA graphs per
+    shape bucket on the card).
 
 ``repro_torch.launch.serve`` is the CLI over this package.
 """

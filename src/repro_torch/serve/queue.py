@@ -1,14 +1,20 @@
 """The device half of continuous batching: coalesced engine calls.
 
 Port of ``repro/serve/queue.py``.  ``ServeQueue`` joins the pure scheduler
-(:mod:`.scheduler`) to the model's prefill and decode entry points
-(:mod:`repro_torch.models.api`):
+(:mod:`.scheduler`) to the static-buffer prefill and decode steps of
+:mod:`repro_torch.dist.step`, through a warm :class:`ExecutorPool`:
 
   * **ragged batching** -- a :class:`~.scheduler.Group`'s live requests
     are stacked on the batch axis and zero-padded to the engine's
     batch-block grid (``scheduler.padded_batch``, the pure mirror of
     ``kernels/engine.py``); batch rows are independent, so padding is
     exact -- the pad rows' outputs are dropped.
+  * **warm executor pool** -- :class:`ExecutorPool` keeps one bundle per
+    ``(padded_batch, prompt_len, max_len)`` shape bucket, as the
+    reference's does.  On the card each bucket's prefill and decode step
+    are CUDA graphs replayed over static buffers, so a steady-state step
+    pays a few copies and one graph launch instead of one launch per
+    operation; ``warm()`` pays the captures before traffic.
   * **two clocks** -- scheduling decisions run on the injectable
     ``clock``; latency accounting always on the wall clock: the request's
     ``wall_*`` fields, :attr:`ServeQueue.engine_s` (the wall seconds of
@@ -20,23 +26,42 @@ Port of ``repro/serve/queue.py``.  ``ServeQueue`` joins the pure scheduler
     ``serve.queue_depth`` / ``serve.in_flight`` gauges and
     ``serve.requests`` / ``serve.prefill_calls`` / ``serve.decode_calls`` /
     ``serve.rejected`` / ``serve.evicted`` counters.  With ``obs=`` or
-    ``recorder=`` (a :class:`repro_torch.perf.trace.TraceRecorder`) every
-    prefill and decode call is also wrapped as the reference's
+    ``recorder=`` (a :class:`repro_torch.perf.trace.TraceRecorder`) the
+    pool's prefill and decode functions are wrapped as the reference's
     ``dist/step.py`` wraps its step functions (a ``step.{op}`` span and
     ``step.wall_us`` histogram; a ``step`` trace record).
   * **resilience** -- every engine call passes the ``serve.prefill`` /
-    ``serve.step`` fault points and retries with backoff under
-    ``retry_kw`` (:func:`repro_torch.resilience.retry_with_backoff`).
+    ``serve.step`` fault points, before the replay, and retries with
+    backoff under ``retry_kw``
+    (:func:`repro_torch.resilience.retry_with_backoff`); a retried step
+    finds its cache untouched.
 
 Changes from the reference:
 
-  * The queue holds the model (an ``nn.Module``) and its device instead
-    of a mesh and an ``ExecutorPool``: the pool caches ``jax.jit``
-    executables per shape bucket, and eager PyTorch has nothing to cache.
-    A per-bucket CUDA-graph pool is later work (ROADMAP A.13).
+  * **Decode slots.**  The reference passes a group's cache to its jitted
+    step as an argument; a captured graph bakes in the cache's address.
+    With ``max_in_flight=2`` two groups of one bucket can be in flight at
+    once, so a bucket holds slots: one static KV cache at ``max_len``
+    (allocated outside the graph pool) and the prefill and decode graphs
+    captured over it.  A group takes a free slot (or a new one) for its
+    prefill and gives it back when it is done.  The slot's cache is the
+    group's only cache: the prefill writes its first ``prompt_len``
+    positions, so nothing is padded or copied.  (Copying each group's
+    cache into one shared buffer every step would cost more than the
+    launches the graph saves.)  ``len(pool)`` and ``pool.builds`` count
+    buckets, as the reference's; ``pool.slots`` counts slots.
+  * **Launch counts under replay.**  A replay does not call the kernel
+    wrappers; each graph adds the launches it captured to B1-B5's
+    ``launches`` on every replay (:mod:`repro_torch.dist.step`).
+  * **Logits are read before the next replay**: a graph's logits live in
+    the graph pool and the next replay of that graph overwrites them, so
+    the queue copies them to the host at once.
+  * A position past a slot's capacity raises ``ValueError`` on the host
+    before any replay (the reference's ``dynamic_update_slice`` clamps).
   * Sampling reads only the first ``cfg.vocab_size`` logits of a row, so
     a padded vocabulary id is never returned (llama3.2-1b's vocabulary
     needs no padding, so its streams equal the reference's).
+  * No frontend prefix or stub inputs: the port runs the dense family.
 
 Sampling is host-side and *batch-composition independent*:
 :func:`sample_token` is the reference's, verbatim -- greedy argmax, or for
@@ -49,23 +74,25 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..dist import step as step_lib
 from ..models import api
 from ..resilience.fallback import retry_with_backoff
 from ..resilience.inject import fault_point
 from .scheduler import (G_DONE, Decode, Group, Prefill, Scheduler,
-                        SchedulerConfig)
+                        SchedulerConfig, padded_batch)
 from .session import DONE, Request, make_request
 
-__all__ = ["ServeQueue", "pad_cache", "sample_token", "DEFAULT_LEN_QUANTUM"]
+__all__ = ["ServeQueue", "ExecutorPool", "pad_cache", "sample_token",
+           "DEFAULT_LEN_QUANTUM"]
 
 # Decode-capacity quantum: a group's cache length is its prompt plus
-# max_gen rounded up to this (the reference's value, which there lets
-# nearby generation budgets share one compiled executor).
+# max_gen rounded up to this, so nearby generation budgets share one
+# bucket (the reference's value).
 DEFAULT_LEN_QUANTUM = 8
 
 
@@ -101,40 +128,153 @@ def sample_token(logits_row: np.ndarray, *, temperature: float, seed: int,
     return int(np.argmax(row / temperature + gumbel))
 
 
-def _maybe_record(fn, recorder, op: str, obs=None):
-    """Wrap a step function with the perf-trace recorder and/or a live obs
-    capture (no-op without either), as the reference's
-    ``dist/step.py::_maybe_record`` does: obs wraps outermost, so its span
-    brackets the recorder's timing too."""
-    if recorder is not None:
-        fn = recorder.wrap_step(fn, op=op)
-    if obs is not None:
-        fn = obs.wrap_step(fn, op=op)
-    return fn
+@dataclasses.dataclass
+class _Slot:
+    """One decode slot of a bucket: its static KV cache and the prefill
+    and decode functions built over it (``dist/step.py``)."""
+
+    cache: Dict[str, torch.Tensor]
+    prefill_fn: Callable
+    serve_fn: Callable
+
+
+@dataclasses.dataclass
+class _Bundle:
+    """One shape bucket: ``(padded_batch, prompt_len, max_len)``, with
+    its slots (built on first need, reused once free)."""
+
+    batch: int
+    prompt_len: int
+    max_len: int            # prompt + decode capacity
+    slots: List[_Slot] = dataclasses.field(default_factory=list)
+    free: List[_Slot] = dataclasses.field(default_factory=list)
+    peak_in_use: int = 0
+
+    @property
+    def in_use(self) -> int:
+        return len(self.slots) - len(self.free)
+
+
+class ExecutorPool:
+    """Build-once cache of static-buffer prefill/decode steps per shape
+    bucket, captured as CUDA graphs on the card.
+
+    The serving analogue of the tuner's warm plan cache: a bucket's slot
+    is built (its graphs captured) ahead of traffic by :meth:`warm` or on
+    first need, after which every group landing in it replays.  ``obs`` /
+    ``recorder`` wrap every built function (``dist/step.py``'s
+    ``_maybe_record``).  See the module docstring for the slots.
+    """
+
+    def __init__(self, cfg, params, *, obs=None, recorder=None):
+        self.cfg = cfg
+        self.params = params
+        self.obs = obs
+        self.recorder = recorder
+        self.device = params.embed.device
+        self._bundles: Dict[Tuple[int, int, int], _Bundle] = {}
+        self._graph_pool = None
+        self.builds = 0
+        self.build_s = 0.0      # wall seconds spent building slots
+
+    def bundle(self, batch: int, prompt_len: int, max_len: int) -> _Bundle:
+        key = (batch, prompt_len, max_len)
+        hit = self._bundles.get(key)
+        if hit is None:
+            hit = self._bundles[key] = _Bundle(batch, prompt_len, max_len)
+            self.builds += 1
+        return hit
+
+    def acquire(self, b: _Bundle) -> _Slot:
+        """A free slot of ``b``, or a new one: its cache at ``max_len``
+        and, on the card, its prefill and decode graphs captured over it
+        (capture errors raise)."""
+        if b.free:
+            slot = b.free.pop()
+        else:
+            t0 = time.perf_counter()
+            if self.device.type == "cuda" and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            cfg, params = self.cfg, self.params
+            cache = api.init_cache(cfg, b.batch, b.max_len,
+                                   device=self.device)
+            kw = dict(graph_pool=self._graph_pool, recorder=self.recorder,
+                      obs=self.obs)
+            slot = _Slot(
+                cache=cache,
+                prefill_fn=step_lib.build_prefill(
+                    cfg, params, (b.batch, b.prompt_len), cache=cache, **kw),
+                serve_fn=step_lib.build_serve_step(cfg, params, cache, **kw))
+            b.slots.append(slot)
+            self.build_s += time.perf_counter() - t0
+        b.peak_in_use = max(b.peak_in_use, b.in_use)
+        return slot
+
+    def release(self, b: _Bundle, slot: _Slot) -> None:
+        b.free.append(slot)
+
+    def warm(self, shapes: Sequence[Tuple[int, int, int]]) -> int:
+        """Build each ``(batch, prompt_len, max_len)`` cell's first slot
+        and run its prefill and one decode step on dummy tokens, so the
+        first real request in the bucket pays replays only.  Returns the
+        number of cells warmed."""
+        n = 0
+        for batch, prompt_len, max_len in dict.fromkeys(shapes):
+            b = self.bundle(padded_batch(batch), prompt_len, max_len)
+            slot = self.acquire(b)
+            try:
+                slot.prefill_fn({"tokens": np.zeros((b.batch, prompt_len),
+                                                    np.int64)})
+                _, logits = slot.serve_fn(np.zeros((b.batch, 1), np.int64),
+                                          prompt_len)
+                logits.cpu()
+            finally:
+                self.release(b, slot)
+            n += 1
+        return n
+
+    def __len__(self) -> int:
+        return len(self._bundles)
+
+    @property
+    def slots(self) -> int:
+        """Slots built over all buckets."""
+        return sum(len(b.slots) for b in self._bundles.values())
+
+    @property
+    def peak_in_use(self) -> int:
+        """The most slots of one bucket held at once: 2 when two groups of
+        one bucket were in flight together."""
+        return max((b.peak_in_use for b in self._bundles.values()),
+                   default=0)
 
 
 @dataclasses.dataclass
 class _GroupRuntime:
     """Device-side state of an in-flight group between engine calls."""
 
-    cache: Dict[str, torch.Tensor]
+    bundle: _Bundle
+    slot: _Slot             # holds the group's cache
     toks: np.ndarray        # (padded_batch, 1) int64 — next step's inputs
     pos0: int               # absolute position of the first decode write
 
 
 class ServeQueue:
-    """Continuous-batching front end over the model's prefill and decode.
+    """Continuous-batching front end over the pool's prefill and decode.
 
     ``params`` is the model (:func:`repro_torch.models.api.init_params`);
-    every engine call runs on its device.  ``obs`` (a
-    :class:`repro_torch.obs.Obs`) and ``recorder`` (a
-    :class:`repro_torch.perf.trace.TraceRecorder`) instrument the run;
-    ``retry_kw`` are :func:`repro_torch.resilience.retry_with_backoff`'s
-    keywords for every engine call (default: no retry)."""
+    every engine call runs on its device, through ``pool`` (default: an
+    :class:`ExecutorPool` built with this queue's ``obs`` and
+    ``recorder``).  ``obs`` (a :class:`repro_torch.obs.Obs`) and
+    ``recorder`` (a :class:`repro_torch.perf.trace.TraceRecorder`)
+    instrument the run; ``retry_kw`` are
+    :func:`repro_torch.resilience.retry_with_backoff`'s keywords for every
+    engine call (default: no retry)."""
 
     def __init__(self, cfg, params, *,
                  scheduler: Optional[Scheduler] = None,
                  config: Optional[SchedulerConfig] = None,
+                 pool: Optional[ExecutorPool] = None,
                  obs=None, recorder=None,
                  clock: Callable[[], float] = time.perf_counter,
                  temperature: float = 0.0, seed: int = 0,
@@ -145,16 +285,11 @@ class ServeQueue:
             raise ValueError("pass scheduler= or config=, not both")
         self.cfg = cfg
         self.params = params
-        self.device = params.embed.device
         self.sched = scheduler or Scheduler(config)
+        # NB: not `pool or ...` — an empty ExecutorPool is falsy (__len__)
+        self.pool = pool if pool is not None else \
+            ExecutorPool(cfg, params, obs=obs, recorder=recorder)
         self.obs = obs
-        self._prefill_fn = _maybe_record(
-            lambda p, batch: api.prefill(cfg, p, batch), recorder,
-            "prefill", obs)
-        self._decode_fn = _maybe_record(
-            lambda p, cache, toks, pos: api.decode_step(cfg, p, cache, toks,
-                                                        pos),
-            recorder, "decode", obs)
         self.clock = clock
         self.temperature = float(temperature)
         self.seed = int(seed)
@@ -233,21 +368,28 @@ class ServeQueue:
         return toks
 
     def _run_prefill(self, group: Group, now: float) -> List[Request]:
+        bundle = self.pool.bundle(group.padded_size, group.prompt_len,
+                                  self._max_len(group))
         tokens = np.zeros((group.padded_size, group.prompt_len), np.int64)
         for i, r in enumerate(group.requests):
             tokens[i] = np.asarray(r.prompt, np.int64)
-        batch = {"tokens": torch.as_tensor(tokens, device=self.device)}
+        slot = self.pool.acquire(bundle)
 
         def call():
+            # the fault point fires before the replay, so a retried
+            # prefill never reuses a consumed buffer
             fault_point("serve.prefill")
-            return self._prefill_fn(self.params, batch)
+            return slot.prefill_fn({"tokens": tokens})
 
         t0 = time.perf_counter()
-        cache, logits = retry_with_backoff(call, **self.retry_kw)
-        logits_np = logits.cpu().numpy()
+        try:
+            _, logits = retry_with_backoff(call, **self.retry_kw)
+            logits_np = logits.cpu().numpy()
+        except BaseException:
+            self.pool.release(bundle, slot)
+            raise
         dt = time.perf_counter() - t0
         self.engine_s["prefill"].append(dt)
-        cache = pad_cache(self.cfg, cache, self._max_len(group))
         wall = time.perf_counter()
         toks = self._sample_rows(logits_np, group, lambda r: 0)
         for i, r in enumerate(group.requests):
@@ -265,24 +407,25 @@ class ServeQueue:
         finished = self.sched.note_prefill_done(group.gid, now)
         self._note_finished(finished, wall)
         if group.state != G_DONE:
-            self._rt[group.gid] = _GroupRuntime(cache=cache, toks=toks,
-                                                pos0=group.prompt_len)
+            self._rt[group.gid] = _GroupRuntime(
+                bundle=bundle, slot=slot, toks=toks, pos0=group.prompt_len)
+        else:
+            self.pool.release(bundle, slot)
         return finished
 
     def _run_decode(self, group: Group, now: float) -> List[Request]:
         rt = self._rt[group.gid]
         pos = rt.pos0 + group.steps_done
         was_active = list(group.active_requests)
-        step_toks = torch.as_tensor(rt.toks, device=self.device)
 
         def call():
-            # the fault point fires before the engine call, so a retried
-            # step reuses an untouched cache
+            # the fault point fires before the replay, so a retried step
+            # finds an untouched cache
             fault_point("serve.step")
-            return self._decode_fn(self.params, rt.cache, step_toks, pos)
+            return rt.slot.serve_fn(rt.toks, pos)
 
         t0 = time.perf_counter()
-        rt.cache, logits = retry_with_backoff(call, **self.retry_kw)
+        _, logits = retry_with_backoff(call, **self.retry_kw)
         logits_np = logits.cpu().numpy()
         dt = time.perf_counter() - t0
         self.engine_s["decode"].append(dt)
@@ -305,6 +448,7 @@ class ServeQueue:
         self._note_finished(finished, wall)
         if group.state == G_DONE:
             self._rt.pop(group.gid, None)
+            self.pool.release(rt.bundle, rt.slot)
         return finished
 
     def _note_finished(self, finished: List[Request], wall: float) -> None:

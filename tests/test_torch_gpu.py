@@ -2,8 +2,10 @@
 PyTorch versions, ``loops_spmm`` / ``loops_spmm_values`` (forward and
 backward) and the GCN against the flat PyTorch path, and a full-width
 llama3.2-1b prefill (two layers) through B5 against its plain attention
-path, and the tuner's timed window and cache hits on the card.  Every
-test here needs a CUDA device and skips without one.
+path, the tuner's timed window and cache hits on the card, and the
+serve executor pool's CUDA graphs (graphed against eager logits, two
+slots of one bucket, launch counts through replays, a failing capture).
+Every test here needs a CUDA device and skips without one.
 
 This file imports neither JAX nor the reference package, so it runs on the
 GPU machine as it is:
@@ -584,3 +586,125 @@ def test_cuda_exact_hit_makes_no_measurement(cuda, tmp_path, monkeypatch):
         plan.r_boundary < csr.nrows)
     scale = max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# the serve executor pool: CUDA graphs per shape bucket
+# ---------------------------------------------------------------------------
+
+def _graph_model(cuda, **change):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), **change)
+    params = api.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    return cfg, params
+
+
+@pytest.mark.gpu
+def test_cuda_graphed_steps_match_eager(cuda):
+    """llama3.2-1b at full width with two layers, fp32: a bucket's captured
+    prefill and 4 decode steps against eager ``api.prefill`` /
+    ``api.decode_step`` on the same tokens, logits within 1e-4 of max(1,
+    max |logits|); B5 counts 2 launches per prefill replay, none per decode
+    replay, and none for the capture itself."""
+    from repro_torch.serve.queue import ExecutorPool, pad_cache
+    cfg, params = _graph_model(cuda, num_layers=2, dtype=torch.float32)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (2, 64 + 4))
+    pool = ExecutorPool(cfg, params)
+    slot = pool.acquire(pool.bundle(2, 64, 72))
+    before = b5.flash_attention.launches
+    _, got = slot.prefill_fn({"tokens": toks[:, :64]})
+    got = [got.clone()]
+    assert b5.flash_attention.launches == before + 2
+    for i in range(4):
+        _, lg = slot.serve_fn(toks[:, 64 + i:65 + i], 64 + i)
+        got.append(lg.clone())
+    assert b5.flash_attention.launches == before + 2
+    cache, lg = api.prefill(cfg, params, {"tokens": torch.as_tensor(
+        toks[:, :64], device=cuda)})
+    want = [lg]
+    cache = pad_cache(cfg, cache, 72)
+    for i in range(4):
+        _, lg = api.decode_step(cfg, params, cache, torch.as_tensor(
+            toks[:, 64 + i:65 + i], device=cuda), 64 + i)
+        want.append(lg)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-4 * scale
+    for name in ("k", "v"):
+        assert torch.allclose(slot.cache[name][:, :, :68],
+                              cache[name][:, :, :68], rtol=0, atol=1e-4)
+
+
+def _reduced_queue(cfg, params, pool, in_flight):
+    from repro_torch.serve.queue import ServeQueue
+    from repro_torch.serve.scheduler import SchedulerConfig
+    return ServeQueue(cfg, params, pool=pool, temperature=0.7, seed=5,
+                      config=SchedulerConfig(max_in_flight=in_flight,
+                                             max_batch=1, min_batch=1,
+                                             max_wait_s=0.0))
+
+
+def _drive_all(q, prompts, gen, rids):
+    reqs = [q.submit(p, gen, now=0.0, rid=rid)
+            for p, rid in zip(prompts, rids)]
+    t = 0.0
+    while q.pending and q.step(now=t):
+        t += 1.0
+    return [r.tokens for r in reqs]
+
+
+@pytest.mark.gpu
+def test_cuda_two_groups_of_one_bucket_take_two_slots(cuda):
+    """Two groups of one bucket in flight at once each replay their own
+    slot's graphs over their own cache: the streams equal each request's
+    alone, and B5 counts one launch a layer for every prefill replay and
+    every slot's warm-up run, none for the captures."""
+    from repro_torch.configs import REDUCED
+    from repro_torch.serve.queue import ExecutorPool
+    cfg = REDUCED["llama3.2-1b"]()
+    params = api.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, 12).tolist()
+               for _ in range(2)]
+    pool = ExecutorPool(cfg, params)
+    before = b5.flash_attention.launches
+    both = _reduced_queue(cfg, params, pool, 2)
+    got = _drive_all(both, prompts, 6, [100, 101])
+    assert pool.slots == 2 and pool.peak_in_use == 2 and len(pool) == 1
+    assert b5.flash_attention.launches - before == cfg.num_layers * (
+        both.sched.counters["prefill_batches"] + pool.slots)
+    for i, p in enumerate(prompts):
+        alone = _reduced_queue(cfg, params, ExecutorPool(cfg, params), 1)
+        assert _drive_all(alone, [p], 6, [100 + i])[0] == got[i]
+
+
+@pytest.mark.gpu
+def test_cuda_failing_capture_raises(cuda, monkeypatch):
+    """A step that raises while it is captured propagates its error: no
+    slot is kept and nothing runs eagerly in its place."""
+    from repro_torch.configs import REDUCED
+    from repro_torch.models import layers
+    from repro_torch.serve.queue import ExecutorPool
+    cfg = REDUCED["llama3.2-1b"]()
+    params = api.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    real = layers.decode_attention
+
+    def fail_in_capture(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("refused in capture")
+        return real(*a, **k)
+    monkeypatch.setattr(layers, "decode_attention", fail_in_capture)
+    pool = ExecutorPool(cfg, params)
+    q = _reduced_queue(cfg, params, pool, 1)
+    q.submit([1, 2, 3, 4], 3, now=0.0)
+    with pytest.raises(RuntimeError) as err:
+        q.step(now=0.0)
+    # the step's own error, or the capture's end raising on top of it
+    assert "refused in capture" in str(err.value) + str(
+        err.value.__context__)
+    assert pool.slots == 0 and not q.completed
