@@ -113,12 +113,30 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  goodput, p50/p99 and TTFT p50/p99, the pool's buckets and
                  slots, B5's launches; then two requests of one bucket in
                  flight at once, which take two slots and emit what each
-                 emits alone.
+                 emits alone;
+ 11. operator_bench -- the paper's operator evaluation
+                 (``repro_torch.benchmarks``): ``python -m
+                 repro_torch.benchmarks.run --smoke`` on the card in a
+                 process of its own, its records validated against the
+                 port's bench schema and gated (``perf_gate``, wall columns
+                 off) against the committed CPU baseline; Fig. 4 at the
+                 published sizes (the block family at the rows that give
+                 the published nnz), N=32, fp32 and fp64, each
+                 ``loops_spmm`` checked against the flat path and timed
+                 beside the flat path, cuSPARSE and dense cuBLAS (None where
+                 A dense exceeds the budget), with the calibrated plan at
+                 m6 once; the batched suite at pwtk's size (batch 1/4/16,
+                 loop / stack / native / ``torch.vmap``, forward and
+                 backward, bitwise equal), with each strategy's launches
+                 in one call; Table 4 with ogbn-arxiv's row; §4.3's five
+                 regimes at 100,000 rows, calibrated on the card; the
+                 autotune suite.
 
-Each kernel's launch count is set to 0 just before phases 3-10 drive their
+Each kernel's launch count is set to 0 just before phases 3-11 drive their
 path and read just after; a kernel of a path that did not launch fails the
 run, and so does a launch of a kernel that is not on the path (B5 in
-phases 3-7, B1-B4 in phases 8 and 10, B3/B4 in phase 9).  A replayed CUDA
+phases 3-7, B1-B4 in phases 8 and 10, B3/B4 in phase 9, B3-B5 in phase
+11).  A replayed CUDA
 graph adds the launches it captured (``repro_torch.dist.step``), and each
 slot the pool builds runs its prefill once eagerly before the capture, so
 B5 counts 16 launches per prefill replay and per slot built.  The last
@@ -227,6 +245,14 @@ TUNE_TOP_K, TUNE_REPLAY_TOP_K, TUNE_T_TOP_K = 4, 2, 2
 # batch, 16 generated tokens; one injected serve.step fault in its last run.
 OBS_GEN = 16
 OBS_FAULT_PLAN = "serve.step:raise:0"
+
+# Phase operator_bench: Fig. 4's dtypes at the published sizes, the matrix
+# and dtype whose calibrated plan is timed once, the batched suite's
+# batches at pwtk's size, and §4.3's row count.
+FIG4_DTYPES = ("float32", "float64")
+FIG4_CALIBRATED = ("m6", "float32")
+BATCHED_BATCHES = (1, 4, 16)
+SEC43_ROWS = 100_000
 
 # B1/B2 in phase 2: unit tables that force splits (panels per unit), and
 # the width of the hub case's dense rows (> 50 units at U <= 3 and G = 8,
@@ -2408,6 +2434,202 @@ def phase_serve_traffic(launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the paper's operator evaluation
+# ---------------------------------------------------------------------------
+
+def _bench_run(out_dir) -> dict:
+    """``python -m repro_torch.benchmarks.run --smoke`` on the card, in a
+    process of its own (its serve_traffic suite runs B5, which is not on
+    this phase's path, so its launches stay out of this process's counts),
+    with a fresh plan cache; its records validated against the port's
+    schema and gated against the committed CPU baseline with the wall
+    columns off, so the exact columns are equal on the card and on the
+    CPU."""
+    import os
+    from repro_torch.benchmarks import perf_gate
+    from repro_torch.perf import schema
+    env = {k: v for k, v in os.environ.items() if k != "REPRO_TUNE_CACHE"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.run", "--smoke",
+         "--out", str(out_dir)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    run_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"benchmarks.run --smoke exited "
+          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    current = pathlib.Path(out_dir) / "bench.json"
+    records = json.loads(current.read_text())
+    probs = schema.validate(records, {"$ref": "#/definitions/bench_file"},
+                            schema.load_schema(perf_gate.SCHEMA_PATH))
+    check(not probs, f"benchmarks.run --smoke records: {probs[:3]}")
+    fails = perf_gate.run_gate(perf_gate.DEFAULT_BASELINE, current,
+                               wall_tol=float("inf"))
+    check(not fails, f"perf_gate against the CPU baseline: {fails[:3]}")
+    return {"s": run_s, "records": len(records),
+            "baseline": str(perf_gate.DEFAULT_BASELINE.relative_to(ROOT)),
+            "gate": "OK (wall columns off)",
+            "lines": [ln for ln in proc.stdout.splitlines()
+                      if ln.count(",") >= 2]}
+
+
+def _fig4_published(lines) -> list:
+    """Fig. 4 at the published sizes (``fig4_throughput.published_rows``),
+    N = 32, fp32 and ``FIG4_DTYPES``: the deterministic plan, each
+    ``loops_spmm`` checked against the flat path and timed beside it,
+    cuSPARSE and dense cuBLAS (or None with its reason)."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import fig4_throughput as f4
+    from repro_torch.benchmarks._util import time_fn
+    from repro_torch.core import loops_spmm, suite
+    out = []
+    for mid in f4.MATRICES:
+        rows, cut = f4.published_rows(mid)
+        t0 = time.perf_counter()
+        base = suite.table2_like(mid, scale_rows=rows, seed=3,
+                                 dtype=np.float64)
+        gen_s = time.perf_counter() - t0
+        for dname in FIG4_DTYPES:
+            dt = getattr(torch, dname)
+            csr = base if dname == "float64" else base.astype(np.float32)
+            gen = torch.Generator(device=DEVICE).manual_seed(3)
+            b = torch.randn((csr.shape[1], f4.N), generator=gen,
+                            device=DEVICE, dtype=dt)
+            t0 = time.perf_counter()
+            fmt, plan = f4.calibrated_plan(csr, b, deterministic=True)
+            torch.cuda.synchronize()
+            plan_s = time.perf_counter() - t0
+            name_dt = {"float32": "fp32", "float64": "fp64"}[dname]
+            res = f4.measure(csr, fmt, b, name_dt=name_dt)
+            cell = {"matrix": mid, "name": suite.TABLE2_STATS[mid].name,
+                    "rows": rows, "reduced": cut, "nnz": csr.nnz,
+                    "dtype": dname, "r_boundary": plan.r_boundary,
+                    "br": plan.br, "panel_g": plan.panel_g,
+                    "generate_s": gen_s, "plan_s": plan_s, **res}
+            if (mid, dname) == FIG4_CALIBRATED:
+                # The calibrated plan once: its probes re-convert A.
+                t0 = time.perf_counter()
+                fmt_c, plan_c = f4.calibrated_plan(csr, b)
+                torch.cuda.synchronize()
+                cell["calibrated"] = {
+                    "plan_s": time.perf_counter() - t0,
+                    "r_boundary": plan_c.r_boundary,
+                    "us_per_call": 1e6 * time_fn(
+                        lambda: loops_spmm(fmt_c, b, device=DEVICE),
+                        device=DEVICE)}
+                del fmt_c
+            lines.append(f"fig4 {mid} {dname}: {res['us_per_call']:.1f} us, "
+                         f"cuSPARSE {res['cusparse_us']:.1f} us")
+            out.append(cell)
+            del fmt, b
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_operator_bench(launches: dict, out_dir) -> dict:
+    """The paper's operator evaluation on the card: the smoke run and its
+    gate (``_bench_run``), Fig. 4 at the published sizes, the batched
+    suite at pwtk's size (each strategy's launches in one call), Table 4
+    with ogbn-arxiv's row, §4.3 at ``SEC43_ROWS`` rows and the autotune
+    suite.  Only B1 and B2 may launch in it."""
+    import os
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import (autotune_suite, batched_spmm,
+                                        sec43_scheduling, table4_gnn)
+    from repro_torch.core import suite
+
+    os.environ.pop("REPRO_TUNE_CACHE", None)   # the suite's own temp cache
+    rec = {"phase": "operator_bench", "seconds": {}}
+    secs = rec["seconds"]
+    with tempfile.TemporaryDirectory(prefix="bench_") as tmp:
+        rec["smoke"] = _bench_run(pathlib.Path(out_dir or tmp) / "bench")
+    secs["smoke"] = rec["smoke"]["s"]
+
+    _reset_counts()
+    lines = []
+    t0 = time.perf_counter()
+    rec["fig4"] = _fig4_published(lines)
+    secs["fig4"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    m6 = suite.table2_like("m6", scale_rows=200_000, seed=3)
+    fmt, fmt_piped = batched_spmm.formats(m6, DEVICE)
+    batched = batched_spmm.run_matrix(
+        fmt, fmt_piped, BATCHED_BATCHES, rng=np.random.default_rng(0),
+        out=lines.append, device=DEVICE)
+    # Each strategy's launches in one call, forward and forward+backward
+    # (dB on Aᵀ, built by the suite's first backward).
+    tl = fmt.transposed()
+    fwd_parts = {"csr_panels_spmm": int(fmt.r_boundary > 0),
+                 "bcsr_panels_spmm": int(fmt.r_boundary < fmt.nrows)}
+    bwd_parts = {k: v + int(tl.fmt.r_boundary > 0 if k.startswith("csr")
+                            else tl.fmt.r_boundary < tl.fmt.nrows)
+                 for k, v in fwd_parts.items()}
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    per_call = {}
+    for batch in BATCHED_BATCHES:
+        b3 = torch.randn((batch, m6.shape[1], batched_spmm.N),
+                         generator=gen, device=DEVICE)
+        for name, fns in batched_spmm.strategies(fmt, batch,
+                                                 DEVICE).items():
+            calls = batch if name in ("loop", "vmap") else 1
+            for fn, parts, what in zip(fns, (fwd_parts, bwd_parts),
+                                       ("fwd", "fwdbwd")):
+                before = _read_counts()
+                fn(b3)
+                torch.cuda.synchronize()
+                after = _read_counts()
+                n = {k: after[k] - before[k] for k in after}
+                per_call[f"b{batch}_{name}_{what}"] = n
+                for k, v in n.items():
+                    want = parts.get(k, 0) * calls
+                    check(v == want, f"batched b{batch} {name} {what}: {k} "
+                          f"launched {v} times in one call (expected "
+                          f"{want})")
+        del b3
+    rec["batched"] = {"rows": m6.nrows, "nnz": m6.nnz,
+                      "r_boundary": fmt.r_boundary, "records": batched,
+                      "launches_per_call": per_call}
+    del fmt, m6
+    torch.cuda.empty_cache()
+    secs["batched"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rec["table4"] = table4_gnn.main(
+        out=lines.append, device=DEVICE,
+        graphs=table4_gnn.GRAPHS + [table4_gnn.ARXIV])
+    secs["table4"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rec["sec43"] = sec43_scheduling.main(out=lines.append, rows=SEC43_ROWS,
+                                         device=DEVICE)
+    secs["sec43"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    auto = autotune_suite.main(out=lines.append, device=DEVICE)
+    rec["autotune"] = {"cache": auto["cache"], "plans": {
+        mid: {"model": plan_dict(p["model"]), "tuned": plan_dict(p["tuned"]),
+              "gflops_model": p["gflops_model"],
+              "gflops_tuned": p["gflops_tuned"]}
+        for mid, p in auto["plans"].items()}}
+    secs["autotune"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    for k, v in counts.items():
+        launches[k] += v
+        on_path = k in ("csr_panels_spmm", "bcsr_panels_spmm")
+        check(v > 0 if on_path else v == 0, f"operator_bench: {k} "
+              f"launched {v} times (only B1 and B2 are on this path)")
+    rec.update(launches=counts, lines=lines,
+               nvidia_smi=RECORD["phases"][0].get("nvidia_smi"))
+    phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "csr_panels_spmm": ("src/repro_torch/csrc/csr_spmm.cu",
@@ -2463,6 +2685,7 @@ def main(argv=None) -> int:
         lm_rec = phase_serve_lm(launches)
         phase_serve_obs(launches, lm_rec, args.out, work)
         phase_serve_traffic(launches)
+        phase_operator_bench(launches, args.out)
     for k, v in launches.items():
         check(v > 0, f"{k} never launched on the port's paths")
 

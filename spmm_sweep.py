@@ -5,7 +5,7 @@ the kernels of another checkout beside them.
 Run from the repository root, on a machine with an NVIDIA GPU:
 
     python3 spmm_sweep.py [--root DIR] [--unit-panels 8,16,32,64,128]
-                          [--cases m6,m4,gcn] [--out DIR]
+                          [--cases m6,m4,gcn] [--entry] [--out DIR]
 
 Cases (the shapes of ``chip_smoke.py``'s phases): ``m6`` the pwtk-like
 matrix (200,000 rows) in fp32/fp64/f16 and ``m4`` the in-2004-like matrix
@@ -19,6 +19,16 @@ time of back-to-back calls (which includes the host's share of a call;
 bytes.  The kernels write into one buffer, as
 ``loops_spmm`` does.
 
+``--entry`` times the product through its entry points instead of the
+kernels: ``loops_spmm`` (checks, the autograd Function, both kernels) and,
+below the Function, ``engine.loops_spmm_fused``, on a ``(K, N)`` operand
+as ``chip_smoke.py``'s phase ``main`` calls it.  Besides the device and
+back-to-back times, each line gives the host's time for one call with the
+card idle (``host_us``, median of 50, the clock stopped when the call
+returns) and the functions that took most of that host time under
+``cProfile`` over 200 calls (``profile``: own µs a call;
+``profile_cum``: with their callees).
+
 ``--root DIR`` imports ``repro_torch`` from another checkout, for instance
 the parent commit unpacked with ``git archive`` into a git-ignored
 directory, and times its kernels as they are; a checkout whose kernels take
@@ -30,11 +40,15 @@ Exits 2 without a GPU.
 from __future__ import annotations
 
 import argparse
+import cProfile
 import json
 import os
 import pathlib
+import pstats
+import statistics
 import subprocess
 import sys
+import time
 
 HERE = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
@@ -68,6 +82,57 @@ def cases(names):
             raise SystemExit(f"unknown case {name!r}")
 
 
+def host_us(fn, *, calls: int = 50) -> float:
+    """Median host time of one call of ``fn`` started on an idle card."""
+    import torch
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def host_profile(fn, *, calls: int = 200, top: int = 8,
+                 cumulative: bool = False) -> list:
+    """The ``top`` functions by own (or ``cumulative``) host time under
+    ``cProfile`` over ``calls`` calls of ``fn``: ``[name, µs a call]``."""
+    import torch
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((v[3 if cumulative else 2], f"{pathlib.Path(k[0]).name}:{k[1]}:{k[2]}")
+                   for k, v in stats.items()), reverse=True)[:top]
+    return [[name, round(t / calls * 1e6, 2)] for t, name in rows]
+
+
+def time_entries(fmt, dname: str, n: int, root) -> list:
+    """``--entry``: one line each for ``loops_spmm`` and
+    ``engine.loops_spmm_fused`` on a ``(K, n)`` operand."""
+    import torch
+    from repro_torch.core import loops_spmm
+    from repro_torch.kernels import engine
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b = torch.randn((fmt.ncols, n), generator=gen, device="cuda",
+                    dtype=torch.float32).to(getattr(torch, dname))
+    lines = []
+    for entry, fn in (("loops_spmm", lambda: loops_spmm(fmt, b)),
+                      ("engine.loops_spmm_fused",
+                       lambda: engine.loops_spmm_fused(fmt, b))):
+        lines.append({"root": str(root), "dtype": dname, "n": n,
+                      "entry": entry, "device_ms": device_ms(fn),
+                      "event_ms": time_ms(fn), "host_us": host_us(fn),
+                      "profile": host_profile(fn),
+                      "profile_cum": host_profile(fn, cumulative=True)})
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=pathlib.Path, default=HERE,
@@ -76,6 +141,9 @@ def main(argv=None) -> int:
                     help="comma-separated unit sizes to time besides each "
                          "kernel's own (UNIT_PANELS)")
     ap.add_argument("--cases", default="m6,m4,gcn")
+    ap.add_argument("--entry", action="store_true",
+                    help="time loops_spmm and engine.loops_spmm_fused, "
+                         "with their host time, instead of the kernels")
     ap.add_argument("--out", type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
     import torch
@@ -92,6 +160,13 @@ def main(argv=None) -> int:
     sizes = [int(u) for u in args.unit_panels.split(",") if u]
     lines = []
     for case, dname, fmt, n in cases(args.cases.split(",")):
+        if args.entry:
+            for rec in time_entries(fmt, dname, n, args.root):
+                rec["case"] = case
+                print(json.dumps(rec), flush=True)
+                lines.append(rec)
+            del fmt
+            continue
         dev = fmt.on("cuda")
         r_b, br = fmt.r_boundary, fmt.bcsr_part.br
         nb = fmt.bcsr_part.nblocks

@@ -128,19 +128,34 @@ def plan_and_convert(csr: CSR, *, total_workers: int = 8,
     return fmt, plan
 
 
+def _pick(t, dim, i):
+    """Element ``i`` of ``t`` along its mapped ``dim`` (``None``: shared)."""
+    return t if dim is None else t.select(dim, i)
+
+
 class _ZeroProduct(torch.autograd.Function):
     """The all-zero product of an empty matrix or an empty batch, kept on
     the graph: its inputs get gradients of zeros rather than none."""
 
     @staticmethod
-    def forward(ctx, shape, dtype, *inputs):
-        ctx.specs = [(t.shape, t.dtype, t.device) for t in inputs]
+    def forward(shape, dtype, *inputs):
         return torch.zeros(shape, dtype=dtype, device=inputs[-1].device)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.specs = [(t.shape, t.dtype, t.device) for t in inputs[2:]]
 
     @staticmethod
     def backward(ctx, dy):
         return (None, None, *[torch.zeros(s, dtype=d, device=dev)
                               for s, d, dev in ctx.specs])
+
+    @staticmethod
+    def vmap(info, in_dims, shape, dtype, *inputs):
+        moved = [t if d is None else t.movedim(d, 0)
+                 for t, d in zip(inputs, in_dims[2:])]
+        return _ZeroProduct.apply((info.batch_size,) + tuple(shape), dtype,
+                                  *moved), 0
 
 
 def _backward_db(fmt: LoopsFormat, dy: torch.Tensor, transpose_plan,
@@ -148,43 +163,66 @@ def _backward_db(fmt: LoopsFormat, dy: torch.Tensor, transpose_plan,
     """``dB = Aᵀ · dY`` through B1/B2 on the cached transposed format, with
     live values carried across when given.  The cotangent is cast to the
     value dtype first, so the backward products keep the forward kernels'
-    precision contract (half operands, fp32 accumulation)."""
+    precision contract (half operands, fp32 accumulation).  The product
+    goes through the forward's autograd Functions, so a backward under
+    ``torch.vmap`` folds the mapped cotangents into one call as the
+    forward does."""
     vdt = (csr_vals.dtype if csr_vals is not None
            else engine.torch_dtype(fmt.csr_part.vals.dtype))
     tl = fmt.transposed(plan=transpose_plan, dtype=vdt)
     dy = dy.to(vdt)
-    cv = bv = None
-    if csr_vals is not None:
-        cv, bv = transposed_values(tl, csr_vals, bcsr_vals)
-    return engine.loops_spmm_fused(tl.fmt, dy, csr_vals=cv, bcsr_vals=bv)
+    if csr_vals is None:
+        return _LoopsSpmm.apply(dy, tl.fmt, None, None)
+    return _LoopsSpmmValues.apply(*transposed_values(tl, csr_vals, bcsr_vals),
+                                  dy, tl.fmt, None, None)
 
 
 class _LoopsSpmm(torch.autograd.Function):
-    """``C = A @ B`` on the panel kernels; backward ``dB`` on Aᵀ."""
+    """``C = A @ B`` on the panel kernels; backward ``dB`` on Aᵀ.
+
+    Under ``torch.vmap`` over ``b`` the mapped dim moves to the front and
+    folds into the kernels' batch: one B1 and one B2 launch for the whole
+    batch (the reference's ``custom_vmap`` rule in ``_execute_engine``)."""
 
     @staticmethod
-    def forward(ctx, b, fmt, out_dtype, transpose_plan):
-        ctx.fmt, ctx.transpose_plan = fmt, transpose_plan
-        ctx.b_dtype = b.dtype
+    def forward(b, fmt, out_dtype, transpose_plan):
         return engine.loops_spmm_fused(fmt, b, out_dtype=out_dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        b, ctx.fmt, _, ctx.transpose_plan = inputs
+        ctx.b_dtype = b.dtype
 
     @staticmethod
     def backward(ctx, dy):
         db = _backward_db(ctx.fmt, dy, ctx.transpose_plan)
         return db.to(ctx.b_dtype), None, None, None
 
+    @staticmethod
+    def vmap(info, in_dims, b, fmt, out_dtype, transpose_plan):
+        return _LoopsSpmm.apply(b.movedim(in_dims[0], 0), fmt, out_dtype,
+                                transpose_plan), 0
+
 
 class _LoopsSpmmValues(torch.autograd.Function):
     """``C = A(vals) @ B`` on the panel kernels with live values; backward
-    ``dB`` on Aᵀ (B1/B2) and the value gradients on B3/B4."""
+    ``dB`` on Aᵀ (B1/B2) and the value gradients on B3/B4.
+
+    Under ``torch.vmap`` a mapped ``b`` with shared values folds into one
+    call, as :class:`_LoopsSpmm`; mapped values change the panels per
+    element, so the elements run one call each and are stacked (the
+    reference's rule)."""
 
     @staticmethod
-    def forward(ctx, csr_vals, bcsr_vals, b, fmt, out_dtype, transpose_plan):
-        ctx.fmt, ctx.transpose_plan = fmt, transpose_plan
-        ctx.save_for_backward(csr_vals, bcsr_vals, b)
+    def forward(csr_vals, bcsr_vals, b, fmt, out_dtype, transpose_plan):
         return engine.loops_spmm_fused(fmt, b, out_dtype=out_dtype,
                                        csr_vals=csr_vals,
                                        bcsr_vals=bcsr_vals)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        csr_vals, bcsr_vals, b, ctx.fmt, _, ctx.transpose_plan = inputs
+        ctx.save_for_backward(csr_vals, bcsr_vals, b)
 
     @staticmethod
     def backward(ctx, dy):
@@ -195,9 +233,45 @@ class _LoopsSpmmValues(torch.autograd.Function):
             db = _backward_db(ctx.fmt, dy, ctx.transpose_plan,
                               csr_vals=cv, bcsr_vals=bv).to(b.dtype)
         if need_cv or need_bv:
-            d_cv, d_bv = engine.loops_sdd(ctx.fmt, dy, b)
+            d_cv, d_bv = _ValueGrad.apply(dy, b, ctx.fmt)
             d_cv, d_bv = d_cv.to(cv.dtype), d_bv.to(bv.dtype)
         return d_cv, d_bv, db, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, csr_vals, bcsr_vals, b, fmt, out_dtype,
+             transpose_plan):
+        d_cv, d_bv, d_b = in_dims[:3]
+        if d_cv is None and d_bv is None:
+            return _LoopsSpmmValues.apply(csr_vals, bcsr_vals,
+                                          b.movedim(d_b, 0), fmt, out_dtype,
+                                          transpose_plan), 0
+        return torch.stack([_LoopsSpmmValues.apply(
+            _pick(csr_vals, d_cv, i), _pick(bcsr_vals, d_bv, i),
+            _pick(b, d_b, i), fmt, out_dtype, transpose_plan)
+            for i in range(info.batch_size)]), 0
+
+
+class _ValueGrad(torch.autograd.Function):
+    """The gradient at A's stored values on B3/B4
+    (:func:`repro_torch.kernels.engine.loops_sdd`, summed over ``b``'s batch
+    dims).  Under ``torch.vmap`` each element's gradient is its own, so the
+    elements run one call each and are stacked."""
+
+    @staticmethod
+    def forward(dy, b, fmt):
+        return engine.loops_sdd(fmt, dy, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, dy, b, fmt):
+        outs = [_ValueGrad.apply(_pick(dy, in_dims[0], i),
+                                 _pick(b, in_dims[1], i), fmt)
+                for i in range(info.batch_size)]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs])), (0, 0)
 
 
 def _flat_product(fmt: LoopsFormat, b, out_dtype, csr_vals=None,
@@ -223,7 +297,10 @@ def loops_spmm(fmt: LoopsFormat, b, *, device=None,
     result is ``(..., nrows, N)`` in the accumulation dtype unless
     ``out_dtype`` is given.  ``b`` must already be on ``device`` (an array
     is copied there); ``device=None`` means CUDA and raises without a GPU.
-    Leading batch dims run as one launch per kernel.  An all-zero matrix or
+    Leading batch dims run as one launch per kernel, and so does
+    ``torch.vmap`` over ``b``: its rule folds the mapped dim into the same
+    batched call (one B1 and one B2 launch), forward and backward.  An
+    all-zero matrix or
     an empty batch returns zeros of the full shape; a rank-1 or
     K-mismatched ``b`` raises ``ValueError``.
 

@@ -135,8 +135,12 @@ TABLE2_STATS: Dict[str, Table2Entry] = {
 def table2_like(mid: str, *, scale_rows: int = 2048, seed=0,
                 dtype=np.float32) -> CSR:
     """A matrix with the Table 2 entry's per-row statistics at a CPU-friendly
-    row count (``scale_rows``; the published row count reproduces the
-    published size)."""
+    row count (``scale_rows``).  For the banded, power-law and uniform
+    families the published row count gives about the published size.  The
+    block family does not scale so: its block density is ``nnz_mean / 16``
+    clamped to 0.25 whatever the row count, so its nonzeros grow as about
+    0.2 n^2 (2e9 at mip1's 100,000 rows) and match Table 2's only near
+    ``sqrt(nnz / 0.2)`` rows."""
     e = TABLE2_STATS[mid]
     n = scale_rows
     if e.kind == "banded":

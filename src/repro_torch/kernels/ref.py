@@ -6,7 +6,10 @@ panel layout, so they also check the panel packing: the SpMM oracles of
 the forward path and the sampled dense-dense (SDD) oracles of the value
 gradient.  Every reference takes
 the ``(..., K, N)`` operand contract; work is chunked so that the gathered
-rows never exceed a fixed number of elements at once.
+rows never exceed a fixed number of elements at once.  Each allocates its
+accumulator with ``new_zeros`` on the operand, so under ``torch.vmap`` the
+accumulator is mapped too and the in-place accumulation stays legal (a
+plain ``torch.zeros`` buffer would refuse a mapped source).
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ def csr_spmm_ref(row_ids: torch.Tensor, col_idx: torch.Tensor,
     out_dtype = out_dtype or acc
     lead, (_, n) = b.shape[:-2], b.shape[-2:]
     b3 = b.reshape((-1,) + tuple(b.shape[-2:]))
-    out = torch.zeros((b3.shape[0], nrows, n), dtype=acc, device=b.device)
+    out = b3.new_zeros((b3.shape[0], nrows, n), dtype=acc)
     step = max(1, _CHUNK_ELEMS // max(b3.shape[0] * n, 1))
     for s in range(0, int(vals.shape[0]), step):
         contrib = (vals[s:s + step].to(acc)[None, :, None]
@@ -59,8 +62,7 @@ def bcsr_spmm_ref(tile_rows: torch.Tensor, tile_cols: torch.Tensor,
     br = int(tile_vals.shape[1])
     lead, (_, n) = b.shape[:-2], b.shape[-2:]
     b3 = b.reshape((-1,) + tuple(b.shape[-2:]))
-    out = torch.zeros((b3.shape[0], nblocks, br, n), dtype=acc,
-                      device=b.device)
+    out = b3.new_zeros((b3.shape[0], nblocks, br, n), dtype=acc)
     step = max(1, _CHUNK_ELEMS // max(b3.shape[0] * br * n, 1))
     for s in range(0, int(tile_vals.shape[0]), step):
         outer = (tile_vals[s:s + step].to(acc)[None, :, :, None]
@@ -82,7 +84,7 @@ def csr_sdd_ref(row_ids: torch.Tensor, col_idx: torch.Tensor,
     dy3 = dy.reshape((-1,) + tuple(dy.shape[-2:]))
     b3 = b.reshape((-1,) + tuple(b.shape[-2:]))
     nnz = int(row_ids.shape[0])
-    out = torch.zeros((nnz,), dtype=acc, device=b.device)
+    out = b3.new_zeros((nnz,), dtype=acc)
     step = max(1, _CHUNK_ELEMS // max(b3.shape[0] * b3.shape[-1], 1))
     for s in range(0, nnz, step):
         prod = (dy3[:, row_ids[s:s + step].long()].to(acc)
@@ -108,7 +110,7 @@ def bcsr_sdd_ref(tile_rows: torch.Tensor, tile_cols: torch.Tensor,
     br = rows // nblocks
     blocks = dy3.reshape(z, nblocks, br, n)
     ntiles = int(tile_rows.shape[0])
-    out = torch.zeros((ntiles, br), dtype=acc, device=b.device)
+    out = b3.new_zeros((ntiles, br), dtype=acc)
     step = max(1, _CHUNK_ELEMS // max(z * br * n, 1))
     for s in range(0, ntiles, step):
         prod = (blocks[:, tile_rows[s:s + step].long()].to(acc)

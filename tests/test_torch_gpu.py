@@ -2,9 +2,11 @@
 PyTorch versions, ``loops_spmm`` / ``loops_spmm_values`` (forward and
 backward) and the GCN against the flat PyTorch path, and a full-width
 llama3.2-1b prefill (two layers) through B5 against its plain attention
-path, the tuner's timed window and cache hits on the card, and the
+path, the tuner's timed window and cache hits on the card, the
 serve executor pool's CUDA graphs (graphed against eager logits, two
-slots of one bucket, launch counts through replays, a failing capture).
+slots of one bucket, launch counts through replays, a failing capture),
+and ``torch.vmap`` over ``loops_spmm`` (one launch a part, forward and
+backward, equal to the batched call and to each element's gradient).
 Every test here needs a CUDA device and skips without one.
 
 This file imports neither JAX nor the reference package, so it runs on the
@@ -471,6 +473,70 @@ def test_cuda_loops_spmm_values_backward_matches_flat(cuda, dname):
         assert g.dtype == dt and g.shape == w_.shape
         scale = max(1.0, float(w_.abs().max()))
         assert float((g.double() - w_.double()).abs().max()) <= tol * scale
+
+
+def _spmm_launches():
+    return (csr_spmm.csr_panels_spmm.launches,
+            bcsr_spmm.bcsr_panels_spmm.launches)
+
+
+def _parts(fmt):
+    return (int(fmt.r_boundary > 0), int(fmt.r_boundary < fmt.nrows))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 4, 16])
+def test_cuda_vmap_is_one_launch_a_part(cuda, batch):
+    """``torch.vmap(lambda b: loops_spmm(fmt, b))`` over a (batch, K, N)
+    operand launches B1 and B2 once each, and gives the bits of
+    ``loops_spmm(fmt, b3)``; its backward (vmap of the gradient) launches
+    each part of Aᵀ once and gives each element's unbatched gradient."""
+    csr = tsuite.table2_like("m13", scale_rows=4096, seed=3)
+    fmt, plan = tspmm.plan_and_convert(csr)
+    assert _parts(fmt) == (1, 1)
+    b3 = torch.randn((batch, csr.shape[1], 32), device=cuda)
+    dy = torch.randn((batch, csr.nrows, 32), device=cuda)
+    direct = tspmm.loops_spmm(fmt, b3)
+    before = _spmm_launches()
+    got = torch.vmap(lambda b: tspmm.loops_spmm(fmt, b))(b3)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_spmm_launches(), before)] == [1, 1]
+    assert torch.equal(got, direct)
+
+    def loss(b, d):
+        return (tspmm.loops_spmm(fmt, b) * d).sum()
+    tl = fmt.transposed()
+    torch.func.grad(loss)(b3[0], dy[0])      # builds Aᵀ outside the count
+    before = _spmm_launches()
+    db = torch.vmap(torch.func.grad(loss))(b3, dy)
+    torch.cuda.synchronize()
+    want = [p + q for p, q in zip(_parts(fmt), _parts(tl.fmt))]
+    assert [a - b for a, b in zip(_spmm_launches(), before)] == want
+    for i in range(batch):
+        assert torch.equal(db[i], torch.func.grad(loss)(b3[i], dy[i]))
+
+
+@pytest.mark.gpu
+def test_cuda_vmap_value_grads_match_unbatched(cuda):
+    """vmap of the gradient of ``loops_spmm_values`` on the kernels: each
+    element's value gradients (B3/B4, one call an element) and dB equal the
+    unbatched gradients of that element."""
+    rng = np.random.default_rng(0)
+    w = rng.standard_normal((512, 96)).astype(np.float32)
+    from repro_torch.models import sparse_linear_from_dense
+    layer = sparse_linear_from_dense(torch.from_numpy(w), 0.8)
+    fmt = layer.fmt
+    cv, bv = layer.csr_vals.detach(), layer.bcsr_vals.detach()
+    b3 = torch.randn((3, 96, 48), device=cuda)
+
+    def loss(c, v, b):
+        return torch.tanh(tspmm.loops_spmm_values(fmt, c, v, b)).sum()
+    grads = torch.vmap(torch.func.grad(loss, argnums=(0, 1, 2)),
+                       in_dims=(None, None, 0))(cv, bv, b3)
+    for i in range(3):
+        one = torch.func.grad(loss, argnums=(0, 1, 2))(cv, bv, b3[i])
+        for g, o in zip(grads, one):
+            assert torch.equal(g[i], o)
 
 
 @pytest.mark.gpu

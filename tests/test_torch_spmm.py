@@ -72,6 +72,23 @@ def test_suite_matrices_match_reference_and_dense(mid):
     np.testing.assert_allclose(want, dense @ b, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("mid", ["m8", "m14", "m19"])
+def test_block_family_nnz_grows_with_the_square_of_the_rows(mid):
+    """table2_like's block family holds ~0.2 n^2 nonzeros at n rows
+    whatever the Table 2 entry (its block density clamps to 0.25), so the
+    published row count does not give the published size; the fig4
+    benchmark's published_rows cuts the rows to sqrt(nnz / 0.2)."""
+    from repro_torch.benchmarks import fig4_throughput as f4
+    for n in (1024, 2048):
+        nnz = tsuite.table2_like(mid, scale_rows=n, seed=3).nnz
+        assert nnz == pytest.approx(0.2 * n * n, rel=0.1), (n, nnz)
+    e = tsuite.TABLE2_STATS[mid]
+    rows, cut = f4.published_rows(mid)
+    assert rows < e.nrow and cut and str(e.nrow) in cut
+    assert 0.2 * rows * rows == pytest.approx(e.nnz, rel=1e-3)
+    assert f4.published_rows("m6") == (200_000, None)
+
+
 @pytest.mark.parametrize("r_frac", [0.0, 0.3, 0.55, 1.0])
 @pytest.mark.parametrize("g", [1, 3, 8])
 def test_explicit_boundaries(rng, r_frac, g):
@@ -286,8 +303,13 @@ def test_baselines_match_reference(rng):
 
 def test_import_pulls_in_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
-            "repro_torch.models, repro_torch.resilience\n"
+            "repro_torch.models, repro_torch.resilience, "
+            "repro_torch.perf.schema\n"
             "from repro_torch.kernels import _build\n"
+            "from repro_torch.benchmarks import (run, perf_gate, "
+            "fig4_throughput, fig5_halfprec, sec43_scheduling, "
+            "batched_spmm, autotune_suite, table4_gnn, serve_traffic)\n"
+            "run._suite_registry()\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
