@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU: the LOOPS
-SpMM paths, its autotuner and the llama3.2-1b server.
+SpMM paths, its autotuner, the llama3.2-1b server and its trainer.
 
 Run from the repository root, on a machine with an NVIDIA H100:
 
@@ -131,12 +131,38 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  in one call; Table 4 with ogbn-arxiv's row; §4.3's five
                  regimes at 100,000 rows, calibrated on the card; the
                  autotune suite.
+ 12. train_lm -- LM training: B5 in training alone at llama3.2-1b's layer
+                 shape (4, 2048, 32 heads, 8 kv, hd 64), causal, bf16 and
+                 fp32 (the kernel's log-sum-exp against the plain
+                 version's, the autograd Function's dQ, dK, dV against
+                 autograd through the plain forward in fp32, forward /
+                 backward / both against ``scaled_dot_product_attention``'s
+                 forward and backward, and the serving launch with a null
+                 lse); ``repro_torch.launch.train.main`` at full width in
+                 bf16, 8 sequences of 2048 tokens in 2 microbatches, 4
+                 steps with a checkpoint after step 2, then ``--resume``
+                 from that checkpoint for steps 3-4 (bit for bit equal to
+                 the uninterrupted run), step 0's loss and every gradient
+                 leaf through B5 against a plain reference (autograd
+                 through the plain attention and a full-logit
+                 cross-entropy), with two planted faults that must fail
+                 the same limits, the median step, tokens/s, peak memory,
+                 the checkpoint's hand-off and write and the restore, and
+                 the model-flops share; 30 steps of the reduced llama (the
+                 loss falls by more than 0.5); ``examples/train_lm_torch.py``
+                 at its defaults (it learns; its kernel logits equal the
+                 plain path's at 1e-3) and its model at llama's FFN width
+                 (d 2048, d_ff 8192, 32 heads, 90% sparsity, 2 layers, seq
+                 512, batch 4: one step's value gradients against the flat
+                 path, 3 SGD steps, B1-B5 all launching).
 
-Each kernel's launch count is set to 0 just before phases 3-11 drive their
+Each kernel's launch count is set to 0 just before phases 3-12 drive their
 path and read just after; a kernel of a path that did not launch fails the
 run, and so does a launch of a kernel that is not on the path (B5 in
-phases 3-7, B1-B4 in phases 8 and 10, B3/B4 in phase 9, B3-B5 in phase
-11).  A replayed CUDA
+phases 3-7, B1-B4 in phases 8 and 10 and in phase 12's LM runs, B3/B4 in
+phase 9, B3-B5 in phase 11).  In phase 12 B5 launches twice a layer and
+microbatch in a train step (the forward and the remat recompute; its
+backward is PyTorch, no launch).  A replayed CUDA
 graph adds the launches it captured (``repro_torch.dist.step``), and each
 slot the pool builds runs its prefill once eagerly before the capture, so
 B5 counts 16 launches per prefill replay and per slot built.  The last
@@ -168,8 +194,17 @@ scale, each output row within ``FLASH_ROW_TOL`` of its own norm (fp32
 plain attention path and decode against prefill: ``LM_TOL`` = 1e-4 of
 max(1, max |logits|), as the GCN's; the two paths differ only in the order
 of attention's fp32 sums (~1e-7 relative), carried through 16 layers and a
-2048-wide head, which leaves the logits ~1e-6 apart.  TF32 is off, and so
-are cuBLAS's reduced-precision bf16 reductions.
+2048-wide head, which leaves the logits ~1e-6 apart.  Phase 12: B5's
+log-sum-exp within ``LSE_TOL`` = 1e-5 of max(1, max |lse|) (fp32 statistics
+in both); its gradients each row within ``FLASH_ROW_TOL`` of the fp32
+oracle's row norm (:func:`grad_row_err`, rows at 1e-3 of the largest row's
+norm floored there); the full-width step 0 on B5 against the plain
+reference: loss ``TRAIN_LOSS_TOL`` = 1e-4 relative, gradient norm
+``TRAIN_GNORM_TOL`` = 1e-3 relative, each leaf ``TRAIN_LEAF_TOL`` = 3e-2 of
+its norm (bf16 activations rounded apart through 16 layers; measured
+1.9e-5, 4.3e-5 and 1.25e-2); the sparse-FFN value gradients within
+the fp32 tolerance of their summation bound, as phase 7.  TF32 is off, and
+so are cuBLAS's reduced-precision bf16 reductions.
 """
 from __future__ import annotations
 
@@ -253,6 +288,29 @@ FIG4_DTYPES = ("float32", "float64")
 FIG4_CALIBRATED = ("m6", "float32")
 BATCHED_BATCHES = (1, 4, 16)
 SEC43_ROWS = 100_000
+
+# Phase train_lm: the launcher at llama3.2-1b's full width (bf16, 4 x 2048
+# tokens a microbatch, 2 microbatches), a checkpoint after step 2 and a
+# resume from it.  Step 0's first microbatch, grad on, through B5 against
+# the plain reference (_plain_train_loss): the loss within TRAIN_LOSS_TOL
+# relative, the global gradient norm within TRAIN_GNORM_TOL relative and
+# every leaf's gradient within TRAIN_LEAF_TOL of its norm.  The two paths
+# round bf16 activations differently through 16 layers; measured on the
+# H100: loss 1.9e-5, gradient norm 4.3e-5, worst leaf 1.25e-2 (an
+# attention wk).  A K/V tile left out of the lse or of dK/dV moves the
+# gradient norm by 0.19-1.0 and a leaf by 0.41-9.0, and the check runs both
+# planted faults and requires them to fail.  The lse within LSE_TOL of
+# max(1, |lse|) (fp32 statistics, ex2.approx in the half body: measured
+# 2e-6); 30 steps of the reduced llama; the example at llama's FFN width.
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_AT = 2048, 8, 4, 2
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GNORM_TOL = 1e-3
+TRAIN_LEAF_TOL = 3e-2
+LSE_TOL = 1e-5
+REDUCED_STEPS = 30
+EX_FFN = {"d_model": 2048, "d_ff": 8192, "heads": 32, "sparsity": 0.9,
+          "layers": 2, "seq": 512, "batch": 4, "vocab": 512, "lr": 3e-2}
+EX_STEPS = 3
 
 # B1/B2 in phase 2: unit tables that force splits (panels per unit), and
 # the width of the hub case's dense rows (> 50 units at U <= 3 and G = 8,
@@ -2628,6 +2686,574 @@ def phase_operator_bench(launches: dict, out_dir) -> dict:
     phase(rec)
     return rec
 
+# ---------------------------------------------------------------------------
+# phase 12: LM training
+# ---------------------------------------------------------------------------
+
+def grad_row_err(got, want) -> float:
+    """max over rows of |got - want| / max(|want|, 1e-3 max|want|), the
+    norms over the last dimension, in float64: :func:`row_err` with a
+    floor, since some gradient rows are zero in exact arithmetic (dQ of the
+    first causal row, whose one key makes P = 1 and dS = 0) and hold only
+    rounding."""
+    w = want.double()
+    norms = w.norm(dim=-1)
+    floor = max(float(norms.max()) * 1e-3, 1e-300)
+    d = (got.double() - w).norm(dim=-1)
+    return float((d / norms.clamp_min(floor)).max())
+
+
+def flash_bwd_bound(q, k) -> dict:
+    """Least time of one B5 backward: Q, K, V, dO and the lse read once,
+    dQ, dK, dV written once; the five products (QKᵀ recomputed, dV, dP,
+    dQ, dK) over the (query, key) pairs the causal mask keeps, at the
+    dtype's peak."""
+    bsz, seq, heads, hd = q.shape
+    pairs = seq * (seq + 1) / 2
+    flops = 10.0 * hd * pairs * bsz * heads
+    nbytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
+              + 4 * bsz * heads * seq)
+    return bound(bytes_moved=float(nbytes), flops=flops,
+                 dtype=str(q.dtype).replace("torch.", ""))
+
+
+def _b5_train(dt) -> dict:
+    """B5 in training at llama3.2-1b's layer shape, causal: the kernel's
+    log-sum-exp against the plain version's (``LSE_TOL`` of max(1, |lse|)),
+    the Function's dQ, dK, dV against autograd through the plain forward
+    run in fp32 on the same inputs (each row within ``FLASH_ROW_TOL`` of
+    its norm, :func:`grad_row_err`), and the times of the forward (with
+    the lse, and with a null lse as served), the backward alone and both,
+    against ``scaled_dot_product_attention``'s forward and backward (the
+    yardstick; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as b5
+    dname = str(dt).replace("torch.", "")
+    _, _, heads, kv, hd = FLASH_SHAPES[-1]
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    q, k, v = (torch.randn((LM_BATCH, LM_PROMPT, n, hd), generator=gen,
+                           device=DEVICE).to(dt) for n in (heads, kv, kv))
+    do = torch.randn(q.shape, generator=gen, device=DEVICE).to(dt)
+    out, lse = b5.flash_attention(q, k, v, causal=True, return_lse=True)
+    out_p, lse_p = b5.flash_attention_plain(q, k, v, causal=True,
+                                            return_lse=True)
+    null = b5.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    lse_err, lse_scale = max_err(lse, lse_p)
+    check(lse_err <= LSE_TOL * lse_scale, f"B5 lse {dname}: err "
+          f"{lse_err:.3g} > {LSE_TOL:g} * {lse_scale:.3g}")
+    check(torch.equal(out, null), f"B5 {dname}: the output with an lse "
+          "differs from the output without")
+    del out_p, lse_p, null
+    ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    y = b5.flash_attention_train(*ins, causal=True)
+    grads = torch.autograd.grad(y, ins, do, retain_graph=True)
+    ref_in = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    ref_g = torch.autograd.grad(
+        b5.flash_attention_plain(*ref_in, causal=True), ref_in, do.float())
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), grads, ref_g):
+        check(g.dtype == dt and g.shape == w.shape, f"B5 {name} {dname}: "
+              f"{g.dtype} {tuple(g.shape)}")
+        errs[name] = grad_row_err(g, w)
+        check(errs[name] <= FLASH_ROW_TOL[dname], f"B5 {name} {dname}: row "
+              f"err {errs[name]:.3g} > {FLASH_ROW_TOL[dname]:g}")
+    del ref_in, ref_g
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                  for t in (q, k, v))
+    sd = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    dot = do.transpose(1, 2)
+    rec = {"dtype": dname, "shape": list(q.shape), "kv_heads": kv,
+           "causal": True, "lse_max_abs_err": lse_err,
+           "grad_row_err": errs,
+           "fwd_ms": time_ms(lambda: b5.flash_attention(
+               q, k, v, causal=True, return_lse=True)),
+           "fwd_null_lse_ms": time_ms(lambda: b5.flash_attention(
+               q, k, v, causal=True)),
+           "bwd_ms": time_ms(lambda: torch.autograd.grad(
+               y, ins, do, retain_graph=True), samples=5, reps=2),
+           "fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+               b5.flash_attention_train(*ins, causal=True), ins, do),
+               samples=5, reps=2),
+           "library_fwd_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               qt.detach(), kt.detach(), vt.detach(), is_causal=True,
+               enable_gqa=True)),
+           "library_bwd_ms": time_ms(lambda: torch.autograd.grad(
+               sd, (qt, kt, vt), dot, retain_graph=True)),
+           "library": "torch.nn.functional.scaled_dot_product_attention("
+                      "is_causal=True, enable_gqa=True), its autograd "
+                      "backward",
+           "bwd_bound": flash_bwd_bound(q, k)}
+    rec["bwd_over_library"] = rec["bwd_ms"] / rec["library_bwd_ms"]
+    del q, k, v, do, out, lse, ins, y, grads, qt, kt, vt, sd
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_cli(argv) -> dict:
+    """``repro_torch.launch.train.main(argv)`` with the kernels' counts
+    set to 0 just before and read just after, and the peak memory."""
+    import torch
+    from repro_torch.launch import train as train_cli
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    rec = train_cli.main(argv)
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = _read_counts()
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
+def _release() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _check_lm_launches(what: str, counts: dict, b5_want: int,
+                       launches: dict) -> None:
+    for k, v in counts.items():
+        launches[k] += v
+        want = b5_want if k == "flash_attention" else 0
+        check(v == want, f"{what}: {k} launched {v} times (expected {want})")
+
+
+def _plain_train_loss(cfg, params, mb):
+    """The step-0 check's reference: ``train_loss`` with attention's plain
+    version (``backend="torch"``, differentiated by autograd) and the
+    cross-entropy over the whole fp32 ``(T, vocab)`` logits, also
+    differentiated by autograd, so it shares neither B5's backward
+    (``flash_attention_bwd``) nor ``_ChunkedCE``'s."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    tokens, labels = mb["tokens"].long(), mb["labels"].long()
+    x = tf._embed_inputs(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    x = tf._run_stack(cfg, params, x, positions, backend="torch")
+    x = layers.norm_apply(cfg.norm, params.final_norm, x)
+    logits = (x.reshape(-1, x.shape[-1]).float()
+              @ tf._unembed_w(cfg, params).float().T)
+    return F.cross_entropy(logits, labels.reshape(-1), ignore_index=-1)
+
+
+def _lse_without_tile(q, k, lse, tile: int):
+    """Planted fault: each row's log-sum-exp with the causal keys of the
+    64-key tile ``tile`` left out (rows that see none of them keep it)."""
+    import math
+
+    import torch
+    bsz, seq, heads, hd = q.shape
+    k0, k1 = 64 * tile, 64 * (tile + 1)
+    kt = k[:, k0:k1].float().repeat_interleave(heads // k.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kt) / math.sqrt(hd)
+    qpos = torch.arange(seq, device=q.device)[:, None]
+    kpos = torch.arange(k0, k1, device=q.device)[None, :]
+    part = torch.logsumexp(s.masked_fill(kpos > qpos, float("-inf")), -1)
+    share = torch.exp(part - lse).clamp(max=1.0 - 1e-6)
+    return lse + torch.log1p(-share)
+
+
+def _planted_bwd(fault: str, real):
+    """``flash_attention_bwd`` with a planted fault: ``"lse_tile"`` reads
+    an lse that left K/V tile 1 out; ``"bwd_tile"`` leaves tile 1 out of
+    dK and dV."""
+    def bwd(q, k, v, lse, dout, *, causal, **kw):
+        if fault == "lse_tile":
+            lse = _lse_without_tile(q, k, lse, 1)
+        dq, dk, dv = real(q, k, v, lse, dout, causal=causal, **kw)
+        if fault == "bwd_tile":
+            dk[:, 64:128] = 0
+            dv[:, 64:128] = 0
+        return dq, dk, dv
+    return bwd
+
+
+def _step0_errors(names, loss, grads, ref_loss, ref_grads) -> dict:
+    """The loss's relative difference, the global gradient norm's, and
+    each leaf's ``|g - g_ref| / |g_ref|`` (Frobenius norms, float64)."""
+    leaf = {}
+    sq = sq_ref = 0.0
+    for name, g, w in zip(names, grads, ref_grads):
+        gd, wd = g.double(), w.double()
+        n_ref = float(wd.norm())
+        sq += float(gd.norm()) ** 2
+        sq_ref += n_ref ** 2
+        leaf[name] = float((gd - wd).norm()) / max(n_ref, 1e-300)
+    worst = max(leaf, key=leaf.get)
+    return {"loss": loss, "loss_ref": ref_loss,
+            "loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+            "grad_norm": sq ** 0.5, "grad_norm_ref": sq_ref ** 0.5,
+            "grad_norm_rel": abs(sq ** 0.5 - sq_ref ** 0.5) / sq_ref ** 0.5,
+            "leaf_max": leaf[worst], "leaf_worst": worst, "leaf": leaf}
+
+
+def _step0_violations(e: dict) -> list:
+    out = []
+    for key, tol in (("loss_rel", TRAIN_LOSS_TOL),
+                     ("grad_norm_rel", TRAIN_GNORM_TOL),
+                     ("leaf_max", TRAIN_LEAF_TOL)):
+        if not e[key] <= tol:
+            out.append(f"{key} {e[key]:.3g} > {tol:g}")
+    return out
+
+
+def _train_step0_check(cfg, params, mb, launches: dict) -> dict:
+    """Step 0's first microbatch at full width, grad on: ``train_loss``'s
+    loss and every gradient leaf through B5's Function (its forward, the
+    remat recompute, ``flash_attention_bwd``) and ``_ChunkedCE`` against
+    :func:`_plain_train_loss` on the same weights and microbatch, within
+    ``TRAIN_LOSS_TOL``, ``TRAIN_GNORM_TOL`` and ``TRAIN_LEAF_TOL``; then
+    the same run with each planted fault of :func:`_planted_bwd`, which
+    must break one of those limits."""
+    import torch
+    from repro_torch.kernels import flash_attention as b5
+    from repro_torch.models import api
+    names = [n for n, _ in params.named_parameters()]
+    plist = [p for _, p in params.named_parameters()]
+
+    def grads_of(loss_fn):
+        loss = loss_fn()
+        grads = torch.autograd.grad(loss, plist)
+        return float(loss.detach()), grads
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    ref_loss, ref_g = grads_of(lambda: _plain_train_loss(cfg, params, mb))
+    ref_s = time.perf_counter() - t0
+    _check_lm_launches("train_lm step-0 reference", _read_counts(), 0,
+                       launches)
+    loss, g = grads_of(lambda: api.train_loss(cfg, params, mb)[0])
+    _check_lm_launches("train_lm step-0 gradients", _read_counts(),
+                       2 * cfg.num_layers, launches)
+    errs = _step0_errors(names, loss, g, ref_loss, ref_g)
+    del g
+    bad = _step0_violations(errs)
+    check(not bad, f"train_lm step 0 through B5 against the plain "
+          f"reference: {bad} (worst leaf {errs['leaf_worst']})")
+    keep = [n for n in names if n == "embed" or n.startswith(
+        ("layers.0.", f"layers.{cfg.num_layers - 1}."))]
+    rec = {"loss_b5": loss, "ref_s": ref_s,
+           "b5": {**{k: v for k, v in errs.items() if k != "leaf"},
+                  "leaf": {n: errs["leaf"][n] for n in keep}},
+           "planted": {}}
+    real = b5.flash_attention_bwd
+    for fault in ("lse_tile", "bwd_tile"):
+        b5.flash_attention_bwd = _planted_bwd(fault, real)
+        try:
+            _reset_counts()
+            f_loss, f_g = grads_of(lambda: api.train_loss(cfg, params,
+                                                          mb)[0])
+        finally:
+            b5.flash_attention_bwd = real
+        fe = _step0_errors(names, f_loss, f_g, ref_loss, ref_g)
+        del f_g
+        fbad = _step0_violations(fe)
+        check(bool(fbad), f"train_lm step 0: planted fault {fault} passes "
+              f"the limits (leaf_max {fe['leaf_max']:.3g}, grad_norm_rel "
+              f"{fe['grad_norm_rel']:.3g})")
+        rec["planted"][fault] = {
+            "loss_rel": fe["loss_rel"], "grad_norm_rel": fe["grad_norm_rel"],
+            "leaf_max": fe["leaf_max"], "leaf_worst": fe["leaf_worst"],
+            "violations": fbad}
+    del ref_g
+    _release()
+    return rec
+
+
+def _train_full_width(launches: dict, rec: dict) -> None:
+    """The launcher at llama3.2-1b's full width, bf16: run A trains 4
+    steps with a checkpoint after step 2; run B resumes from that
+    checkpoint, in a fresh model, for steps 3-4; then step 0 on the same
+    weights and batch (:func:`_train_step0_check`) and one profiled
+    step."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, global_batch_at
+    from repro_torch.dist.step import default_microbatches
+    from repro_torch.models import api
+
+    base = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(base, ignore_errors=True)
+    dir_a, dir_b = base / "a", base / "b"
+    argv = ["--arch", LM_ARCH, "--device", DEVICE, "--seq-len",
+            str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH), "--steps",
+            str(TRAIN_STEPS), "--log-every", "1", "--seed", str(LM_SEED)]
+    n_mb = default_microbatches(ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH,
+                                            "train"))
+    cfg = get_config(LM_ARCH)
+    per_step = cfg.num_layers * 2 * n_mb     # forward and remat recompute
+    try:
+        run_a = _train_cli(argv + ["--ckpt-every", str(TRAIN_CKPT_AT),
+                                   "--ckpt-dir", str(dir_a)])
+        _release()
+        _check_lm_launches("train_lm run A", run_a["launches"],
+                           per_step * TRAIN_STEPS, launches)
+        ckpt = f"ckpt_{TRAIN_CKPT_AT:010d}.tensors"
+        os.makedirs(dir_b)
+        os.link(dir_a / ckpt, dir_b / ckpt)
+        shutil.rmtree(dir_a)     # the disk holds two full checkpoints
+        run_b = _train_cli(argv + ["--resume", "--ckpt-dir", str(dir_b)])
+        _release()
+        _check_lm_launches("train_lm run B", run_b["launches"],
+                           per_step * (TRAIN_STEPS - TRAIN_CKPT_AT),
+                           launches)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    check(run_b["start_step"] == TRAIN_CKPT_AT,
+          f"train_lm: resumed at {run_b['start_step']}")
+    steps_a = run_a["steps"]
+    for s in steps_a + run_b["steps"]:
+        check(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]),
+              f"train_lm: step {s['step']} loss {s['loss']} grad_norm "
+              f"{s['grad_norm']}")
+    same = [(a["loss"], a["grad_norm"]) == (b["loss"], b["grad_norm"])
+            for a, b in zip(steps_a[TRAIN_CKPT_AT:], run_b["steps"])]
+    check(len(same) == TRAIN_STEPS - TRAIN_CKPT_AT and all(same),
+          f"train_lm: resumed steps {run_b['steps']} differ from the "
+          f"uninterrupted run's {steps_a[TRAIN_CKPT_AT:]}")
+    for r in (run_a, run_b):
+        check(r["peak_mem_gb"] < 80, f"train_lm: peak {r['peak_mem_gb']:.1f}"
+              " GB")
+
+    # Step 0 on the same weights and batch: the first microbatch's loss
+    # and gradients through B5 against the plain reference (and against
+    # two planted faults, which must fail the same limits), the second's
+    # loss, and the mean of both against run A's step-0 loss.
+    params = api.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        LM_SEED), device=DEVICE)
+    batch = global_batch_at(DataConfig(seed=LM_SEED), cfg, ShapeConfig(
+        "t", TRAIN_SEQ, TRAIN_BATCH, "train"), n_mb, 0, device=DEVICE)
+    mbs = [{k: v[i] for k, v in batch.items()} for i in range(n_mb)]
+    step0 = _train_step0_check(cfg, params, mbs[0], launches)
+    _reset_counts()
+    with torch.no_grad():
+        kernel = [step0["loss_b5"]] + [float(api.train_loss(cfg, params,
+                                                            mb)[0])
+                                       for mb in mbs[1:]]
+    _check_lm_launches("train_lm step-0 losses", _read_counts(),
+                       cfg.num_layers * (n_mb - 1), launches)
+    # One train step of the same model and batch under the profiler (after
+    # one unprofiled): its kernels by device time and the idle share.
+    from repro_torch.dist.step import build_train_step
+    from repro_torch.optim import OptConfig, init_opt_state
+    train_step = build_train_step(cfg, params, OptConfig(
+        lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS),
+        n_microbatches=n_mb)
+    state = init_opt_state(params, 1)
+    _reset_counts()
+    train_step(params, state, batch)
+    profiled = profile_step(lambda: train_step(params, state, batch))
+    _check_lm_launches("train_lm profiled steps", _read_counts(),
+                       2 * per_step, launches)
+    del params, batch, mbs, train_step, state
+    _release()
+    cli0 = steps_a[0]["loss"]
+    mean0 = sum(kernel) / n_mb
+    check(abs(mean0 - cli0) <= 1e-5 * abs(cli0), f"train_lm: step-0 loss "
+          f"{cli0} in the run vs {mean0} recomputed")
+
+    step_ms = [s["step_s"] * 1e3 for s in steps_a[1:]]
+    med_s = statistics.median(step_ms) / 1e3
+    n_params = run_a["params"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = (6.0 * n_params + 12.0 * cfg.num_layers * TRAIN_SEQ
+             * cfg.d_model) * tokens
+    rec["full_width"] = {
+        "arch": LM_ARCH, "dtype": str(cfg.dtype), "seq_len": TRAIN_SEQ,
+        "global_batch": TRAIN_BATCH, "n_microbatches": n_mb,
+        "params": n_params, "steps": steps_a, "resumed_steps":
+        run_b["steps"], "resumed_equal_bitwise": all(same),
+        "step0": step0, "step_ms_steps_2_to_4": step_ms,
+        "median_step_ms": med_s * 1e3, "tokens_per_s": tokens / med_s,
+        "peak_mem_gb": [run_a["peak_mem_gb"], run_b["peak_mem_gb"]],
+        "ckpt_saves": run_a["ckpt"] + run_b["ckpt"],
+        "restore_s": run_b["restore_s"],
+        "run_s": [run_a["wall_s"], run_b["wall_s"]],
+        "launches_per_step": {"flash_attention": per_step},
+        "profiled_step": profiled,
+        "model_flops_share": flops / (med_s * PEAK_FLOPS["bfloat16"]),
+        "model_flops_share_formula":
+            "(6 * params + 12 * layers * seq_len * d_model) * tokens / "
+            "(median step s * 989e12)"}
+
+
+def _train_reduced(launches: dict) -> dict:
+    """30 steps of the reduced llama on the card (seq 32, batch 4, two
+    microbatches, lr 1e-2, two alternating batches), as the reference's
+    ``test_loss_decreases``: the loss falls by more than 0.5."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import REDUCED
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, global_batch_at
+    from repro_torch.dist.step import build_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import OptConfig, init_opt_state
+    cfg = REDUCED[LM_ARCH]()
+    params = api.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        0), device=DEVICE)
+    train_step = build_train_step(cfg, params, OptConfig(
+        lr=1e-2, warmup_steps=2, total_steps=50), n_microbatches=2)
+    state = init_opt_state(params, 1)
+    shape = ShapeConfig("t", 32, 4, "train")
+    batches = [global_batch_at(DataConfig(seed=7), cfg, shape, 2, s,
+                               device=DEVICE) for s in (0, 1)]
+    _reset_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for step in range(REDUCED_STEPS):
+        params, state, m = train_step(params, state, batches[step % 2])
+        losses.append(float(m["loss"]))
+    wall = time.perf_counter() - t0
+    _check_lm_launches("train_lm reduced", _read_counts(),
+                       cfg.num_layers * 2 * 2 * REDUCED_STEPS, launches)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0] - 0.5,
+          f"train_lm reduced: losses {losses[::6]}")
+    return {"config": cfg.name, "steps": REDUCED_STEPS, "losses": losses,
+            "ms_per_step": wall / REDUCED_STEPS * 1e3}
+
+
+def _example_module():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_torch", ROOT / "examples" / "train_lm_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_defaults(ex, launches: dict) -> dict:
+    """``examples/train_lm_torch.py`` at its defaults (the reference's):
+    it learns, and its kernel logits equal the plain path's at 1e-3 (both
+    asserted by the example)."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    rec = ex.main(["--device", DEVICE])
+    rec["wall_s"] = time.perf_counter() - t0
+    counts = _read_counts()
+    for k, v in counts.items():
+        launches[k] += v
+    check(counts["flash_attention"] > 0
+          and counts["csr_panels_spmm"] + counts["bcsr_panels_spmm"] > 0
+          and counts["csr_sdd_panels"] + counts["bcsr_sdd_panels"] > 0,
+          f"train_lm example: launches {counts}")
+    return {"losses_first_last": [rec["losses"][0], rec["losses"][-1]],
+            "median_step_ms": statistics.median(rec["step_s"]) * 1e3,
+            "plan_s": rec["plan_s"], "transpose_s": rec["transpose_s"],
+            "logits_max_abs_err": rec["logits_max_abs_err"],
+            "n_params": rec["n_params"], "nnz": rec["nnz"],
+            "launches": counts, "wall_s": rec["wall_s"]}
+
+
+def _example_ffn_width(ex, launches: dict) -> dict:
+    """The example's model at llama3.2-1b's FFN width (d 2048, d_ff 8192,
+    32 heads, 90% sparsity, 2 layers, seq 512, batch 4), fp32: one step's
+    value gradients of every sparse layer against the flat path on that
+    layer's own input and output cotangent (each element within ``TOL``
+    of its summation bound |dY|·|X|, as phase 7), then ``EX_STEPS`` SGD
+    steps; B1-B5 must all launch."""
+    import numpy as np
+    import torch
+    from repro_torch.models.sparse_ffn import sparse_linear_apply
+    a = EX_FFN
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    params, structures = ex.build(a["d_model"], a["d_ff"], a["layers"],
+                                  a["vocab"], a["sparsity"],
+                                  np.random.default_rng(0), device=dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for pair in structures:
+        for layer in pair:
+            layer.fmt.transposed(dtype=torch.float32).fmt.on(dev)
+    torch.cuda.synchronize()
+    transpose_s = time.perf_counter() - t0
+    _reset_counts()
+    toks, tgt = ex.batch_at(0, a["batch"], a["seq"], a["vocab"], dev)
+    taps = []
+    loss = ex.loss_fn(params, structures, toks, tgt, a["heads"], taps=taps)
+    loss.backward()       # fills the taps' retained output gradients too
+    checks = []
+    for i, (layer, x, y) in enumerate(taps):
+        # a part with no values (no CSR rows) takes no gradient
+        names = [n for n in ("csr_vals", "bcsr_vals")
+                 if getattr(layer, n).numel()]
+        vals = [getattr(layer, n) for n in names]
+        dy = y.grad
+        flat = torch.autograd.grad(sparse_linear_apply(
+            layer, x.detach(), backend="torch"), vals, dy)
+        bnd = torch.autograd.grad(sparse_linear_apply(
+            layer, x.detach().abs(), backend="torch"), vals, dy.abs())
+        for name, v, f, b in zip(names, vals, flat, bnd):
+            checks.append({"layer": i, "part": name, "numel": v.numel(),
+                           **_grad_check(f"train_lm ffn-width layer {i} "
+                                         f"{name}", v.grad, f, b,
+                                         TOL["float32"])})
+        del flat, bnd
+    del taps, loss
+    for p in ex.leaves(params):
+        p.grad = None
+    step_ms, losses = [], []
+    for s in range(EX_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, tgt = ex.batch_at(s, a["batch"], a["seq"], a["vocab"], dev)
+        losses.append(float(ex.sgd_step(params, structures, toks, tgt,
+                                        a["heads"], a["lr"])))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = _read_counts()
+    for k, v in counts.items():
+        launches[k] += v
+        check(v > 0, f"train_lm ffn-width: {k} never launched ({counts})")
+    check(all(np.isfinite(losses)), f"train_lm ffn-width: losses {losses}")
+    rec = {"config": a, "plan_s": plan_s, "transpose_s": transpose_s,
+           "value_grad_checks": checks, "losses": losses,
+           "step_ms": step_ms, "launches": counts,
+           "nnz": sum(p.numel() for n, v in params.items()
+                      if n.startswith("ffn") for p in v.values())}
+    del params, structures
+    _release()
+    return rec
+
+
+def phase_train_lm(launches: dict) -> dict:
+    """Phase 12: B5 in training alone, the training launcher at full
+    width with a checkpoint and a resume, the reduced llama's loss
+    falling, and the sparse-FFN LM example at its defaults and at
+    llama3.2-1b's FFN width."""
+    import torch
+    rec = {"phase": "train_lm"}
+    t0 = time.perf_counter()
+    rec["b5_train"] = [_b5_train(torch.bfloat16), _b5_train(torch.float32)]
+    rec["b5_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _train_full_width(launches, rec)
+    rec["full_width_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["reduced"] = _train_reduced(launches)
+    ex = _example_module()
+    rec["example_defaults"] = _example_defaults(ex, launches)
+    rec["example_ffn_width"] = _example_ffn_width(ex, launches)
+    rec["examples_s"] = time.perf_counter() - t0
+    rec["nvidia_smi"] = RECORD["phases"][0].get("nvidia_smi")
+    phase(rec)
+    return rec
+
 
 # ---------------------------------------------------------------------------
 
@@ -2686,6 +3312,7 @@ def main(argv=None) -> int:
         phase_serve_obs(launches, lm_rec, args.out, work)
         phase_serve_traffic(launches)
         phase_operator_bench(launches, args.out)
+        phase_train_lm(launches)
     for k, v in launches.items():
         check(v > 0, f"{k} never launched on the port's paths")
 

@@ -1,7 +1,8 @@
 """Model configuration dataclass + the architecture registry.
 
 Port of ``repro/configs/base.py``: the same fields and defaults, with
-``dtype`` a ``torch.dtype``.  Only the architectures whose family the port
+``dtype`` a ``torch.dtype``, and the same input-shape cells
+(:class:`ShapeConfig`, :data:`SHAPES`).  Only the architectures whose family the port
 runs are registered (the dense family: llama3.2-1b); the other nine come
 with their families (ROADMAP A.13).
 """
@@ -12,7 +13,8 @@ from typing import Any, Dict
 
 import torch
 
-__all__ = ["ModelConfig", "register", "get_config"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "register",
+           "get_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +74,23 @@ class ModelConfig:
     def rwkv_heads(self) -> int:
         return self.d_model // self.rwkv_head_dim
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 

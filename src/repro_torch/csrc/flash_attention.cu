@@ -10,6 +10,11 @@
 // are fp32 for every input dtype (bf16 / f16 products accumulate in fp32 in
 // the tensor cores; fp32 runs FFMA with no TF32); the output is
 // acc / max(l, 1e-30) rounded once to the input dtype, as in the reference.
+// When the caller passes an `lse` buffer, both bodies also write each row's
+// log-sum-exp m + log(l) (fp32, natural log, from the statistics they
+// already hold), which the training backward reads
+// (kernels/flash_attention.py); a null `lse` leaves the serving launch as
+// it was.
 //
 // What bounds it on the H100: operations.  At the serving shape (B 4, S
 // 2048, H 32, KV 8, hd 64) the causal half of QKᵀ and P·V is 68.7 GFLOP
@@ -120,8 +125,9 @@ __device__ __forceinline__ float warp_max(float v) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int seq,
-                 int heads, int kv_heads, float scale, int causal) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int seq, int heads, int kv_heads,
+                 float scale, int causal) {
   // Output patch of a lane: TPR lanes span a row's hd columns, RG row
   // groups interleave the warp's 16 rows.
   constexpr int TPR = HD < kWarp ? HD : kWarp;
@@ -311,6 +317,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         store(obase + qpos * q_stride + c0 + TPR * j, acc[i][j] / denom);
     }
   }
+  // Every lane holds m and l of the warp's 16 rows: lane r writes row r's
+  // log-sum-exp (natural log of the scaled scores), if asked.
+  if (lse != nullptr) {
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r)
+      if (lane == r && row0 + r < seq)
+        lse[static_cast<int64_t>(blockIdx.y) * seq + row0 + r] =
+            m[r] + logf(fmaxf(l[r], 1e-30f));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -432,8 +447,8 @@ __global__ void __launch_bounds__(kWgThreads * kMaxHeads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
-                   T* __restrict__ o, int seq, int heads, int kv_heads,
-                   float scale_log2, int causal) {
+                   T* __restrict__ o, float* __restrict__ lse, int seq,
+                   int heads, int kv_heads, float scale_log2, int causal) {
   using L = Tiles<HD>;
   constexpr int kLayout = wg::layout_code(L::kRowBytes);
   constexpr int KS = HD / 16;       // k-steps of QKᵀ
@@ -665,6 +680,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int j = 0; j < HD / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
             pack2<T>(acc[4 * j + 2 * i] / denom, acc[4 * j + 2 * i + 1] / denom);
+      // The quad's 4 lanes hold the row's m and l (log2 domain, scaled):
+      // lane t == 0 writes the natural-log log-sum-exp, if asked.
+      if (lse != nullptr && t == 0)
+        lse[(static_cast<int64_t>(b) * heads + h) * seq + qrow[i]] =
+            (m[i] + log2f(denom)) * 0.6931471805599453f;
     }
   }
 }
@@ -725,8 +745,9 @@ bool tensor_map(CUtensorMap* map, const void* base, int64_t batch,
 
 template <typename T, int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
-                 float scale, int causal, cudaStream_t stream) {
+                 float* lse, int64_t batch, int64_t seq, int64_t heads,
+                 int64_t kv_heads, float scale, int causal,
+                 cudaStream_t stream) {
   const int64_t rep = heads / kv_heads;
   int hpc = 1;   // the largest divisor of rep up to kMaxHeads
   for (int c = kMaxHeads; c > 1; --c) {
@@ -754,7 +775,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                   static_cast<unsigned>((seq + kWgRows - 1) / kWgRows));
   flash_wgmma_kernel<T, HD>
       <<<grid, kWgThreads * hpc, Tiles<HD>::bytes(hpc), stream>>>(
-          tm_q, tm_k, tm_v, static_cast<T*>(o), static_cast<int>(seq),
+          tm_q, tm_k, tm_v, static_cast<T*>(o), lse, static_cast<int>(seq),
           static_cast<int>(heads), static_cast<int>(kv_heads),
           scale * 1.4426950408889634f, causal);
   return static_cast<int>(cudaGetLastError());
@@ -763,12 +784,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 // fp32 runs the FFMA body (dynamic shared memory, above 48 KB at hd 64 and
 // 128); bf16 / f16 the wgmma body.
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
            float scale, int causal, cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value) {
-    return launch_wgmma<T, HD>(q, k, v, o, batch, seq, heads, kv_heads, scale,
-                               causal, stream);
+    return launch_wgmma<T, HD>(q, k, v, o, lse, batch, seq, heads, kv_heads,
+                               scale, causal, stream);
   } else {
     const dim3 grid(static_cast<unsigned>((seq + kBlockQ - 1) / kBlockQ),
                     static_cast<unsigned>(batch * heads));
@@ -783,7 +804,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
     }
     flash_fwd_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), static_cast<int>(seq),
+        static_cast<const T*>(v), static_cast<T*>(o), lse,
+        static_cast<int>(seq),
         static_cast<int>(heads), static_cast<int>(kv_heads), scale, causal);
     return static_cast<int>(cudaGetLastError());
   }
@@ -791,14 +813,14 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* o,
-              int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
+              float* lse, int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
               int64_t head_dim, float scale, int causal,
               cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(q, k, v, o, batch, seq, heads, kv_heads, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, batch, seq, heads, kv_heads, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, batch, seq, heads, kv_heads, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, batch, seq, heads, kv_heads, scale, causal, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, batch, seq, heads, kv_heads, scale, causal, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, batch, seq, heads, kv_heads, scale, causal, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, batch, seq, heads, kv_heads, scale, causal, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, batch, seq, heads, kv_heads, scale, causal, stream);
     default: return kUnsupported;
   }
 }
@@ -808,6 +830,10 @@ int launch_hd(const void* q, const void* k, const void* v, void* o,
 // q, o: (batch, seq, heads, head_dim); k, v: (batch, seq, kv_heads,
 // head_dim); all contiguous, 16-byte aligned, of one dtype; scale is
 // 1/sqrt(head_dim) rounded to fp32 by the caller, as the reference does.
+// lse: null, or fp32 (batch, heads, seq), which takes each row's
+// log-sum-exp of the scaled, masked scores (natural log; the training
+// backward recomputes P = exp(s - lse) from it).  It is the last argument,
+// so a caller built against the form without it passes nothing there.
 // The wrapper checks shapes; heads % kv_heads == 0 and batch * heads <=
 // 65535 are its contract.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -815,16 +841,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int64_t seq, int64_t heads,
                                    int64_t kv_heads, int64_t head_dim,
                                    float scale, int causal, int dtype,
-                                   void* stream) {
+                                   void* stream, float* lse) {
   if (batch == 0 || seq == 0 || heads == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch_hd<float>(q, k, v, o, batch, seq, heads, kv_heads, head_dim, scale, causal, s);
+      return launch_hd<float>(q, k, v, o, lse, batch, seq, heads, kv_heads, head_dim, scale, causal, s);
     case kF16:
-      return launch_hd<__half>(q, k, v, o, batch, seq, heads, kv_heads, head_dim, scale, causal, s);
+      return launch_hd<__half>(q, k, v, o, lse, batch, seq, heads, kv_heads, head_dim, scale, causal, s);
     case kBF16:
-      return launch_hd<__nv_bfloat16>(q, k, v, o, batch, seq, heads, kv_heads, head_dim, scale, causal, s);
+      return launch_hd<__nv_bfloat16>(q, k, v, o, lse, batch, seq, heads, kv_heads, head_dim, scale, causal, s);
     default:
       return kUnsupported;
   }

@@ -1,8 +1,22 @@
-"""Step functions of the serving path: prefill and decode over static
-buffers, captured as CUDA graphs on the card.
+"""Step functions: the grad-accumulating train step, and the serving
+path's prefill and decode over static buffers, captured as CUDA graphs on
+the card.
 
-Port of the serve half of ``repro/dist/step.py`` (:func:`build_prefill`,
-:func:`build_serve_step` and :func:`_maybe_record`).  The reference jits
+Port of ``repro/dist/step.py`` (:func:`build_train_step`,
+:func:`default_microbatches`, :func:`build_prefill`,
+:func:`build_serve_step` and :func:`_maybe_record`).
+
+Training (:func:`build_train_step`): one call takes the global batch
+``(n_mb, mb, S)`` and, per microbatch, runs ``train_loss`` forward and
+backward (each block rematerialised, attention on B5), then adds the
+gradients into an accumulator in the flat fp32 layout of
+``optim/adamw.py``; the mean over microbatches goes to AdamW.  The
+reference jits the step and donates the parameters and optimizer state;
+here the state is updated in place.  With one device there is no
+reduce-scatter: :data:`N_SHARDS` is 1 and the flat layout is kept for the
+sharding of ROADMAP A.13.
+
+Serving.  The reference jits
 each step with the mesh's shardings and donates the KV cache; eager
 PyTorch pays one launch per operation instead, which leaves the decode
 step host-bound.  So on ``"cuda"`` a built function owns static buffers
@@ -27,18 +41,46 @@ On ``"cpu"`` the same static-buffer function runs the step eagerly, so
 the serving pool's bucket and slot logic (``serve/queue.py``) is one code
 path on both devices.
 
-No mesh and no sharding: the distributed operator is ROADMAP A.12.  The
-training step (``build_train_step``) waits for A.13's training part.
+No mesh and no sharding: the distributed operator is ROADMAP A.12 and
+``dist/sharding.py`` A.13.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..configs.base import ShapeConfig
 from ..models import api
+from ..optim import adamw
+from ..optim.adamw import OptConfig
 
-__all__ = ["build_prefill", "build_serve_step"]
+__all__ = ["default_microbatches", "build_train_step",
+           "build_prefill", "build_serve_step", "N_SHARDS"]
+
+F32 = torch.float32
+# Shards of the flat optimizer layout: one device, one shard.
+N_SHARDS = 1
+
+
+def default_microbatches(shape: ShapeConfig,
+                         per_device_batch: int = 4) -> int:
+    """Pick a microbatch count for a train cell: ``per_device_batch``
+    sequences per microbatch on the one data-parallel worker, walked down
+    until the count divides the global batch."""
+    n_mb = max(shape.global_batch // max(per_device_batch, 1), 1)
+    while n_mb > 1 and shape.global_batch % n_mb:
+        n_mb -= 1
+    return n_mb
+
+
+def _flat_zeros(params, n_shards: int) -> Dict[str, torch.Tensor]:
+    """Zero accumulator in the flat fp32 layout (matches
+    ``adamw.to_flat``), one per named parameter, on its device."""
+    return {name: torch.zeros((n_shards, math.ceil(x.numel() / n_shards)),
+                              dtype=F32, device=x.device)
+            for name, x in params.named_parameters()}
 
 
 def _maybe_record(fn, recorder, op: str, obs=None):
@@ -50,6 +92,59 @@ def _maybe_record(fn, recorder, op: str, obs=None):
     if obs is not None:
         fn = obs.wrap_step(fn, op=op)
     return fn
+
+
+def build_train_step(cfg, params, opt: OptConfig, *, n_microbatches: int = 1,
+                     loss_fn: Callable | None = None,
+                     recorder=None, obs=None):
+    """Build the grad-accumulating AdamW train step for ``cfg``:
+    ``fn(params, opt_state, batch) -> (params, opt_state, metrics)``,
+    updating ``params`` and ``opt_state`` in place; ``metrics`` carries 0-d
+    tensors ``loss``, ``grad_norm``, ``lr`` and ``tokens``.  The
+    reference's bundle also carries spec trees, which have no counterpart
+    without a mesh, so this returns the function alone.
+
+    ``params`` is the model (an ``nn.Module``) the step will train; its
+    named parameters fix the flat accumulator's keys.
+    ``loss_fn(params, microbatch) -> (loss, aux)`` defaults to
+    ``models.api.train_loss``.  Per microbatch the gradients (in the
+    parameters' dtype, as the reference's ``value_and_grad``) are added
+    into the flat fp32 accumulator; their mean goes to
+    :func:`repro_torch.optim.apply_updates`.  ``recorder`` (a
+    :class:`repro_torch.perf.trace.TraceRecorder`) and ``obs`` (a
+    :class:`repro_torch.obs.Obs`) wrap the step as the reference's
+    ``_maybe_record`` does (op ``train_step``).
+    """
+    loss_fn = loss_fn or (lambda p, mb: api.train_loss(cfg, p, mb))
+    n_mb = n_microbatches
+    names = [name for name, _ in params.named_parameters()]
+
+    def step(params, opt_state, batch):
+        plist = [p for _, p in params.named_parameters()]
+        g_acc = _flat_zeros(params, N_SHARDS)
+        loss_sum = tok_sum = None
+        for i in range(n_mb):
+            mb = {k: v[i] for k, v in batch.items()}
+            loss, aux = loss_fn(params, mb)
+            grads = torch.autograd.grad(loss, plist)
+            for name, g in zip(names, grads):
+                g_acc[name].view(-1)[:g.numel()] += g.reshape(-1)
+            loss = loss.detach()
+            tokens = torch.as_tensor(aux.get("tokens", 0.0), dtype=F32,
+                                     device=loss.device)
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            tok_sum = tokens if tok_sum is None else tok_sum + tokens
+            del loss, aux, grads
+        for g in g_acc.values():
+            g.div_(n_mb)
+        params, opt_state, gnorm = adamw.apply_updates(params, opt_state,
+                                                       g_acc, opt)
+        metrics = {"loss": loss_sum / n_mb, "grad_norm": gnorm,
+                   "lr": adamw.lr_at(opt, opt_state["count"]),
+                   "tokens": tok_sum}
+        return params, opt_state, metrics
+
+    return _maybe_record(step, recorder, "train_step", obs)
 
 
 def _launch_counters() -> Tuple[Callable, ...]:

@@ -3,23 +3,25 @@
 Every architecture exposes the same entry points regardless of family:
 
     init_params(cfg, generator, device=)       -> params (an nn.Module)
+    train_loss(cfg, params, batch)             -> (loss, aux)
     prefill(cfg, params, batch, cache=)        -> (cache, last_logits)
     decode_step(cfg, params, cache, tok, len)  -> (cache, logits)
         (``len``: an int, or a 0-d int32/int64 tensor on the device)
     init_cache(cfg, batch, max_len)            -> cache dict
     num_params(params)                         -> int
 
-The port runs the dense family (:mod:`.transformer`); every other family
-raises ``NotImplementedError`` (ROADMAP A.13).  LM training
-(``train_loss``) is not ported yet.
+``batch`` for ``train_loss``: ``{tokens (B, S), labels (B, S)}`` integer
+tensors (or arrays) with -1 = masked label; ``aux`` is ``{"tokens":
+n_unmasked}``.  The port runs the dense family (:mod:`.transformer`);
+every other family raises ``NotImplementedError`` (ROADMAP A.13).
 """
 from __future__ import annotations
 
 from ..configs.base import ModelConfig
 from . import transformer
 
-__all__ = ["init_params", "prefill", "decode_step", "init_cache",
-           "num_params"]
+__all__ = ["init_params", "train_loss", "prefill", "decode_step",
+           "init_cache", "num_params"]
 
 
 def _mod(cfg: ModelConfig):
@@ -29,6 +31,10 @@ def _mod(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, generator, *, device=None):
     return _mod(cfg).init_params(cfg, generator, device=device)
+
+
+def train_loss(cfg: ModelConfig, params, batch, *, backend=None):
+    return _mod(cfg).train_loss(cfg, params, batch, backend=backend)
 
 
 def prefill(cfg: ModelConfig, params, batch, *, backend=None, cache=None):

@@ -10,10 +10,10 @@ uses.  Conventions kept from the reference:
   ``preferred_element_type=F32`` followed by the cast does);
 * norms and rotary angles run in fp32 and cast back at the same points as
   the reference;
-* prefill attention is :func:`flash_attention` over ``(B, S, H, hd)``,
-  which runs the CUDA kernel B5 (``kernels/flash_attention.py``);
-  ``backend="torch"`` runs its plain PyTorch version instead (the
-  reference path of the checks).  Decode attention is a one-query einsum
+* prefill and training attention is :func:`flash_attention` over ``(B, S,
+  H, hd)``, which runs the CUDA kernel B5 (``kernels/flash_attention.py``;
+  in training through its autograd Function); ``backend="torch"`` runs its
+  plain PyTorch version instead (the reference path of the checks).  Decode attention is a one-query einsum
   and softmax over the cache, plain PyTorch as in the reference (where it
   is XLA-level, not a Pallas kernel).
 
@@ -41,7 +41,9 @@ F32 = torch.float32
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    """A trainable parameter; the serving entry points run under
+    ``torch.no_grad``, so they record no graph over it."""
+    return nn.Parameter(t)
 
 
 # ---------------------------------------------------------------------------
@@ -159,15 +161,23 @@ def attention_init(gen: torch.Generator, d_model: int, n_heads: int,
 
 def flash_attention(q, k, v, *, causal: bool, window: int = 0,
                     backend: str | None = None) -> torch.Tensor:
-    """Prefill attention over ``(B, S, H, hd)``; O(S) memory.
+    """Prefill and training attention over ``(B, S, H, hd)``; O(S) memory.
 
     ``backend="cuda"`` (default) runs B5, which launches the CUDA kernel
     on CUDA tensors and its plain version on CPU tensors; ``"torch"`` runs
-    the plain version on any device.  Sliding windows and a prefix offset
+    the plain version on any device, differentiated by autograd.  When
+    grad is enabled and q, k or v requires it (training), B5 runs through
+    its autograd Function
+    (``kernels/flash_attention.py::flash_attention_train``), whose backward
+    recomputes P from the saved log-sum-exp; serving runs under
+    ``no_grad`` and never takes it.  Sliding windows and a prefix offset
     (Sq != Sk) raise: B5 takes neither (ROADMAP A.13)."""
     _b5.check_inputs(q, k, v, window)
     if resolve_backend(backend) == "torch":
         return _b5.flash_attention_plain(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _b5.flash_attention_train(q, k, v, causal=causal)
     return _b5.flash_attention(q, k, v, causal=causal)
 
 

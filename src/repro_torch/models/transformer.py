@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense family: parameters, prefill and decode.
+"""Decoder-only LM, dense family: parameters, training loss, prefill and
+decode.
 
 Port of the dense-family parts of ``repro/models/transformer.py``.  Where
 the reference scans one stacked-parameter layer body, the port keeps an
@@ -21,6 +22,14 @@ PyTorch runs eagerly, so the layer loop is a Python loop.
   ``preferred_element_type=F32``): the table is widened to fp32 in chunks
   of :data:`LOGIT_CHUNK_ELEMS` elements, so no fp32 copy of the whole
   table is made per call (1 GB at llama3.2-1b's vocabulary).
+* :func:`train_loss` is the reference's: embed, the layer stack with each
+  block rematerialised (``torch.utils.checkpoint``, as the reference's
+  ``jax.checkpoint``), the final norm and :func:`chunked_ce`, whose
+  gradient is written by hand so no ``(T, vocab)`` fp32 buffer outlives a
+  chunk.  Attention runs through B5's autograd Function, so each block's
+  forward and its recompute launch B5 once each.  The parameters are
+  trainable; :func:`prefill` and :func:`decode_step` run under
+  ``torch.no_grad`` and record no graph.
 
 Families other than dense, and within it sliding-window attention,
 qk-norm, activations other than swiglu and frontends, raise
@@ -32,16 +41,18 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.engine import resolve_device
 from . import layers
 from .layers import F32
 
-__all__ = ["LM", "Block", "init_params", "prefill", "decode_step",
-           "init_cache", "num_params", "params_from_numpy",
-           "LOGIT_CHUNK_ELEMS"]
+__all__ = ["LM", "Block", "init_params", "train_loss", "chunked_ce",
+           "prefill", "decode_step", "init_cache", "num_params",
+           "params_from_numpy", "LOGIT_CHUNK_ELEMS"]
 
 # Unembedding table elements widened to fp32 at a time (64 MB in fp32).
 LOGIT_CHUNK_ELEMS = 1 << 24
@@ -91,16 +102,14 @@ class LM(nn.Module):
         check_supported(cfg)
         shape = (cfg.vocab_padded(), cfg.d_model)
         self.embed = nn.Parameter(torch.empty(shape, dtype=cfg.dtype,
-                                              device=device),
-                                  requires_grad=False)
+                                              device=device))
         self.layers = nn.ModuleList(Block(cfg, device)
                                     for _ in range(cfg.num_layers))
         self.final_norm = layers.norm_init(cfg.norm, cfg.d_model, cfg.dtype,
                                            device)
         if not cfg.tie_embeddings:
             self.unembed = nn.Parameter(torch.empty(shape, dtype=cfg.dtype,
-                                                    device=device),
-                                        requires_grad=False)
+                                                    device=device))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
@@ -129,14 +138,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                                       cfg.dtype, dev)
         shape = (cfg.vocab_padded(), cfg.d_model)
         lm.embed = nn.Parameter(layers.embed_init(generator, *shape,
-                                                  cfg.dtype, dev),
-                                requires_grad=False)
+                                                  cfg.dtype, dev))
         lm.final_norm = layers.norm_init(cfg.norm, cfg.d_model, cfg.dtype,
                                          dev)
         if not cfg.tie_embeddings:
             lm.unembed = nn.Parameter(layers.embed_init(generator, *shape,
-                                                        cfg.dtype, dev),
-                                      requires_grad=False)
+                                                        cfg.dtype, dev))
     return lm
 
 
@@ -233,8 +240,10 @@ def _layer_apply(cfg: ModelConfig, lp: Block, x, positions, *, mode,
 
 def _embed_inputs(cfg: ModelConfig, params: LM,
                   tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) -> embeddings (B, S, d) (no frontend prefix)."""
-    return params.embed[tokens]
+    """tokens (B, S) -> embeddings (B, S, d) (no frontend prefix): the
+    table's rows, as ``embed[tokens]``; ``F.embedding``'s gradient sums
+    repeated tokens in a fixed order on the card."""
+    return F.embedding(tokens, params.embed)
 
 
 def _unembed_w(cfg: ModelConfig, params: LM) -> torch.Tensor:
@@ -265,9 +274,113 @@ def _tokens(params: LM, tokens) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+class _ChunkedCE(torch.autograd.Function):
+    """Summed cross-entropy of ``h (T, d)`` against the table ``w (V, d)``
+    over the labels ``(T,)`` (-1 masked), ``chunk`` tokens at a time.  The
+    logits of a chunk are fp32 (the products of the two operands, summed
+    in fp32, as the reference's ``preferred_element_type=F32``); the
+    forward keeps only each token's log-sum-exp, and the backward
+    recomputes a chunk's logits to form ``softmax - onehot`` and its two
+    products, accumulating the table's gradient in fp32 across chunks and
+    rounding it once."""
+
+    @staticmethod
+    def forward(h, w, labels, chunk):
+        wf = w.to(F32)
+        logz = torch.empty(h.shape[0], dtype=F32, device=h.device)
+        loss = torch.zeros((), dtype=F32, device=h.device)
+        for t0 in range(0, h.shape[0], chunk):
+            lc = labels[t0:t0 + chunk]
+            logits = h[t0:t0 + chunk].to(F32) @ wf.T
+            lz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(1, lc.clamp_min(0)[:, None])[:, 0]
+            loss = loss + torch.sum((lz - gold) * (lc >= 0).to(F32))
+            logz[t0:t0 + chunk] = lz
+        return loss, logz
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        h, w, labels, chunk = inputs
+        ctx.save_for_backward(h, w, labels, output[1])
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, g, _glogz):
+        h, w, labels, logz = ctx.saved_tensors
+        wf = w.to(F32)
+        dh = torch.empty_like(h)
+        dw = torch.zeros_like(wf)
+        for t0 in range(0, h.shape[0], ctx.chunk):
+            lc = labels[t0:t0 + ctx.chunk]
+            hc = h[t0:t0 + ctx.chunk].to(F32)
+            p = torch.exp(hc @ wf.T - logz[t0:t0 + ctx.chunk, None])
+            rows = torch.arange(lc.shape[0], device=h.device)
+            p[rows, lc.clamp_min(0)] -= 1.0
+            p *= ((lc >= 0).to(F32) * g)[:, None]
+            dh[t0:t0 + ctx.chunk] = (p @ wf).to(h.dtype)
+            dw.addmm_(p.T, hc)
+        return dh, dw.to(w.dtype), None, None
+
+
+def chunked_ce(cfg: ModelConfig, params: LM, hidden: torch.Tensor,
+               labels: torch.Tensor):
+    """Cross-entropy without a kept ``(T, vocab)`` buffer.
+
+    hidden: (B, S, d); labels: (B, S) with -1 = masked.  Returns
+    (loss_mean, n_tokens), both fp32 0-d tensors.  Chunks hold
+    ``cfg.ce_chunk`` tokens and the last may be shorter (the reference
+    picks a chunk that divides T; the sum is the same)."""
+    bsz, seq, d = hidden.shape
+    h2 = hidden.reshape(bsz * seq, d)
+    l2 = labels.reshape(bsz * seq).long()
+    loss_sum, _ = _ChunkedCE.apply(h2, _unembed_w(cfg, params), l2,
+                                   max(1, cfg.ce_chunk))
+    count = (l2 >= 0).sum().to(F32)
+    return loss_sum / count.clamp_min(1.0), count
+
+
+def _train_block(cfg: ModelConfig, lp: Block, x, positions, backend):
+    return _layer_apply(cfg, lp, x, positions, mode="train",
+                        backend=backend)[0]
+
+
+def _run_stack(cfg: ModelConfig, params: LM, x, positions, *,
+               backend=None):
+    """The layer loop of training: each block under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+    scanned body), so only the blocks' inputs are kept and the backward
+    recomputes one block at a time."""
+    for lp in params.layers:
+        x = checkpoint(_train_block, cfg, lp, x, positions, backend,
+                       use_reentrant=False, preserve_rng_state=False)
+    return x
+
+
+def train_loss(cfg: ModelConfig, params: LM, batch: Dict[str, Any], *,
+               backend: str | None = None):
+    """batch: tokens (B, S), labels (B, S) (-1 masked).  Returns (loss,
+    {"tokens": n_tokens}).  ``backend="torch"`` runs attention's plain
+    version instead of B5 (forward and recompute)."""
+    check_supported(cfg)
+    tokens = _tokens(params, batch["tokens"])
+    labels = _tokens(params, batch["labels"])
+    x = _embed_inputs(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    x = _run_stack(cfg, params, x, positions, backend=backend)
+    x = layers.norm_apply(cfg.norm, params.final_norm, x)
+    loss, count = chunked_ce(cfg, params, x, labels)
+    return loss, {"tokens": count}
+
+
+# ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params: LM, batch: Dict[str, Any], *,
             backend: str | None = None, cache=None):
     """Build the serving cache.  ``batch["tokens"]``: (B, S) token ids.
@@ -325,6 +438,7 @@ def _position(length, cache, device) -> torch.Tensor:
     return torch.full((), length, dtype=torch.long, device=device)
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params: LM, cache, tokens, length):
     """One serving step: tokens (B, 1) + cache + current length -> logits.
 

@@ -1,10 +1,11 @@
 """Validated sparse ingestion: the defect taxonomy, strict and repair modes.
 
-Port of ``repro/resilience/validate.py`` restricted to what the forward
-path calls: :func:`validate_coo` (from ``core.formats.csr_from_coo``) and
+Port of ``repro/resilience/validate.py`` restricted to what the port's
+paths call: :func:`validate_coo` (from ``core.formats.csr_from_coo``) and
 :func:`validate_csr` (from ``core.spmm.plan_and_convert``), both strict by
-default.  A malformed CSR must never reach Algorithm 1 or the kernels,
-which index with it.
+default, and :func:`check_finite_tree` (the training launcher's restore).
+A malformed CSR must never reach Algorithm 1 or the kernels, which index
+with it.
 
 Repairs are counted in :data:`repair_counts` (defect kind -> entries
 fixed) and, as in the reference, as ``validate.repaired`` counters on the
@@ -27,11 +28,13 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .inject import note_degraded
 
 __all__ = ["SparseInputError", "ValidationReport", "DEFECT_KINDS",
-           "csr_defects", "validate_coo", "validate_csr", "repair_counts"]
+           "csr_defects", "validate_coo", "validate_csr", "repair_counts",
+           "check_finite_tree"]
 
 DEFECT_KINDS = ("shape-mismatch", "dtype-mismatch", "length-mismatch",
                 "nonmonotone-indptr", "negative-index",
@@ -267,3 +270,40 @@ def validate_csr(csr, *, repair: Optional[str] = None):
     return out, ValidationReport(defects=defects,
                                  repaired={k: v for k, v in repaired.items()
                                            if v})
+
+
+# ---------------------------------------------------------------------------
+# parameter trees (checkpoint-restore ingestion)
+# ---------------------------------------------------------------------------
+
+def _array_leaves(tree) -> list:
+    """The tensor and numpy-array leaves of nested dicts (keys sorted, as
+    ``jax.tree_util`` orders them), lists and tuples."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in _array_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [x for item in tree for x in _array_leaves(item)]
+    return []
+
+
+def check_finite_tree(tree, *, what: str = "params") -> int:
+    """Raise ``SparseInputError('nonfinite-value')`` if any tensor or array
+    leaf of ``tree`` (a ``state_dict``, or nested dicts / lists of tensors
+    and arrays) holds NaN/Inf: a corrupt checkpoint restore must fail
+    loudly at ingestion, not as diverging loss ten steps later.  Returns
+    the number of leaves checked."""
+    leaves = _array_leaves(tree)
+    for i, leaf in enumerate(leaves):
+        if isinstance(leaf, torch.Tensor):
+            bad = (int((~torch.isfinite(leaf)).sum())
+                   if leaf.is_floating_point() or leaf.is_complex() else 0)
+        else:
+            bad = int((~_finite_mask(np.asarray(leaf))).sum())
+        if bad:
+            raise SparseInputError(
+                "nonfinite-value",
+                f"{what}: leaf {i} of {len(leaves)} (shape "
+                f"{tuple(leaf.shape)}) holds {bad} nonfinite values")
+    return len(leaves)

@@ -205,3 +205,149 @@ def test_row_bound_passes_rounding_and_fails_a_lost_tile(rng, dname, S,
     for fault in faults:
         got = _tiled_model(q, k, v, causal, **fault)
         assert chip_smoke.row_err(got, want) > tol, fault
+
+
+# ---------------------------------------------------------------------------
+# training: B5's log-sum-exp and its autograd Function
+# ---------------------------------------------------------------------------
+
+GRAD_SHAPES = [(1, 64, 1, 1, 16), (2, 96, 4, 2, 32), (1, 80, 6, 2, 16),
+               (1, 48, 4, 1, 64)]
+
+
+def _ref_lse(q, k, causal):
+    """Each row's log-sum-exp of the scaled, masked scores, float64."""
+    B, S, H, hd = q.shape
+    rep = H // k.shape[2]
+    kr = np.repeat(k, rep, axis=2).astype(np.float64)
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kr) / np.sqrt(hd)
+    if causal:
+        s = np.where(np.tril(np.ones((S, S), bool)), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    return (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", GRAD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_function_grads_match_jax_grad(rng, B, S, H, KV, hd, causal):
+    """The Function (plain forward on the CPU, the chunked backward) against
+    ``jax.grad`` of the reference's ``layers.flash_attention`` on the same
+    numpy inputs and cotangent, GQA: output, dQ, dK and dV within 1e-5 of
+    max(1, max |reference|) in fp32, and the log-sum-exp the backward reads
+    within 1e-5 of a float64 one."""
+    import jax
+    qa, ka, va = _qkv(rng, B, S, H, KV, hd)
+    do = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+
+    def ref_loss(q, k, v):
+        out = ref_flash(q, k, v, causal=causal, q_chunk=16, k_chunk=16)
+        return jnp.sum(out * do), out
+    (_, ref_out), ref_g = jax.value_and_grad(ref_loss, argnums=(0, 1, 2),
+                                             has_aux=True)(
+        jnp.asarray(qa), jnp.asarray(ka), jnp.asarray(va))
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in (qa, ka, va))
+    out = b5.flash_attention_train(q, k, v, causal=causal)
+    grads = torch.autograd.grad(out, (q, k, v), torch.from_numpy(do))
+    _, lse = b5.flash_attention(q.detach(), k.detach(), v.detach(),
+                                causal=causal, return_lse=True)
+    assert lse.shape == (B, H, S)
+    np.testing.assert_allclose(lse.numpy(), _ref_lse(qa, ka, causal),
+                               rtol=1e-5, atol=1e-5)
+    for got, want in zip((out.detach(),) + grads, (ref_out,) + ref_g):
+        want = np.asarray(want)
+        scale = max(1.0, float(np.abs(want).max()))
+        assert float(np.abs(got.numpy() - want).max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_plain_lse_and_layers_route(rng, dname):
+    """``return_lse`` leaves the output as it was, and ``layers`` routes a
+    call that needs a gradient through the Function (same output) and one
+    under ``no_grad`` to the plain call."""
+    q, k, v = (_torch(a, dname) for a in _qkv(rng, 2, 64, 4, 2, 32))
+    out, lse = b5.flash_attention_plain(q, k, v, causal=True,
+                                        return_lse=True)
+    assert torch.equal(out, b5.flash_attention_plain(q, k, v, causal=True))
+    assert lse.dtype == torch.float32 and lse.shape == (2, 4, 64)
+    qg = q.clone().requires_grad_()
+    routed = tlayers.flash_attention(qg, k, v, causal=True)
+    assert routed.grad_fn is not None and torch.equal(routed.detach(), out)
+    with torch.no_grad():
+        plain = tlayers.flash_attention(qg, k, v, causal=True)
+    assert plain.grad_fn is None and torch.equal(plain, out)
+
+
+def test_layers_torch_backend_differentiates_the_plain_version(rng):
+    """``backend="torch"`` with a gradient is autograd through the plain
+    version, not B5's Function: bit for bit the gradients of
+    ``flash_attention_plain`` itself, so it serves as a reference that
+    shares nothing with ``flash_attention_bwd``."""
+    qa, ka, va = _qkv(rng, 1, 48, 4, 2, 16)
+    do = _torch(rng.standard_normal(qa.shape).astype(np.float32), "float32")
+    outs = {}
+    for route in ("layers_torch", "plain", "layers_default"):
+        q, k, v = (_torch(a, "float32").requires_grad_()
+                   for a in (qa, ka, va))
+        if route == "plain":
+            y = b5.flash_attention_plain(q, k, v, causal=True)
+        else:
+            y = tlayers.flash_attention(
+                q, k, v, causal=True,
+                backend="torch" if route == "layers_torch" else None)
+        outs[route] = (type(y.grad_fn).__name__,
+                       torch.autograd.grad(y, (q, k, v), do))
+    assert "_FlashAttention" not in outs["layers_torch"][0]
+    assert "_FlashAttention" in outs["layers_default"][0]
+    for g, w in zip(outs["layers_torch"][1], outs["plain"][1]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("chunk_elems", [1, 7 * 64 * 8, 1 << 26])
+def test_backward_chunking_invariance(rng, chunk_elems):
+    """The backward's query chunks (1 row, ragged, all rows) give the same
+    gradients within fp32 rounding: 1e-5 of max(1, max |gradient|)."""
+    q, k, v = (_torch(a, "float32") for a in _qkv(rng, 1, 64, 8, 2, 16))
+    do = _torch(rng.standard_normal(q.shape).astype(np.float32), "float32")
+    out, lse = b5.flash_attention_plain(q, k, v, causal=True,
+                                        return_lse=True)
+    got = b5.flash_attention_bwd(q, k, v, lse, do, causal=True,
+                                 chunk_elems=chunk_elems)
+    want = b5.flash_attention_bwd(q, k, v, lse, do, causal=True)
+    for g, w in zip(got, want):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-5 * scale
+
+
+def test_function_under_checkpoint(rng):
+    """Under ``torch.utils.checkpoint`` (non-reentrant, as the LM's remat
+    runs it) the Function's gradients equal those without, and the forward
+    runs twice (the recompute), as B5 launches twice on the card."""
+    from torch.utils.checkpoint import checkpoint
+    qa, ka, va = _qkv(rng, 1, 48, 4, 2, 16)
+    do = torch.from_numpy(rng.standard_normal((1, 48, 4, 16)).astype(
+        np.float32))
+    calls = []
+    real = b5.flash_attention_plain
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    def block(q, k, v):
+        return b5.flash_attention_train(q * 1.5, k, v, causal=True)
+
+    grads = []
+    for remat in (False, True):
+        q, k, v = (torch.from_numpy(a).requires_grad_()
+                   for a in (qa, ka, va))
+        calls.clear()
+        b5.flash_attention_plain = counted
+        try:
+            out = (checkpoint(block, q, k, v, use_reentrant=False) if remat
+                   else block(q, k, v))
+            grads.append(torch.autograd.grad(out, (q, k, v), do))
+        finally:
+            b5.flash_attention_plain = real
+        assert len(calls) == (2 if remat else 1)
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)

@@ -5,8 +5,11 @@ llama3.2-1b prefill (two layers) through B5 against its plain attention
 path, the tuner's timed window and cache hits on the card, the
 serve executor pool's CUDA graphs (graphed against eager logits, two
 slots of one bucket, launch counts through replays, a failing capture),
-and ``torch.vmap`` over ``loops_spmm`` (one launch a part, forward and
-backward, equal to the batched call and to each element's gradient).
+``torch.vmap`` over ``loops_spmm`` (one launch a part, forward and
+backward, equal to the batched call and to each element's gradient), and
+training: B5's log-sum-exp and gradients against its plain version, the
+serving launch unchanged by the lse, and a reduced llama train step on the
+card against the same step on the CPU.
 Every test here needs a CUDA device and skips without one.
 
 This file imports neither JAX nor the reference package, so it runs on the
@@ -774,3 +777,143 @@ def test_cuda_failing_capture_raises(cuda, monkeypatch):
     assert "refused in capture" in str(err.value) + str(
         err.value.__context__)
     assert pool.slots == 0 and not q.completed
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _grad_row_err(got, want):
+    """max over rows of |got - want| / max(|want|, 1e-3 max|want|)."""
+    w = want.double()
+    norms = w.norm(dim=-1)
+    floor = max(float(norms.max()) * 1e-3, 1e-300)
+    return float(((got.double() - w).norm(dim=-1)
+                  / norms.clamp_min(floor)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname,row_tol", [("float32", 1e-4),
+                                           ("bfloat16", 1.5e-2),
+                                           ("float16", 3e-3)])
+@pytest.mark.parametrize("B,S,H,KV,hd", [(1, 64, 1, 1, 16),
+                                         (2, 200, 8, 2, 64),
+                                         (1, 300, 4, 1, 128),
+                                         (2, 128, 4, 2, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_lse_and_grads(cuda, dname, row_tol, B, S, H,
+                                            KV, hd, causal):
+    """B5's log-sum-exp against the plain version's (1e-5 of max(1,
+    |lse|)), the output with an lse equal to the output without, and the
+    Function's dQ, dK, dV against autograd through the plain forward in
+    fp32 on the same inputs, each row within the dtype's row tolerance
+    (chip_smoke's ``FLASH_ROW_TOL``)."""
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    dt = getattr(torch, dname)
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device=cuda).to(dt)
+               for n in (H, KV, KV))
+    do = torch.randn(q.shape, generator=g, device=cuda).to(dt)
+    before = b5.flash_attention.launches
+    out, lse = b5.flash_attention(q, k, v, causal=causal, return_lse=True)
+    assert b5.flash_attention.launches == before + 1
+    _, lse_p = b5.flash_attention_plain(q, k, v, causal=causal,
+                                        return_lse=True)
+    assert torch.equal(out, b5.flash_attention(q, k, v, causal=causal))
+    scale = max(1.0, float(lse_p.abs().max()))
+    assert float((lse - lse_p).abs().max()) <= 1e-5 * scale
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    grads = torch.autograd.grad(b5.flash_attention_train(
+        *ins, causal=causal), ins, do)
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(b5.flash_attention_plain(
+        *ref, causal=causal), ref, do.float())
+    torch.cuda.synchronize()
+    for got, w in zip(grads, want):
+        assert got.dtype == dt and got.shape == w.shape
+        assert _grad_row_err(got, w) <= row_tol
+
+
+@pytest.mark.gpu
+def test_cuda_serving_launch_unchanged_by_training(cuda):
+    """The serving path runs under ``no_grad`` over the now-trainable
+    weights: prefill at the reduced llama launches B5 once per layer (with
+    a null lse, outside the Function), its logits record no graph, and a
+    second call gives the same bits."""
+    from repro_torch.configs import REDUCED
+    cfg = REDUCED["llama3.2-1b"]()
+    params = api.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    before = b5.flash_attention.launches
+    cache, logits = api.prefill(cfg, params, {"tokens": toks})
+    assert b5.flash_attention.launches == before + cfg.num_layers
+    assert logits.grad_fn is None and not logits.requires_grad
+    _, again = api.prefill(cfg, params, {"tokens": toks})
+    assert torch.equal(logits, again)
+
+
+@pytest.mark.gpu
+def test_cuda_reduced_train_step_matches_cpu(cuda):
+    """One train step (two microbatches, AdamW) of the reduced llama in
+    fp32 on the card (B5, its Function) against the same step on the CPU
+    (the plain versions), from the same weights and batch: loss and
+    grad_norm within 1e-5 relative, the new parameters within 1e-2 of the
+    step's lr (Adam's first step normalises each gradient element; at eps
+    1e-3 it is well conditioned)."""
+    from repro_torch.configs import REDUCED
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, global_batch_at
+    from repro_torch.dist.step import build_train_step
+    from repro_torch.optim import OptConfig, init_opt_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(REDUCED["llama3.2-1b"](), dtype=torch.float32)
+    cpu = api.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    gpu = api.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu").to(cuda)
+    batch = global_batch_at(DataConfig(seed=3), cfg, ShapeConfig(
+        "t", 64, 4, "train"), 2, 0, device="cpu")
+    opt = OptConfig(lr=1e-2, warmup_steps=1, total_steps=10, eps=1e-3)
+    out = {}
+    for name, params, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, cuda)):
+        fn = build_train_step(cfg, params, opt, n_microbatches=2)
+        before = b5.flash_attention.launches
+        params, _, m = fn(params, init_opt_state(params, 1),
+                          {k: v.to(dev) for k, v in batch.items()})
+        launched = b5.flash_attention.launches - before
+        assert launched == (0 if dev == "cpu" else cfg.num_layers * 2 * 2)
+        out[name] = ({k: float(v) for k, v in m.items()},
+                     {k: p.detach().cpu() for k, p in
+                      params.named_parameters()})
+    (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
+    for key in ("loss", "grad_norm"):
+        assert mg[key] == pytest.approx(mc[key], rel=1e-5)
+    for name, p in pc.items():
+        assert float((pg[name] - p).abs().max()) <= 1e-2 * mc["lr"], name
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_round_trip_and_async_copy(cuda, tmp_path):
+    """A tree on the card saves (through pinned host copies) and restores
+    bit for bit; ``save_async`` has copied the tree before it returns, so
+    an in-place update right after does not reach the file."""
+    from repro_torch.checkpoint import Checkpointer, restore, save
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tree = {"p": {"w": torch.randn((64, 33), generator=g,
+                                   device=cuda).to(torch.bfloat16)},
+            "opt": {"m": torch.randn(1000, generator=g, device=cuda),
+                    "count": torch.tensor(3, dtype=torch.int32,
+                                          device=cuda)}}
+    save(str(tmp_path / "a"), 1, tree)
+    _, back, _ = restore(str(tmp_path / "a"), tree)
+    want = {"w": tree["p"]["w"].cpu(), "m": tree["opt"]["m"].cpu()}
+    assert torch.equal(back["p"]["w"], want["w"])
+    assert torch.equal(back["opt"]["m"], want["m"])
+    assert int(back["opt"]["count"]) == 3
+    ck = Checkpointer(str(tmp_path / "b"))
+    ck.save_async(2, tree)
+    tree["opt"]["m"].add_(1.0)
+    ck.close()
+    _, back, _ = restore(str(tmp_path / "b"), tree)
+    assert torch.equal(back["opt"]["m"], want["m"])

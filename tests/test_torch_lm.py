@@ -135,8 +135,9 @@ def test_carried_weights_are_copies():
     before = params.layers[1].attn.wq.clone()
     tree["layers"]["attn"]["wq"][1] += 1.0
     assert torch.equal(params.layers[1].attn.wq, before)
-    np.testing.assert_array_equal(params.layers[1].attn.wq.numpy() + 1.0,
-                                  tree["layers"]["attn"]["wq"][1])
+    np.testing.assert_array_equal(
+        params.layers[1].attn.wq.detach().numpy() + 1.0,
+        tree["layers"]["attn"]["wq"][1])
 
 
 def test_vocab_padding_never_predicted():
