@@ -41,11 +41,15 @@ Phases (one JSON line each, ``{"phase": ...}``):
   4. tune     -- the autotuner (``repro_torch.tune``) at m6 and m4, fp32,
                  N=32, in a fresh ``$REPRO_TUNE_CACHE``: a miss whose search
                  measures its ``TUNE_TOP_K`` survivors on the card (none
-                 failing), an exact hit with no measurement, a near hit
+                 failing; CUDA-event runs of calls) and then the model's
+                 plan unless a survivor converts alike, an exact hit with
+                 no measurement, a near hit
                  (the same generator across a quantisation edge of the row
                  count) promoted to its own key, the tuned ``loops_spmm``
                  against the flat path and a second call and timed beside
-                 the default plan's; at m6 a ``TraceRecorder`` on the
+                 the default plan's in turns (``TUNE_TIMING_ROUNDS`` each;
+                 not slower beyond the readings' spread unless it is the
+                 default's conversion); at m6 a ``TraceRecorder`` on the
                  search, a second search ranked by replay from its
                  records, and dB through ``fmt.transposed(tuner=...)``
                  against the flat path's autograd; an ``Obs`` capture over
@@ -155,14 +159,39 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  (d 2048, d_ff 8192, 32 heads, 90% sparsity, 2 layers, seq
                  512, batch 4: one step's value gradients against the flat
                  path, 3 SGD steps, B1-B5 all launching).
+ 13. fallback -- the engine's fallback chain (``cuda → torch``), off in
+                 every process until a caller opts in: at m6 for the CSR
+                 part (``engine.csr_spmm``, B1) and the fused product
+                 (``loops_spmm``, B1 and B2), and at the sparse FFN's value
+                 gradient (``engine.loops_sdd``, B3 and B4), a fault
+                 injected at the chain's first link raises under the
+                 default policy; opted in, it degrades once to the flat
+                 references (one ``engine.fallback`` count, no kernel
+                 launch, the kernel's result within the fp32 tolerance of
+                 the summation bound) and raises during a CUDA graph
+                 capture; ``validate_loops`` passes on every format this
+                 script built itself (phases 2-4, 5-7, 9, 11 and 13) and
+                 raises on a planted bad ``tile_cols``;
+ 14. gcn_example -- ``examples/gcn_train_torch.py`` at its defaults (the
+                 reference's: 2048 nodes, degree 8, 300 SGD steps, lr 5)
+                 and with ``--autotune``: its 1e-4 gradient check against
+                 the dense adjacency, the loss below 0.7 of its start, the
+                 second layer's plan a cache hit, ms a step;
+ 15. table3   -- ``repro_torch.benchmarks.table3_energy``: Table 3's six
+                 matrices at Table 2's sizes, fp16, N = 32, a loop of at
+                 least 2 s of ``loops_spmm`` and of cuSPARSE between
+                 readings of NVML's energy counter, with ``nvidia-smi``
+                 power samples beside it: GFLOP/s, mean board W, J a call
+                 and GFLOP/s per W, beside the paper's A100 and M4 Pro
+                 columns, the idle power, the card's name and power limit.
 
-Each kernel's launch count is set to 0 just before phases 3-12 drive their
+Each kernel's launch count is set to 0 just before phases 3-15 drive their
 path and read just after; a kernel of a path that did not launch fails the
 run, and so does a launch of a kernel that is not on the path (B5 in
-phases 3-7, B1-B4 in phases 8 and 10 and in phase 12's LM runs, B3/B4 in
-phase 9, B3-B5 in phase 11).  In phase 12 B5 launches twice a layer and
-microbatch in a train step (the forward and the remat recompute; its
-backward is PyTorch, no launch).  A replayed CUDA
+phases 3-7 and 13-15, B1-B4 in phases 8 and 10 and in phase 12's LM runs,
+B3/B4 in phases 9, 14 and 15, B3-B5 in phase 11).  In phase 12 B5
+launches twice a layer and microbatch in a train step (the forward and
+the remat recompute; its backward is PyTorch, no launch).  A replayed CUDA
 graph adds the launches it captured (``repro_torch.dist.step``), and each
 slot the pool builds runs its prefill once eagerly before the capture, so
 B5 counts 16 launches per prefill replay and per slot built.  The last
@@ -203,8 +232,13 @@ reference: loss ``TRAIN_LOSS_TOL`` = 1e-4 relative, gradient norm
 ``TRAIN_GNORM_TOL`` = 1e-3 relative, each leaf ``TRAIN_LEAF_TOL`` = 3e-2 of
 its norm (bf16 activations rounded apart through 16 layers; measured
 1.9e-5, 4.3e-5 and 1.25e-2); the sparse-FFN value gradients within
-the fp32 tolerance of their summation bound, as phase 7.  TF32 is off, and
-so are cuBLAS's reduced-precision bf16 reductions.
+the fp32 tolerance of their summation bound, as phase 7.  Phase 13: a
+degraded call against the kernel's, each element within the fp32
+tolerance of its summation bound.  Phase 14: the example's own gradient
+check, max |g_loops - g_dense| <= 1e-4.  Phase 15: ``loops_spmm`` in fp16
+against the flat path, 1e-3 of max(1, max |flat|) (both accumulate exact
+products in fp32).  TF32 is off, and so are cuBLAS's reduced-precision
+bf16 reductions.
 """
 from __future__ import annotations
 
@@ -270,6 +304,9 @@ FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 1.5e-2, "float16": 3e-3}
 # Phase tune: the autotuner at phase main's matrices (fp32, N = MAIN_N):
 # the search's survivors, the replay search's, and the transposed search's.
 TUNE_TOP_K, TUNE_REPLAY_TOP_K, TUNE_T_TOP_K = 4, 2, 2
+# The tuned plan and the default are each timed this many times, in turns:
+# the tuned one must not be slower beyond the readings' spread.
+TUNE_TIMING_ROUNDS = 3
 # The near-hit matrix: phase main's generator and seed at the row count
 # whose log2 lies 0.05 past the quantisation edge nearest phase main's (the
 # plan cache buckets features in 0.5-wide bins): a different exact key
@@ -319,6 +356,8 @@ SPLIT_UNIT_PANELS = (1, 2, 3)
 HUB_K = 2000
 
 RECORD = {"phases": []}
+# The formats validate_loops passed on (``validated``), for phase 13.
+VALIDATED = []
 
 
 class CheckFailed(RuntimeError):
@@ -734,7 +773,8 @@ def phase_kernels() -> dict:
           f"{most_units} units in one group (want >= 50 in each kernel)")
     # One timing at a mid size per kernel (the main-path times are phase 3).
     a = cases["skewed_300x257"][0].astype(np.float32)
-    fmt = loops_from_csr(csr_from_dense(a), 152, 8, panel_g=8)
+    fmt = validated(loops_from_csr(csr_from_dense(a), 152, 8, panel_g=8),
+                    "kernels skewed_300x257")
     cp = DevicePanels.upload(fmt.csr_panels, dev)
     bp = DevicePanels.upload(fmt.bcsr_panels, dev)
     b = torch.as_tensor(rng.standard_normal((257, 32)).astype(
@@ -899,6 +939,7 @@ def phase_main(launches: dict) -> list:
             fmt, plan = plan_and_convert(csr, device=DEVICE)
             torch.cuda.synchronize()
             convert_s = time.perf_counter() - t0
+            validated(fmt, f"main {mid} {dname}")
             gen = torch.Generator(device=DEVICE).manual_seed(1)
             b = torch.randn((csr.shape[1], MAIN_N), generator=gen,
                             device=DEVICE, dtype=torch.float32).to(dt)
@@ -1207,13 +1248,15 @@ def _tune_matrix(mid, rows, cache, budget, measured, api_mod,
     ``real_search`` with a recorder at m6."""
     import cProfile
     import functools
+    import importlib
 
     import numpy as np
     import torch
-    from repro_torch.core import loops_spmm, plan_and_convert, suite
+    from repro_torch.core import loops_spmm, plan_and_convert, plan_for, suite
     from repro_torch.perf import TraceRecorder
     from repro_torch.tune import (autotune, cache_key, feature_distance,
                                   fingerprint)
+    search_mod = importlib.import_module("repro_torch.tune.search")
 
     def key_of(fp):
         return cache_key(fp, n_cols=MAIN_N, dtype=np.float32, backend="cuda")
@@ -1241,8 +1284,17 @@ def _tune_matrix(mid, rows, cache, budget, measured, api_mod,
     stored = cache.peek(key_of(fp))
     check(lookup_counts(cache)["misses"] == st0["misses"] + 1,
           f"tune {mid}: the first autotune was not a miss")
-    check(len(trials) == TUNE_TOP_K and stored["trials"] == TUNE_TOP_K,
-          f"tune {mid}: {len(trials)} of {TUNE_TOP_K} survivors measured")
+    # The survivors, then the model's plan (plan_for's) unless a survivor
+    # converts the same way (the tuner's divergence on the card).
+    model_plan = plan_for(csr)
+    model_extra = int(not any(search_mod._conversion(p)
+                              == search_mod._conversion(model_plan)
+                              for p, _ in trials[:TUNE_TOP_K]))
+    check(len(trials) == TUNE_TOP_K + model_extra
+          and stored["trials"] == len(trials)
+          and (not model_extra or trials[-1][0] == model_plan),
+          f"tune {mid}: {len(trials)} trials for {TUNE_TOP_K} survivors "
+          f"and {model_extra} model plan")
     check(all(g > 0 for _, g in trials), f"tune {mid}: a trial measured "
           "no throughput")
     best = max(trials, key=lambda t: t[1])
@@ -1250,6 +1302,7 @@ def _tune_matrix(mid, rows, cache, budget, measured, api_mod,
           f"tune {mid}: the winner is not the best measured trial")
     rec.update({"trials": [{"plan": plan_dict(p), "gflops": g}
                            for p, g in trials],
+                "model_plan_measured": bool(model_extra),
                 "winner": plan_dict(plan), "winner_gflops": best[1]})
 
     # exact hit: no measurement
@@ -1310,22 +1363,44 @@ def _tune_matrix(mid, rows, cache, budget, measured, api_mod,
     t0 = time.perf_counter()
     fmt_d, plan_d = plan_and_convert(csr, device=DEVICE)
     torch.cuda.synchronize()
-    rec.update({"default_convert_s": time.perf_counter() - t0,
+    default_convert_s = time.perf_counter() - t0
+    validated(fmt, f"tune {mid} tuned")
+    validated(fmt_d, f"tune {mid} default")
+    # The tuned plan against the default, timed in turns; the run-to-run
+    # spread is the larger relative range of either plan's readings.
+    times = {"tuned": [], "default": []}
+    for _ in range(TUNE_TIMING_ROUNDS):
+        for name, f in (("tuned", fmt), ("default", fmt_d)):
+            times[name].append(time_ms(
+                lambda f=f: loops_spmm(f, b, device=DEVICE)))
+    tuned_ms = statistics.median(times["tuned"])
+    default_ms = statistics.median(times["default"])
+    spread = max((max(t) - min(t)) / statistics.median(t)
+                 for t in times.values())
+    same = search_mod._conversion(plan) == search_mod._conversion(plan_d)
+    check(same or tuned_ms <= default_ms * (1 + spread),
+          f"tune {mid}: the tuned plan {tuned_ms:.4f} ms loses to the "
+          f"default's {default_ms:.4f} ms beyond the spread {spread:.3f}")
+    rec.update({"default_convert_s": default_convert_s,
                 "default_plan": plan_dict(plan_d),
-                "tuned_ms": time_ms(lambda: loops_spmm(fmt, b, device=DEVICE)),
-                "default_ms": time_ms(lambda: loops_spmm(fmt_d, b, device=DEVICE)),
+                "tuned_ms": tuned_ms, "default_ms": default_ms,
+                "tuned_ms_runs": times["tuned"],
+                "default_ms_runs": times["default"], "spread": spread,
+                "tuned_is_default": same,
                 "tuned_max_abs_err": err, "tuned_max_err_of_absprod": rel,
                 "bitwise_repeatable": True})
     del fmt_d
 
     if mid == "m6":
-        rec.update(_tune_m6_extras(csr, fmt, b, cache, recorder, measured))
+        rec.update(_tune_m6_extras(csr, fmt, b, cache, recorder, measured,
+                                   len(trials)))
     del fmt, b
     torch.cuda.empty_cache()
     return rec
 
 
-def _tune_m6_extras(csr, fmt, b, cache, recorder, measured) -> dict:
+def _tune_m6_extras(csr, fmt, b, cache, recorder, measured,
+                    n_trials) -> dict:
     """Phase tune at m6: the recorder's records, a search ranked by replay
     from them, and dB through the tuned transposed format."""
     import importlib
@@ -1338,8 +1413,8 @@ def _tune_m6_extras(csr, fmt, b, cache, recorder, measured) -> dict:
 
     out = {}
     trial_recs = [r for r in recorder.records if r["kind"] == "search_trial"]
-    check(len(trial_recs) == TUNE_TOP_K, f"tune m6: the recorder holds "
-          f"{len(trial_recs)} search_trial records for {TUNE_TOP_K} trials")
+    check(len(trial_recs) == n_trials, f"tune m6: the recorder holds "
+          f"{len(trial_recs)} search_trial records for {n_trials} trials")
     db = TraceDB(records=list(recorder.records))
     coef = db.step_cost("cuda")
     check(coef is not None, "tune m6: the trace records fit no step cost")
@@ -1350,8 +1425,9 @@ def _tune_m6_extras(csr, fmt, b, cache, recorder, measured) -> dict:
                             device=DEVICE)
     torch.cuda.synchronize()
     replay_s = time.perf_counter() - t0
-    check(res.measured == TUNE_REPLAY_TOP_K
-          and len(measured) - n0 == TUNE_REPLAY_TOP_K,
+    # its survivors, and the model's plan unless one converts alike
+    check(res.measured in (TUNE_REPLAY_TOP_K, TUNE_REPLAY_TOP_K + 1)
+          and len(measured) - n0 == res.measured,
           f"tune m6: the replay search measured {res.measured}")
     out["replay_search"] = {
         "search_s": replay_s, "step_cost": [float(c) for c in coef],
@@ -1434,6 +1510,7 @@ def phase_gcn(launches: dict) -> dict:
     adj = suite.gcn_graph(GCN_NODES, GCN_DEGREE, seed=0)
     fmt, plan = plan_and_convert(adj, device=DEVICE)
     setup_s = time.perf_counter() - t0
+    validated(fmt, "gcn adjacency")
     rng = np.random.default_rng(0)
     params = {"w0": (rng.standard_normal((F_IN, F_HID)) * 0.1).astype(
                   np.float32),
@@ -1523,6 +1600,8 @@ def phase_train_gcn(launches: dict) -> dict:
     transpose_build_s = time.perf_counter() - t0
     check(fmt.transposed() is tl, "train_gcn: the transposed format was "
           "built twice")
+    validated(fmt, "train_gcn adjacency")
+    validated(tl.fmt, "train_gcn transposed adjacency")
 
     rng = np.random.default_rng(3)
     gen = torch.Generator(device=DEVICE).manual_seed(20)
@@ -1655,6 +1734,8 @@ def phase_train_ffn(launches: dict) -> list:
         tl.maps_on(DEVICE)
         torch.cuda.synchronize()
         transpose_build_s = time.perf_counter() - t0
+        validated(fmt, f"train_ffn {dname} weight")
+        validated(tl.fmt, f"train_ffn {dname} transposed weight")
         gen = torch.Generator(device=DEVICE).manual_seed(30)
         x = torch.randn(FFN_X_SHAPE, generator=gen, device=DEVICE).to(dt)
         x.requires_grad_(True)
@@ -2195,9 +2276,10 @@ def _pool_plan_check(csr, rec) -> dict:
 
     n_cols = warm_spmm_plan_cache.__kwdefaults__["n_cols"]
     plan = plan_from_record(rec, csr.nrows)
-    fmt = loops_from_csr(csr, plan.r_boundary, plan.br, panel_g=plan.panel_g,
-                         macro_m=plan.macro_m,
-                         pipeline_depth=plan.pipeline_depth)
+    fmt = validated(loops_from_csr(csr, plan.r_boundary, plan.br,
+                                   panel_g=plan.panel_g, macro_m=plan.macro_m,
+                                   pipeline_depth=plan.pipeline_depth),
+                    "serve_obs pool plan")
     fmt.on(DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     b = torch.randn((csr.ncols, n_cols), generator=gen, device=DEVICE)
@@ -2620,6 +2702,8 @@ def phase_operator_bench(launches: dict, out_dir) -> dict:
     # Each strategy's launches in one call, forward and forward+backward
     # (dB on Aᵀ, built by the suite's first backward).
     tl = fmt.transposed()
+    validated(fmt, "operator_bench batched m6")
+    validated(tl.fmt, "operator_bench batched m6 transposed")
     fwd_parts = {"csr_panels_spmm": int(fmt.r_boundary > 0),
                  "bcsr_panels_spmm": int(fmt.r_boundary < fmt.nrows)}
     bwd_parts = {k: v + int(tl.fmt.r_boundary > 0 if k.startswith("csr")
@@ -3127,10 +3211,10 @@ def _train_reduced(launches: dict) -> dict:
             "ms_per_step": wall / REDUCED_STEPS * 1e3}
 
 
-def _example_module():
+def _example_module(name: str = "train_lm_torch"):
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "train_lm_torch", ROOT / "examples" / "train_lm_torch.py")
+        name, ROOT / "examples" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -3256,6 +3340,307 @@ def phase_train_lm(launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the opt-in fallback chain and validate_loops
+# ---------------------------------------------------------------------------
+
+def validated(fmt, what: str):
+    """``fmt`` once ``validate_loops`` has passed on it; the names of the
+    formats so checked go to phase 13's record."""
+    from repro_torch.resilience import validate_loops
+    validate_loops(fmt, what=what)
+    VALIDATED.append(what)
+    return fmt
+
+
+def _counter(obs, name, **labels) -> float:
+    return sum(inst.value for kind, inst in obs.metrics.instruments()
+               if kind == "counter" and inst.name == name
+               and all(inst.labels.get(k) == v for k, v in labels.items()))
+
+
+def _fallback_case(part, site, call, bound, kernels, obs) -> dict:
+    """One chain of phase 13.  A fault injected at the chain's first link
+    ``site`` raises under the process's policy; then the kernel's result;
+    then the same fault, once, with the chains opted in: one
+    ``engine.fallback`` count, none of ``kernels`` launched, each element
+    within the fp32 tolerance of its summation bound ``bound`` of the
+    kernel's result; then, opted in, a fault during a CUDA graph capture
+    raises and degrades nothing."""
+    import torch
+    from repro_torch.resilience import (FallbackPolicy, FaultPlan,
+                                        InjectedFault, set_plan, set_policy)
+
+    def launched(before):
+        after = _read_counts()
+        return {k: after[k] - before[k] for k in kernels}
+
+    def as_tuple(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    rec = {"site": site}
+    set_plan(FaultPlan.parse(f"{site}:raise:0:0"))
+    before = _read_counts()
+    try:
+        call()
+        raised = False
+    except InjectedFault:
+        raised = True
+    torch.cuda.synchronize()
+    check(raised and not any(launched(before).values()),
+          f"fallback {part}: the default policy did not raise at {site}")
+    set_plan(None)
+    before = _read_counts()
+    want = call()
+    torch.cuda.synchronize()
+    rec["kernel_launches"] = launched(before)
+    check(all(rec["kernel_launches"].values()), f"fallback {part}: the "
+          f"kernel call launched {rec['kernel_launches']}")
+    prev = set_policy(FallbackPolicy())
+    try:
+        set_plan(FaultPlan.parse(f"{site}:raise:0:1"))
+        c0 = _counter(obs, "engine.fallback", part=part)
+        before = _read_counts()
+        t0 = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        rec["degraded_s"] = time.perf_counter() - t0
+        rec["degraded_launches"] = launched(before)
+        rec["fallback_count"] = _counter(obs, "engine.fallback",
+                                         part=part) - c0
+        check(rec["fallback_count"] == 1
+              and not any(rec["degraded_launches"].values()),
+              f"fallback {part}: {rec['fallback_count']} engine.fallback "
+              f"counts, launches {rec['degraded_launches']}")
+        errs = [sum_err(g, w, bd) for g, w, bd in
+                zip(as_tuple(got), as_tuple(want), as_tuple(bound))]
+        rec["max_abs_err"] = max(e[0] for e in errs)
+        rec["max_err_of_bound"] = max(e[1] for e in errs)
+        check(rec["max_err_of_bound"] <= TOL["float32"],
+              f"fallback {part}: degraded against the kernel's: "
+              f"{rec['max_err_of_bound']:.3g} of the summation bound")
+        del got, want
+        # A capture that fails keeps raising: nothing degrades in a graph.
+        set_plan(FaultPlan.parse(f"{site}:raise:0:0"))
+        c0 = _counter(obs, "engine.fallback", part=part)
+        graph = torch.cuda.CUDAGraph()
+        err = None
+        try:
+            with torch.cuda.graph(graph):
+                call()
+        except Exception as e:        # noqa: BLE001 - inspected below
+            err = e
+        torch.cuda.synchronize()
+        rec["capture_raised"] = repr(err)[:200]
+        check(isinstance(err, InjectedFault)
+              or isinstance(getattr(err, "__context__", None),
+                            InjectedFault),
+              f"fallback {part}: a capture with a fault at {site} did not "
+              f"raise it ({err!r})")
+        check(_counter(obs, "engine.fallback", part=part) == c0,
+              f"fallback {part}: the chain degraded during a capture")
+        del graph
+    finally:
+        set_plan(None)
+        set_policy(prev)
+    return rec
+
+
+def phase_fallback(launches: dict) -> dict:
+    """Phase 13: the engine's fallback chain on the card
+    (:func:`_fallback_case`) at m6 for ``csr`` (B1 on the CSR part through
+    ``engine.csr_spmm``) and ``fused`` (``loops_spmm``, B1 and B2), and
+    for ``loops``/``sdd`` at the sparse FFN's value gradient (B3 and B4);
+    ``validate_loops`` passes on every format the script built and raises
+    on one with a planted bad ``tile_cols``.  The process's policy (off)
+    is checked first and put back after."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import loops_spmm, plan_and_convert, suite
+    from repro_torch.kernels import engine
+    from repro_torch.models import sparse_linear_from_dense
+    from repro_torch.obs import Obs, set_active
+    from repro_torch.resilience import (SparseInputError, get_policy,
+                                        validate_loops)
+
+    rec = {"phase": "fallback"}
+    check(not get_policy().enabled, "fallback: the process starts with the "
+          "chains on")
+    obs = Obs(source="chip_smoke_fallback")
+    prev_obs = set_active(obs)
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rows = next(r for m, r, _ in MAIN_MATRICES if m == "m6")
+        csr = suite.table2_like("m6", scale_rows=rows, seed=0,
+                                dtype=np.float32)
+        fmt, _ = plan_and_convert(csr, device=DEVICE)
+        validated(fmt, "fallback m6")
+        check(0 < fmt.r_boundary < fmt.nrows, "fallback: m6's plan has "
+              "no CSR part")
+        gen = torch.Generator(device=DEVICE).manual_seed(13)
+        b = torch.randn((csr.shape[1], MAIN_N), generator=gen,
+                        device=DEVICE)
+        dev = fmt.on(DEVICE)
+        afmt = abs_format(fmt)
+        abs_b = b.abs()
+        rec["csr"] = _fallback_case(
+            "csr", "engine.csr.spmm.cuda",
+            lambda: engine.csr_spmm(fmt.csr_part, b, panels=dev.csr),
+            engine.csr_spmm(afmt.csr_part, abs_b, backend="torch"),
+            ("csr_panels_spmm",), obs)
+        rec["fused"] = _fallback_case(
+            "fused", "engine.fused.spmm.cuda",
+            lambda: loops_spmm(fmt, b, device=DEVICE),
+            loops_spmm(afmt, abs_b, device=DEVICE, backend="torch"),
+            ("csr_panels_spmm", "bcsr_panels_spmm"), obs)
+        rec["m6"] = {"rows": csr.nrows, "nnz": csr.nnz,
+                     "r_boundary": fmt.r_boundary}
+        del fmt, dev, afmt, b, abs_b, csr
+
+        rng = np.random.default_rng(4)
+        w = (rng.standard_normal((FFN_D_OUT, FFN_D_IN)) * 0.02).astype(
+            np.float32)
+        layer = sparse_linear_from_dense(torch.from_numpy(w), FFN_SPARSITY,
+                                         device=DEVICE)
+        ffn = validated(layer.fmt, "fallback ffn")
+        x = torch.randn(FFN_X_SHAPE, generator=gen, device=DEVICE)
+        bt = x.transpose(-1, -2).contiguous()
+        dy = torch.randn(FFN_X_SHAPE[:-1] + (FFN_D_OUT,), generator=gen,
+                         device=DEVICE).transpose(-1, -2).contiguous()
+        check(0 < ffn.r_boundary < ffn.nrows, "fallback: the FFN's plan "
+              "has no CSR part")
+        rec["loops_sdd"] = _fallback_case(
+            "loops", "engine.loops.sdd.cuda",
+            lambda: engine.loops_sdd(ffn, dy, bt),
+            engine.loops_sdd(ffn, dy.abs(), bt.abs(), backend="torch"),
+            ("csr_sdd_panels", "bcsr_sdd_panels"), obs)
+        rec["ffn"] = {"shape": [FFN_D_OUT, FFN_D_IN], "nnz": ffn.nnz,
+                      "r_boundary": ffn.r_boundary,
+                      "x_shape": list(FFN_X_SHAPE)}
+
+        # validate_loops: a planted bad tile_cols raises
+        bc = ffn.bcsr_part
+        cols = bc.tile_cols.copy()
+        cols[len(cols) // 2] = bc.shape[1]
+        bad = dataclasses.replace(ffn, bcsr_part=dataclasses.replace(
+            bc, tile_cols=cols))
+        try:
+            validate_loops(bad, what="planted")
+            kind = None
+        except SparseInputError as e:
+            kind = e.kind
+        check(kind == "out-of-range-index", f"fallback: validate_loops on "
+              f"a planted bad tile_cols gave {kind}")
+        rec["validate_loops"] = {"passed": list(VALIDATED),
+                                 "planted_tile_cols": kind}
+        del layer, ffn, bad, x, bt, dy
+    finally:
+        set_active(prev_obs)
+    check(not get_policy().enabled, "fallback: the policy was not put back")
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    for k, v in counts.items():
+        launches[k] += v
+        check(v > 0 if k != "flash_attention" else v == 0,
+              f"fallback: {k} launched {v} times")
+    rec.update(launches=counts, seconds=time.perf_counter() - t0)
+    _release()
+    phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 14: examples/gcn_train_torch.py
+# ---------------------------------------------------------------------------
+
+def phase_gcn_example(launches: dict, work_dir) -> dict:
+    """Phase 14: ``examples/gcn_train_torch.py``'s ``main`` at its
+    defaults (the reference's: 2048 nodes, degree 8, 300 steps, lr 5.0)
+    and once with ``--autotune`` (a fresh plan cache): its 1e-4 gradient
+    check and its loss-decrease check (both raise in the example), the
+    first and last loss and ms a step; B1 and B2 only."""
+    import os
+    rec = {"phase": "gcn_example"}
+    ex = _example_module("gcn_train_torch")
+    os.environ["REPRO_TUNE_CACHE"] = str(pathlib.Path(work_dir) / "gcn_tune")
+    runs = {}
+    for name, argv in (("defaults", []), ("autotune", ["--autotune"])):
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = ex.main(argv + ["--device", DEVICE])
+        res["wall_s"] = time.perf_counter() - t0
+        counts = _read_counts()
+        for k, v in counts.items():
+            launches[k] += v
+            on_path = k in ("csr_panels_spmm", "bcsr_panels_spmm")
+            check(v > 0 if on_path else v == 0, f"gcn_example {name}: {k} "
+                  f"launched {v} times")
+        check(res["grad_err"] <= 1e-4 and res["steps"] >= 40
+              and res["last_loss"] < 0.7 * res["first_loss"],
+              f"gcn_example {name}: {res}")
+        res["launches"] = counts
+        runs[name] = res
+    check(runs["autotune"]["cache"]["misses"] == 1
+          and runs["autotune"]["cache"]["hits"] == 1,
+          f"gcn_example: the second layer did not hit the first's plan "
+          f"({runs['autotune']['cache']})")
+    rec.update(runs)
+    phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 15: Table 3's energy, measured
+# ---------------------------------------------------------------------------
+
+def phase_table3(launches: dict) -> dict:
+    """Phase 15: ``repro_torch.benchmarks.table3_energy`` on the card: for
+    Table 3's six matrices at Table 2's sizes, fp16, N = 32, a loop of at
+    least 2 s of ``loops_spmm`` and of cuSPARSE between readings of NVML's
+    energy counter, with ``nvidia-smi`` power samples beside it: GFLOP/s,
+    mean board W, J a call and GFLOP/s per W for both, beside the paper's
+    A100 and M4 Pro columns; B1 and B2 only."""
+    from repro_torch.benchmarks import table3_energy
+    rec = {"phase": "table3",
+           "nvidia_smi": RECORD["phases"][0].get("nvidia_smi")}
+    _reset_counts()
+    t0 = time.perf_counter()
+    lines = []
+    rows = table3_energy.main(out=lines.append, device=DEVICE)
+    rec["seconds"] = time.perf_counter() - t0
+    counts = _read_counts()
+    for k, v in counts.items():
+        launches[k] += v
+        on_path = k in ("csr_panels_spmm", "bcsr_panels_spmm")
+        check(v > 0 if on_path else v == 0, f"table3: {k} launched {v} "
+              "times")
+    print(f"table3 on {rows[0]['card']}, power limit "
+          f"{rows[0]['power_limit_w']:.0f} W, idle {rows[0]['idle_w']:.1f} W"
+          f" ({rec['nvidia_smi']})", flush=True)
+    for r in rows:
+        for name in ("loops", "cusparse"):
+            m = r[name]
+            check(m["seconds"] >= table3_energy.MIN_LOOP_S
+                  and m["joules"] > 0 and m["smi_samples"] > 0
+                  and 0.5 <= m["smi_mean_w"] / m["mean_w"] <= 2.0,
+                  f"table3 {r['matrix']} {name}: {m}")
+        print(f"table3 {r['matrix']} {r['name']} ({r['rows']} rows, "
+              f"{r['nnz']} nnz): LOOPS {r['loops']['gflops']:.1f} GFLOP/s "
+              f"{r['loops']['mean_w']:.1f} W "
+              f"{r['loops']['gflops_per_w']:.3f} GFLOP/s/W; cuSPARSE "
+              f"({r['cusparse']['dtype']}) {r['cusparse']['gflops']:.1f} "
+              f"GFLOP/s {r['cusparse']['mean_w']:.1f} W "
+              f"{r['cusparse']['gflops_per_w']:.3f} GFLOP/s/W; paper A100 "
+              f"{r['paper_a100_cusparse_fp16_gflops_per_w']}, M4 Pro "
+              f"{r['paper_m4pro_loops_gflops_per_w']}", flush=True)
+    rec.update(rows=rows, launches=counts)
+    phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "csr_panels_spmm": ("src/repro_torch/csrc/csr_spmm.cu",
@@ -3313,6 +3698,9 @@ def main(argv=None) -> int:
         phase_serve_traffic(launches)
         phase_operator_bench(launches, args.out)
         phase_train_lm(launches)
+        phase_fallback(launches)
+        phase_gcn_example(launches, work)
+        phase_table3(launches)
     for k, v in launches.items():
         check(v > 0, f"{k} never launched on the port's paths")
 

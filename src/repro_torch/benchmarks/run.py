@@ -16,6 +16,9 @@ repository root).
             G=1 against tuned-G panel columns
   fig5   -- bf16 SpMM against block-only / csr-only strategies (Fig. 5)
   sec43  -- adaptive scheduling ablation (§4.3)
+  table3 -- energy efficiency (GFLOP/s per W) of LOOPS and cuSPARSE,
+            measured with NVML's energy counter on the card (Table 3);
+            CSV rows only, no bench.json records
   table4 -- end-to-end GCN training (§4.5 / Table 4)
   autotune -- model-only against measured/cached plans + cache hit rates
   batched  -- per-element loop against unrolled stack against native
@@ -26,9 +29,9 @@ repository root).
 
 Every suite runs on ``--device`` (default ``cuda``; without a GPU it
 raises: ``--device cpu`` runs the kernels' plain versions).  The
-reference's ``table3``, ``roofline``, ``spmm_dryrun`` and
-``compress_bytes`` are not ported yet: naming one raises with the ROADMAP
-item that ports it, and writes no record.
+reference's ``roofline``, ``spmm_dryrun`` and ``compress_bytes`` are not
+ported yet: naming one raises with the ROADMAP item that ports it, and
+writes no record.
 
 ``--smoke`` shrinks the suites that support it.  In smoke mode fig4 plans
 deterministically (no calibration), so the grid-step columns are a pure
@@ -61,10 +64,10 @@ HERE = pathlib.Path(__file__).resolve().parent
 DEFAULT_BASELINE = HERE / "baselines" / "BENCH_019.json"
 DEFAULT_OUT = pathlib.Path("build") / "bench"
 
-SUITE_NAMES = ["fig4", "fig5", "sec43", "table4", "autotune", "batched",
-               "serve_traffic"]
+SUITE_NAMES = ["fig4", "fig5", "sec43", "table3", "table4", "autotune",
+               "batched", "serve_traffic"]
 # The reference's suites still to be ported, with the ROADMAP item.
-UNPORTED = {"table3": "A.13", "roofline": "A.13", "spmm_dryrun": "A.13",
+UNPORTED = {"roofline": "A.13", "spmm_dryrun": "A.13",
             "compress_bytes": "A.13"}
 
 
@@ -78,11 +81,12 @@ def _unported(name: str):
 def _suite_registry():
     from . import (autotune_suite, batched_spmm, fig4_throughput,
                    fig5_halfprec, sec43_scheduling, serve_traffic,
-                   table4_gnn)
+                   table3_energy, table4_gnn)
     suites = {
         "fig4": fig4_throughput.main,
         "fig5": fig5_halfprec.main,
         "sec43": sec43_scheduling.main,
+        "table3": table3_energy.main,
         "table4": table4_gnn.main,
         "autotune": autotune_suite.main,
         "batched": batched_spmm.main,

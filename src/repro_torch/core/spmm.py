@@ -9,8 +9,9 @@ fingerprint-keyed plan cache instead.  ``loops_spmm`` executes the hybrid
 ``C = A @ B``: on the default ``"cuda"`` backend both parts fill disjoint
 row ranges of one buffer through the CUDA kernels B1 and B2
 (:func:`repro_torch.kernels.engine.loops_spmm_fused`); the ``"torch"``
-backend runs the flat PyTorch references.  ``loops_spmm_values`` is the
-same product with trainable stored values.
+backend runs the flat PyTorch references (the same entry point's
+``"torch"`` link, which an opted-in fallback chain degrades to).
+``loops_spmm_values`` is the same product with trainable stored values.
 
 Both are differentiable.  On the ``"cuda"`` backend a
 ``torch.autograd.Function`` computes ``dB = Aᵀ·dY`` through B1/B2 on the
@@ -274,20 +275,6 @@ class _ValueGrad(torch.autograd.Function):
                 torch.stack([o[1] for o in outs])), (0, 0)
 
 
-def _flat_product(fmt: LoopsFormat, b, out_dtype, csr_vals=None,
-                  bcsr_vals=None) -> torch.Tensor:
-    """The ``"torch"`` backend: the two parts through the flat references,
-    concatenated; autograd differentiates it natively."""
-    parts = []
-    if fmt.r_boundary > 0:
-        parts.append(engine.csr_spmm(fmt.csr_part, b, backend="torch",
-                                     out_dtype=out_dtype, vals=csr_vals))
-    if fmt.r_boundary < fmt.nrows:
-        parts.append(engine.bcsr_spmm(fmt.bcsr_part, b, backend="torch",
-                                      out_dtype=out_dtype, vals=bcsr_vals))
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
-
-
 def loops_spmm(fmt: LoopsFormat, b, *, device=None,
                backend: str | None = None, out_dtype=None,
                transpose_plan: SpmmPlan | None = None) -> torch.Tensor:
@@ -328,7 +315,8 @@ def loops_spmm(fmt: LoopsFormat, b, *, device=None,
         return _ZeroProduct.apply(b.shape[:-2] + (fmt.nrows, b.shape[-1]),
                                   out_dt, b)
     if backend == "torch":
-        return _flat_product(fmt, b, out_dtype)
+        return engine.loops_spmm_fused(fmt, b, backend="torch",
+                                       out_dtype=out_dtype)
     return _LoopsSpmm.apply(b, fmt, out_dtype, transpose_plan)
 
 
@@ -373,7 +361,9 @@ def loops_spmm_values(fmt: LoopsFormat, csr_vals, bcsr_vals, b, *,
         return _ZeroProduct.apply(b.shape[:-2] + (fmt.nrows, b.shape[-1]),
                                   out_dt, csr_vals, bcsr_vals, b)
     if backend == "torch":
-        return _flat_product(fmt, b, out_dtype, csr_vals, bcsr_vals)
+        return engine.loops_spmm_fused(fmt, b, backend="torch",
+                                       out_dtype=out_dtype,
+                                       csr_vals=csr_vals, bcsr_vals=bcsr_vals)
     return _LoopsSpmmValues.apply(csr_vals, bcsr_vals, b, fmt, out_dtype,
                                   transpose_plan)
 

@@ -23,7 +23,15 @@ point shares:
     (``csr_vals=``/``bcsr_vals=`` on the entry points), and
     :func:`loops_sdd` returns the gradient at the stored values.
 
-There is no fallback chain: a kernel that fails to build or launch raises.
+The four entry points (:func:`csr_spmm`, :func:`bcsr_spmm`,
+:func:`loops_spmm_fused`, :func:`loops_sdd`) run their backend through
+:func:`repro_torch.resilience.fallback.run_chain`: each attempt passes the
+fault point ``engine.{part}.{op}.{link}``.  The chains (``cuda → torch``)
+are off unless a caller installs ``set_policy(FallbackPolicy())``, so by
+default a kernel that fails to build or launch raises; opted in, a failure
+that raises synchronously degrades to the flat references with an
+``engine.fallback`` counter (``resilience/fallback.py`` says what a chain
+cannot catch).
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from ..resilience import fallback as _fallback
 from .panel_common import default_bn
 
 __all__ = [
@@ -300,29 +309,34 @@ def csr_spmm(csr, b: torch.Tensor, *, backend: str | None = None,
                            dtype=out, device=b.device)
     b3, batch = flatten_batch(b)
     n = int(b.shape[-1])
-    if backend == "torch":
-        _note("csr", "spmm", backend=backend, impl="ref", units=csr.nnz,
-              batch=1, n=n)
-        dev = b.device
-        v = _value_tensor(csr.vals, dev) if vals is None else vals
-        y = get_kernel("csr", "spmm", "ref")(
-            _value_tensor(csr.row_ids, dev), _value_tensor(csr.col_idx, dev),
-            v, b3, csr.nrows, out_dtype=out)
-        return unflatten_batch(y, batch)
-    if panels is None:
+    if backend == "cuda" and panels is None:
         raise ValueError("the cuda backend needs the part's device panels")
-    pvals = panel_values(panels, vals)
-    nb = padded_batch(int(b3.shape[0]))
-    _note("csr", "spmm", backend=backend, impl="panels",
-          units=int(panels.rows.shape[0]), batch=nb, n=n,
-          **_panel_note_fields(part="csr", depth=1,
-                               npanels=int(panels.rows.shape[0]), nb=nb, n=n,
-                               g=int(panels.cols.shape[1]), br=1,
-                               b_dtype=b.dtype, value_dtype=pvals.dtype))
-    y = get_kernel("csr", "spmm", "panels")(
-        panels.rows, panels.cols, pvals, panels.mask, b3,
-        nrows=csr.nrows, units=panels.units, out_dtype=out)
-    return unflatten_batch(y, batch)
+
+    def attempt(bk: str) -> torch.Tensor:
+        if bk == "torch":
+            _note("csr", "spmm", backend=bk, impl="ref", units=csr.nnz,
+                  batch=1, n=n)
+            dev = b.device
+            v = _value_tensor(csr.vals, dev) if vals is None else vals
+            y = get_kernel("csr", "spmm", "ref")(
+                _value_tensor(csr.row_ids, dev),
+                _value_tensor(csr.col_idx, dev), v, b3, csr.nrows,
+                out_dtype=out)
+            return unflatten_batch(y, batch)
+        pvals = panel_values(panels, vals)
+        nb = padded_batch(int(b3.shape[0]))
+        _note("csr", "spmm", backend=bk, impl="panels",
+              units=int(panels.rows.shape[0]), batch=nb, n=n,
+              **_panel_note_fields(part="csr", depth=1,
+                                   npanels=int(panels.rows.shape[0]), nb=nb,
+                                   n=n, g=int(panels.cols.shape[1]), br=1,
+                                   b_dtype=b.dtype, value_dtype=pvals.dtype))
+        y = get_kernel("csr", "spmm", "panels")(
+            panels.rows, panels.cols, pvals, panels.mask, b3,
+            nrows=csr.nrows, units=panels.units, out_dtype=out)
+        return unflatten_batch(y, batch)
+
+    return _fallback.run_chain("csr", "spmm", backend, attempt)
 
 
 def bcsr_spmm(bcsr, b: torch.Tensor, *, backend: str | None = None,
@@ -341,56 +355,94 @@ def bcsr_spmm(bcsr, b: torch.Tensor, *, backend: str | None = None,
                            dtype=out, device=b.device)
     b3, batch = flatten_batch(b)
     n = int(b.shape[-1])
-    if backend == "torch":
-        _note("bcsr", "spmm", backend=backend, impl="ref",
-              units=int(bcsr.ntiles), batch=1, n=n)
-        dev = b.device
-        v = _value_tensor(bcsr.tile_vals, dev) if vals is None else vals
-        y = get_kernel("bcsr", "spmm", "ref")(
-            _value_tensor(bcsr.tile_rows, dev),
-            _value_tensor(bcsr.tile_cols, dev), v, b3, bcsr.nblocks,
-            out_dtype=out)
-        return unflatten_batch(y[:, :bcsr.nrows], batch)
-    if panels is None:
+    if backend == "cuda" and panels is None:
         raise ValueError("the cuda backend needs the part's device panels")
-    pvals = panel_values(panels, vals)
-    nb = padded_batch(int(b3.shape[0]))
-    _note("bcsr", "spmm", backend=backend, impl="panels",
-          units=int(panels.rows.shape[0]), batch=nb, n=n,
-          **_panel_note_fields(part="bcsr", depth=1,
-                               npanels=int(panels.rows.shape[0]), nb=nb, n=n,
-                               g=int(panels.cols.shape[1]), br=bcsr.br,
-                               b_dtype=b.dtype, value_dtype=pvals.dtype))
-    y = get_kernel("bcsr", "spmm", "panels")(
-        panels.rows, panels.cols, pvals, panels.mask, b3,
-        nblocks=bcsr.nblocks, units=panels.units, out_dtype=out)
-    return unflatten_batch(y[:, :bcsr.nrows], batch)
+
+    def attempt(bk: str) -> torch.Tensor:
+        if bk == "torch":
+            _note("bcsr", "spmm", backend=bk, impl="ref",
+                  units=int(bcsr.ntiles), batch=1, n=n)
+            dev = b.device
+            v = _value_tensor(bcsr.tile_vals, dev) if vals is None else vals
+            y = get_kernel("bcsr", "spmm", "ref")(
+                _value_tensor(bcsr.tile_rows, dev),
+                _value_tensor(bcsr.tile_cols, dev), v, b3, bcsr.nblocks,
+                out_dtype=out)
+            return unflatten_batch(y[:, :bcsr.nrows], batch)
+        pvals = panel_values(panels, vals)
+        nb = padded_batch(int(b3.shape[0]))
+        _note("bcsr", "spmm", backend=bk, impl="panels",
+              units=int(panels.rows.shape[0]), batch=nb, n=n,
+              **_panel_note_fields(part="bcsr", depth=1,
+                                   npanels=int(panels.rows.shape[0]), nb=nb,
+                                   n=n, g=int(panels.cols.shape[1]),
+                                   br=bcsr.br, b_dtype=b.dtype,
+                                   value_dtype=pvals.dtype))
+        y = get_kernel("bcsr", "spmm", "panels")(
+            panels.rows, panels.cols, pvals, panels.mask, b3,
+            nblocks=bcsr.nblocks, units=panels.units, out_dtype=out)
+        return unflatten_batch(y[:, :bcsr.nrows], batch)
+
+    return _fallback.run_chain("bcsr", "spmm", backend, attempt)
 
 
-def loops_spmm_fused(fmt, b: torch.Tensor, *, out_dtype=None,
-                     csr_vals=None, bcsr_vals=None) -> torch.Tensor:
+def loops_spmm_fused(fmt, b: torch.Tensor, *, backend: str | None = None,
+                     out_dtype=None, csr_vals=None, bcsr_vals=None
+                     ) -> torch.Tensor:
     """Single-pass hybrid SpMM into ONE output buffer.
 
-    Allocates ``(batch, r_boundary + nblocks*Br, N)`` once; the CSR-part
-    kernel fills rows ``[0, r_boundary)`` and the BCSR-part kernel the rows
-    from ``r_boundary`` on, in the same buffer (a part with no rows is not
-    launched).  Every row is written by exactly one kernel, so the buffer
-    needs no initialisation and there is no concatenation; the final trim
-    to ``nrows`` is a view.  Unlike the reference, the boundary need not be
-    a multiple of Br: the BCSR kernel takes a row offset, not a block
-    offset.  The format's panels are taken from ``fmt.on(b.device)``;
-    ``csr_vals``/``bcsr_vals`` (live ``(nnz,)`` / ``(ntiles, Br)`` values)
-    replace their uploaded values.
+    On ``"cuda"``: allocates ``(batch, r_boundary + nblocks*Br, N)`` once;
+    the CSR-part kernel fills rows ``[0, r_boundary)`` and the BCSR-part
+    kernel the rows from ``r_boundary`` on, in the same buffer (a part with
+    no rows is not launched).  Every row is written by exactly one kernel,
+    so the buffer needs no initialisation and there is no concatenation;
+    the final trim to ``nrows`` is a view.  Unlike the reference, the
+    boundary need not be a multiple of Br: the BCSR kernel takes a row
+    offset, not a block offset.  The format's panels are taken from
+    ``fmt.on(b.device)``; ``csr_vals``/``bcsr_vals`` (live ``(nnz,)`` /
+    ``(ntiles, Br)`` values) replace their uploaded values.
+
+    On ``"torch"``, the last link of the fused chain: the flat product,
+    each part through its flat reference (:func:`csr_spmm` and
+    :func:`bcsr_spmm` on ``"torch"``) and the rows concatenated, which
+    autograd differentiates natively.  ``core.spmm.loops_spmm(backend=
+    "torch")`` runs it too, so a degraded fused call is that product.
     """
+    backend = resolve_backend(backend)
     check_rhs(fmt.ncols, b)
-    dev = fmt.on(b.device)
-    cvals = panel_values(dev.csr, csr_vals)
-    bvals = panel_values(dev.bcsr, bcsr_vals)
-    vdt = cvals.dtype
+    vdt = (csr_vals.dtype if csr_vals is not None
+           else torch_dtype(fmt.csr_part.vals.dtype))
     _, out = resolve_dtypes(vdt, out_dtype)
     if _empty_batch(b):
         return torch.zeros(b.shape[:-2] + (fmt.nrows, b.shape[-1]),
                            dtype=out, device=b.device)
+
+    def attempt(bk: str) -> torch.Tensor:
+        if bk == "torch":
+            return _flat_product(fmt, b, out_dtype, csr_vals, bcsr_vals)
+        return _fused_kernels(fmt, b, out, vdt, csr_vals, bcsr_vals)
+
+    return _fallback.run_chain("fused", "spmm", backend, attempt)
+
+
+def _flat_product(fmt, b, out_dtype, csr_vals, bcsr_vals) -> torch.Tensor:
+    """The fused chain's ``"torch"`` link: both parts through the flat
+    references, concatenated."""
+    parts = []
+    if fmt.r_boundary > 0:
+        parts.append(csr_spmm(fmt.csr_part, b, backend="torch",
+                              out_dtype=out_dtype, vals=csr_vals))
+    if fmt.r_boundary < fmt.nrows:
+        parts.append(bcsr_spmm(fmt.bcsr_part, b, backend="torch",
+                               out_dtype=out_dtype, vals=bcsr_vals))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+
+
+def _fused_kernels(fmt, b, out, vdt, csr_vals, bcsr_vals) -> torch.Tensor:
+    """The fused chain's ``"cuda"`` link: B1 and B2 into one buffer."""
+    dev = fmt.on(b.device)
+    cvals = panel_values(dev.csr, csr_vals)
+    bvals = panel_values(dev.bcsr, bcsr_vals)
     b3, batch = flatten_batch(b)
     n = int(b.shape[-1])
     nb = padded_batch(int(b3.shape[0]))
@@ -446,31 +498,48 @@ def loops_sdd(fmt, dy: torch.Tensor, b: torch.Tensor, *,
     if dy.ndim < 2 or dy.shape[-2] != fmt.nrows:
         raise ValueError(f"dy must be (..., {fmt.nrows}, N); got "
                          f"{tuple(dy.shape)}")
-    csr, bc = fmt.csr_part, fmt.bcsr_part
     acc = acc_dtype_for(b.dtype)
-    has_csr, has_bcsr = fmt.r_boundary > 0, fmt.r_boundary < fmt.nrows
 
     # A part with no rows, or an empty batch, has a zero gradient.
-    d_csr = torch.zeros((csr.nnz,), dtype=acc, device=b.device)
-    d_bcsr = torch.zeros(bc.tile_vals.shape, dtype=acc, device=b.device)
+    d_csr = torch.zeros((fmt.csr_part.nnz,), dtype=acc, device=b.device)
+    d_bcsr = torch.zeros(fmt.bcsr_part.tile_vals.shape, dtype=acc,
+                         device=b.device)
     if _empty_batch(b):
         return d_csr, d_bcsr
-    if backend == "torch":
-        dev = b.device
-        if has_csr:
-            d_csr = get_kernel("csr", "sdd", "ref")(
-                _value_tensor(csr.row_ids, dev),
-                _value_tensor(csr.col_idx, dev), dy, b)
-        if has_bcsr:
-            # The BCSR region of the cotangent, zero-padded to whole
-            # blocks: rows the forward pass trims carry zero gradient.
-            dy_b = dy[..., fmt.r_boundary:, :]
-            pad = bc.nblocks * bc.br - dy_b.shape[-2]
-            dy_pad = torch.nn.functional.pad(dy_b, (0, 0, 0, pad))
-            d_bcsr = get_kernel("bcsr", "sdd", "ref")(
-                _value_tensor(bc.tile_rows, dev),
-                _value_tensor(bc.tile_cols, dev), dy_pad, b, bc.nblocks)
-        return d_csr, d_bcsr
+
+    def attempt(bk: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        if bk == "torch":
+            return _sdd_refs(fmt, dy, b, d_csr, d_bcsr)
+        return _sdd_kernels(fmt, dy, b, d_csr, d_bcsr)
+
+    return _fallback.run_chain("loops", "sdd", backend, attempt)
+
+
+def _sdd_refs(fmt, dy, b, d_csr, d_bcsr):
+    """The ``"torch"`` link of :func:`loops_sdd`: the flat references."""
+    csr, bc = fmt.csr_part, fmt.bcsr_part
+    dev = b.device
+    if fmt.r_boundary > 0:
+        d_csr = get_kernel("csr", "sdd", "ref")(
+            _value_tensor(csr.row_ids, dev),
+            _value_tensor(csr.col_idx, dev), dy, b)
+    if fmt.r_boundary < fmt.nrows:
+        # The BCSR region of the cotangent, zero-padded to whole
+        # blocks: rows the forward pass trims carry zero gradient.
+        dy_b = dy[..., fmt.r_boundary:, :]
+        pad = bc.nblocks * bc.br - dy_b.shape[-2]
+        dy_pad = torch.nn.functional.pad(dy_b, (0, 0, 0, pad))
+        d_bcsr = get_kernel("bcsr", "sdd", "ref")(
+            _value_tensor(bc.tile_rows, dev),
+            _value_tensor(bc.tile_cols, dev), dy_pad, b, bc.nblocks)
+    return d_csr, d_bcsr
+
+
+def _sdd_kernels(fmt, dy, b, d_csr, d_bcsr):
+    """The ``"cuda"`` link of :func:`loops_sdd`: B3 and B4 on the panels."""
+    bc = fmt.bcsr_part
+    acc = acc_dtype_for(b.dtype)
+    has_csr, has_bcsr = fmt.r_boundary > 0, fmt.r_boundary < fmt.nrows
     dev = fmt.on(b.device)
     b3, _ = flatten_batch(b)
     dy3, _ = flatten_batch(dy)
@@ -482,7 +551,7 @@ def loops_sdd(fmt, dy: torch.Tensor, b: torch.Tensor, *,
     for part, on, panels in (("csr", has_csr, dev.csr),
                              ("bcsr", has_bcsr, dev.bcsr)):
         if on:
-            _note(part, "sdd", backend=backend, impl="panels",
+            _note(part, "sdd", backend="cuda", impl="panels",
                   units=int(panels.rows.shape[0]), batch=nb, n=n,
                   pipeline_depth=int(fmt.pipeline_depth))
     if has_csr:

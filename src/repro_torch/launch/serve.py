@@ -39,8 +39,11 @@ On the CPU, reduced, with a capture:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --reduced --device cpu --batch 2 --prompt-len 8 --gen-len 4 --obs
 
-Not ported yet: the engine fallback chains (A.11) and the mesh flags
-(A.12/A.13).
+The engine's fallback chains (``repro_torch.resilience.fallback``) stay
+off here, as everywhere until a caller installs
+``set_policy(FallbackPolicy())``: a kernel that fails raises into the
+step's retries, and inside the pool's CUDA graph captures a chain would
+re-raise in any case.  Not ported yet: the mesh flags (A.12/A.13).
 """
 from __future__ import annotations
 

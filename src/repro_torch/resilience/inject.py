@@ -11,9 +11,11 @@ sites fail deterministically — the tests and the CI chaos smoke use this to
 *prove* each documented fallback actually fires.
 
 Sites the port passes (the reference's registry, docs/robustness.md, also
-has the engine's fallback attempts, ``dist.psum.*`` and ``train.step``,
-whose seams are not ported yet):
+has ``dist.psum.*`` and ``train.step``, whose seams are not ported yet):
 
+  * ``engine.{part}.{op}.{link}`` — one attempt of an engine fallback
+    chain (``resilience/fallback.py``): ``engine.csr.spmm.cuda``,
+    ``engine.fused.spmm.torch``, ``engine.loops.sdd.cuda``, ...;
   * ``cache.read`` — plan-cache file parse (payload: the raw bytes);
   * ``tune.trial`` — one tuner measurement trial;
   * ``serve.step`` / ``serve.prefill`` — host-level step calls (the

@@ -1,9 +1,10 @@
 """Validated sparse ingestion: the defect taxonomy, strict and repair modes.
 
-Port of ``repro/resilience/validate.py`` restricted to what the port's
-paths call: :func:`validate_coo` (from ``core.formats.csr_from_coo``) and
-:func:`validate_csr` (from ``core.spmm.plan_and_convert``), both strict by
-default, and :func:`check_finite_tree` (the training launcher's restore).
+Port of ``repro/resilience/validate.py``: :func:`validate_coo` (from
+``core.formats.csr_from_coo``) and :func:`validate_csr` (from
+``core.spmm.plan_and_convert``), both strict by default,
+:func:`validate_loops` (a converted format's two parts, on the host
+arrays) and :func:`check_finite_tree` (the training launcher's restore).
 A malformed CSR must never reach Algorithm 1 or the kernels, which index
 with it.
 
@@ -33,8 +34,8 @@ import torch
 from .inject import note_degraded
 
 __all__ = ["SparseInputError", "ValidationReport", "DEFECT_KINDS",
-           "csr_defects", "validate_coo", "validate_csr", "repair_counts",
-           "check_finite_tree"]
+           "csr_defects", "validate_coo", "validate_csr", "validate_loops",
+           "repair_counts", "check_finite_tree"]
 
 DEFECT_KINDS = ("shape-mismatch", "dtype-mismatch", "length-mismatch",
                 "nonmonotone-indptr", "negative-index",
@@ -270,6 +271,54 @@ def validate_csr(csr, *, repair: Optional[str] = None):
     return out, ValidationReport(defects=defects,
                                  repaired={k: v for k, v in repaired.items()
                                            if v})
+
+
+# ---------------------------------------------------------------------------
+# LOOPS hybrid format
+# ---------------------------------------------------------------------------
+
+def validate_loops(fmt, *, what: str = "LoopsFormat") -> ValidationReport:
+    """Strict structural validation of a converted
+    :class:`repro_torch.core.formats.LoopsFormat` (both parts, on its host
+    numpy arrays) — raises :class:`SparseInputError`; repair belongs
+    upstream (re-run the conversion on a repaired CSR)."""
+    if not 0 <= fmt.r_boundary <= fmt.nrows:
+        raise SparseInputError(
+            "shape-mismatch", f"{what}: r_boundary={fmt.r_boundary} outside "
+            f"[0, {fmt.nrows}]")
+    defects = csr_defects(fmt.csr_part.row_ptr, fmt.csr_part.col_idx,
+                          fmt.csr_part.vals, fmt.csr_part.shape)
+    if defects:
+        raise SparseInputError(defects[0],
+                               f"{what}: CSR part failed: {list(defects)}")
+    bc = fmt.bcsr_part
+    if bc.br <= 0:
+        raise SparseInputError("shape-mismatch",
+                               f"{what}: BCSR br={bc.br} must be positive")
+    bp = np.asarray(bc.block_ptr, np.int64)
+    if bp.shape[0] != bc.nblocks + 1 or bp[0] != 0 or bp[-1] != bc.ntiles \
+            or (np.diff(bp) < 0).any():
+        raise SparseInputError("nonmonotone-indptr",
+                               f"{what}: BCSR block_ptr is inconsistent")
+    tr = np.asarray(bc.tile_rows, np.int64)
+    tc = np.asarray(bc.tile_cols, np.int64)
+    if (np.diff(tr) < 0).any():
+        raise SparseInputError("nonmonotone-indptr",
+                               f"{what}: BCSR tile_rows must be nondecreasing")
+    if (tr < 0).any() or (tc < 0).any():
+        raise SparseInputError("negative-index",
+                               f"{what}: negative BCSR tile coordinate")
+    if (tr >= max(bc.nblocks, 1)).any() or (tc >= bc.ncols).any():
+        raise SparseInputError("out-of-range-index",
+                               f"{what}: BCSR tile coordinate out of range")
+    if bc.tile_vals.shape != (bc.ntiles, bc.br):
+        raise SparseInputError(
+            "length-mismatch", f"{what}: tile_vals shape "
+            f"{bc.tile_vals.shape} != (ntiles={bc.ntiles}, br={bc.br})")
+    if not _finite_mask(np.asarray(bc.tile_vals)).all():
+        raise SparseInputError("nonfinite-value",
+                               f"{what}: nonfinite BCSR tile value")
+    return ValidationReport()
 
 
 # ---------------------------------------------------------------------------

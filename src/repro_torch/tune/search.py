@@ -19,9 +19,20 @@ Changes from the reference, each pinned by a test
 
   * **The timed window.** :func:`measure_plan_gflops` uploads the format
     and builds B1/B2's unit tables (``fmt.on(device)``) and counts its
-    nonzeros before the clock starts, and every timed call ends in a device
-    synchronisation, so a candidate is ranked by its kernels' time and not
-    by its host upload (the serving warm-up measures with ``warmup=0``).
+    nonzeros before the clock starts, so a candidate is ranked by its
+    kernels' time and not by its host upload (the serving warm-up measures
+    with ``warmup=0``).  On a CUDA device a trial is timed with CUDA
+    events around a run of :data:`CUDA_RUN_CALLS` back-to-back calls, the
+    median of ``budget.repeats`` runs: a host clock around one
+    synchronised call also counts the host's share of the call and the
+    synchronisation, about half of a call's time at pwtk's size.  On the
+    CPU each call is timed alone on the host clock.
+  * **The model's plan is a trial.** On a CUDA device the plan that
+    :func:`repro_torch.core.spmm.plan_for` gives (what ``plan_and_convert``
+    runs without a tuner) is measured after the survivors when no
+    survivor converts the same way and ``budget.max_trials`` leaves room,
+    so the tuned plan does not lose to the model's by more than the
+    timing's spread.  The survivors themselves are the reference's.
   * **Trial isolation.** Only an injected fault (``tune.trial``, or one
     injected inside the measurement) and the ``trial_timeout_s`` overrun
     skip a trial.  Any other exception propagates: on ``"cuda"`` it is a
@@ -47,7 +58,7 @@ import torch
 from ..core.formats import CSR, LoopsFormat, loops_from_csr
 from ..core.partition import choose_r_boundary, regularity_boundary
 from ..core.perf_model import QuadraticPerfModel, fit_perf_model
-from ..core.spmm import SpmmPlan, loops_spmm
+from ..core.spmm import SpmmPlan, loops_spmm, plan_for
 from ..kernels import engine
 from ..kernels.bcsr_spmm import KERNEL_BRS
 from ..resilience.fallback import classify
@@ -150,23 +161,37 @@ def enumerate_plans(csr: CSR, *, total_workers: int = 8,
     return plans
 
 
+# Back-to-back calls in one timed run of a trial on a CUDA device.
+CUDA_RUN_CALLS = 5
+
+
 def _time_fn(fn, *args, repeats: int, warmup: int,
              device: torch.device) -> float:
-    """Median wall seconds per call, each call ending in a synchronisation
-    of ``device`` (a CUDA device; the CPU needs none) before the clock
-    stops."""
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    """Median seconds per call of ``fn(*args)`` after ``warmup`` calls.  On
+    a CUDA device: CUDA events around each of ``repeats`` runs of
+    :data:`CUDA_RUN_CALLS` back-to-back calls, read once the run's end
+    event has completed, divided by the calls; on the CPU: the host clock
+    around each call."""
     for _ in range(warmup):
         fn(*args)
-        sync()
     ts = []
-    for _ in range(max(repeats, 1)):
-        t0 = time.perf_counter()
-        fn(*args)
-        sync()
-        ts.append(time.perf_counter() - t0)
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            torch.cuda.synchronize()
+            for _ in range(max(repeats, 1)):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(CUDA_RUN_CALLS):
+                    fn(*args)
+                end.record()
+                end.synchronize()
+                ts.append(start.elapsed_time(end) / 1e3 / CUDA_RUN_CALLS)
+    else:
+        for _ in range(max(repeats, 1)):
+            t0 = time.perf_counter()
+            fn(*args)
+            ts.append(time.perf_counter() - t0)
     return float(np.median(ts))
 
 
@@ -197,6 +222,17 @@ def measure_plan_gflops(csr: CSR, plan: SpmmPlan, b: torch.Tensor, *,
         secs = _time_fn(call, b, repeats=budget.repeats,
                         warmup=budget.warmup, device=b.device)
     return fmt, 2.0 * nnz * effective_n_cols(b.shape) / secs / 1e9
+
+
+def _on_card(b: torch.Tensor) -> bool:
+    """Whether the search measures on a CUDA device, where the model's own
+    plan joins the trials (the module docstring's divergence)."""
+    return b.device.type == "cuda"
+
+
+def _conversion(p: SpmmPlan) -> tuple:
+    """The knobs that change a plan's conversion (not its worker split)."""
+    return (p.r_boundary, p.br, p.panel_g, p.macro_m, p.pipeline_depth)
 
 
 def _step_reduction_priors(csr: CSR, g_choices: Sequence[int]
@@ -361,15 +397,13 @@ def search(csr: CSR, *, n_cols: int = 32, rhs_shape=None,
         if base in seen_base:
             continue
         seen_base.add(base)
-        seen_conv.add((p.r_boundary, p.br, p.panel_g, p.macro_m,
-                       p.pipeline_depth))
+        seen_conv.add(_conversion(p))
         survivors.append(p)
         if len(survivors) >= k:
             break
     if len(survivors) < k:
         for p in scored:
-            conv = (p.r_boundary, p.br, p.panel_g, p.macro_m,
-                    p.pipeline_depth)
+            conv = _conversion(p)
             if conv in seen_conv:
                 continue
             seen_conv.add(conv)
@@ -379,9 +413,16 @@ def search(csr: CSR, *, n_cols: int = 32, rhs_shape=None,
 
     meas = measure or (lambda c, p, bb: measure_plan_gflops(
         c, p, bb, backend=backend, budget=budget))
+    to_measure = list(survivors)
+    if backend == "cuda" and _on_card(b):
+        model_plan = plan_for(csr, total_workers=total_workers,
+                              tp_vpu=tp_vpu, tp_mxu=tp_mxu)
+        if _conversion(model_plan) not in seen_conv \
+                and len(to_measure) < budget.max_trials:
+            to_measure.append(model_plan)
     trials: List[Tuple[SpmmPlan, float]] = []
     best_plan, best_fmt, best_g = None, None, -1.0
-    for p in survivors:
+    for p in to_measure:
         # Trial isolation: an injected fault (``tune.trial`` is the chaos
         # injection site) or, under ``trial_timeout_s``, a grossly
         # overrunning candidate must not abort the whole search.  The

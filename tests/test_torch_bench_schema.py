@@ -1,9 +1,11 @@
 """The port's bench-record schema and validator against the reference's
 (``tests/test_bench_schema.py``): the schema copy
 (``src/repro_torch/benchmarks/bench_schema.json``) is the reference's file
-byte for byte, ``repro_torch.perf.schema`` gives the reference
-validator's answers on the same cases, and the port's records (the
-committed smoke baseline, a live obs capture) validate."""
+but for the port's two trace backends, ``cuda`` and ``torch``, added to
+the two trace ``backend`` enums; ``repro_torch.perf.schema`` gives the
+reference validator's answers on the same cases; and the port's records
+(the committed smoke baseline, a live obs capture, a live trace file)
+validate."""
 import json
 import pathlib
 
@@ -65,14 +67,43 @@ CASES = [
 ]
 
 
+# The port's trace backends, added to the reference's enums of the trace
+# records' ``backend``: a trace record names what ran.
+PORT_BACKENDS = ["cuda", "torch"]
+TRACE_BACKEND_DEFS = ("trace_dispatch", "trace_spmm")
+
+
 def test_schema_copy_equals_reference():
-    assert PORT_SCHEMA.read_bytes() == REF_SCHEMA.read_bytes()
+    """Parsed, the port's schema is the reference's once the two trace
+    enums lose ``cuda`` and ``torch``; the text is the reference's with
+    those two enum lines changed and nothing else."""
+    port = json.loads(PORT_SCHEMA.read_text())
+    ref = json.loads(REF_SCHEMA.read_text())
+    for name in TRACE_BACKEND_DEFS:
+        enum = port["definitions"][name]["properties"]["backend"]["enum"]
+        assert enum[-2:] == PORT_BACKENDS
+        del enum[-2:]
+    assert port == ref
+    port_lines = PORT_SCHEMA.read_text().splitlines()
+    ref_lines = REF_SCHEMA.read_text().splitlines()
+    assert len(port_lines) == len(ref_lines)
+    changed = [(a, b) for a, b in zip(port_lines, ref_lines) if a != b]
+    assert len(changed) == 2
+    for a, b in changed:
+        assert a == b.replace('"jnp"]', '"jnp", "cuda", "torch"]')
 
 
 @pytest.mark.parametrize("recs,ref", CASES)
 def test_validator_gives_the_reference_answers(recs, ref):
-    want = rschema.validate(recs, ref, rschema.load_schema(REF_SCHEMA))
-    assert tschema.validate(recs, ref, SCHEMA) == want
+    """The port's validator on the reference's schema gives the reference
+    validator's answers; on the port's schema, the same answers but for a
+    trace record naming one of the port's backends, which passes."""
+    ref_schema = rschema.load_schema(REF_SCHEMA)
+    want = rschema.validate(recs, ref, ref_schema)
+    assert tschema.validate(recs, ref, ref_schema) == want
+    port_backend = any(r.get("backend") in PORT_BACKENDS for r in recs)
+    assert tschema.validate(recs, ref, SCHEMA) == ([] if port_backend
+                                                   else want)
 
 
 def test_committed_baseline_validates():
@@ -113,3 +144,39 @@ def test_live_obs_records_validate(rng, tmp_path):
     assert {r["kind"] for r in recs} == {"meta", "span", "counter", "gauge",
                                          "hist"}
     assert tschema.validate(recs, OBS_REF, SCHEMA) == []
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_live_trace_records_validate(rng, tmp_path, backend):
+    """A trace file written by the port's ``TraceRecorder`` on the CPU
+    (engine dispatches of both parts, a measured SpMM cell, a search
+    trial and wrapped steps, all naming the port's backend) validates
+    line for line against trace_file."""
+    from repro_torch.core import csr_from_dense, loops_from_csr, loops_spmm
+    from repro_torch.core.spmm import SpmmPlan
+    from repro_torch.perf.trace import TraceRecorder, load_traces
+
+    a = ((rng.random((48, 32)) < 0.1)
+         * rng.standard_normal((48, 32))).astype(np.float32)
+    csr = csr_from_dense(a)
+    plan = SpmmPlan(r_boundary=16, t_vpu=2, t_mxu=2, br=8)
+    fmt = loops_from_csr(csr, plan.r_boundary, plan.br)
+    rec = TraceRecorder(source="schema-test")
+    with rec.attach_engine():
+        loops_spmm(fmt, torch.ones((32, 8)), device="cpu", backend=backend)
+    rec.record_spmm(csr, plan, wall_s=1e-4, n_cols=8, backend=backend)
+    rec.record_spmm(csr, plan, wall_s=2e-4, n_cols=8, backend=backend,
+                    kind="search_trial", gflops=1.0)
+    step = rec.wrap_step(lambda x: x + 1, op="decode")
+    step(1)
+    step(2)
+    recs = load_traces(rec.save(tmp_path / "trace.jsonl"))
+    assert {r["kind"] for r in recs} == {"dispatch", "spmm", "search_trial",
+                                         "step"}
+    assert {r["backend"] for r in recs if "backend" in r} == {backend}
+    assert {r["part"] for r in recs if r["kind"] == "dispatch"} == {
+        "csr", "bcsr"}
+    assert tschema.validate(recs, TRACE_REF, SCHEMA) == []
+    # the reference's schema refuses the same file: what the enums add
+    assert tschema.validate(recs, TRACE_REF,
+                            rschema.load_schema(REF_SCHEMA))

@@ -86,8 +86,8 @@ def test_dense_baseline_refuses_over_budget():
         a, torch.as_tensor(tf.csr_to_dense(csr)))
 
 
-@pytest.mark.parametrize("suite_name", ["fig4", "fig5", "sec43", "table4",
-                                        "autotune", "batched"])
+@pytest.mark.parametrize("suite_name", ["fig4", "fig5", "sec43", "table3",
+                                        "table4", "autotune", "batched"])
 def test_suites_run_on_the_card_by_default(suite_name):
     """Without a GPU a suite called with no device raises before it
     measures anything: there is no fallback to the CPU."""
@@ -96,3 +96,107 @@ def test_suites_run_on_the_card_by_default(suite_name):
     from repro_torch.benchmarks import run
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run._suite_registry()[suite_name](out=lambda line: None)
+
+
+# ---------------------------------------------------------------------------
+# Table 3
+# ---------------------------------------------------------------------------
+
+def test_table3_cpu_rows_are_the_references():
+    """On the CPU, Table 3's rows have the reference's names, matrices
+    (1024 rows, seed 6) and flop counts, and the paper's two columns; the
+    energy columns are left out, and the records say so."""
+    from benchmarks import table3_energy as r3
+    from repro_torch.benchmarks import table3_energy as t3
+    ref_rows, rows = [], []
+    r3.main(out=ref_rows.append)
+    recs = t3.main(out=rows.append, device="cpu")
+    assert [r.split(",")[0] for r in rows] == \
+        [r.split(",")[0] for r in ref_rows]
+    assert [(m, a, b) for m, a, b in t3.PAPER_TABLE3] == r3.PAPER_TABLE3
+    for rec, (mid, a100, m4) in zip(recs, r3.PAPER_TABLE3):
+        want = rsuite.table2_like(mid, scale_rows=1024, seed=6)
+        assert rec["matrix"] == mid and rec["nnz"] == want.nnz
+        assert rec["flops"] == 2.0 * want.nnz * r3.N
+        assert rec["paper_a100_cusparse_fp16_gflops_per_w"] == a100
+        assert rec["paper_m4pro_loops_gflops_per_w"] == m4
+        assert "not measured" in rec["energy"]
+        assert not {"loops", "cusparse", "idle_w"} & set(rec)
+    assert all(",nan," in r for r in rows)
+
+
+def test_table3_runs_from_the_runner_without_records(tmp_path):
+    """``run --only table3`` (no longer unported) writes its CSV rows and
+    no bench.json record."""
+    import json
+    from repro_torch.benchmarks import run
+    assert "table3" not in run.UNPORTED and "table3" in run.SUITE_NAMES
+    out = tmp_path / "bench"
+    assert run.main(["--only", "table3", "--device", "cpu",
+                     "--out", str(out)]) == 0
+    assert json.loads((out / "bench.json").read_text()) == []
+    csv = (out / "bench.csv").read_text().splitlines()
+    assert len([ln for ln in csv if ln.startswith("table3_")]) == 6
+
+
+def test_table3_without_nvml_raises_and_writes_no_number(monkeypatch):
+    """On a CUDA device without NVML there is no reading, so no number:
+    the suite raises before it measures anything."""
+    import ctypes
+    from repro_torch.benchmarks import table3_energy as t3
+
+    def no_lib(name, *a, **k):
+        raise OSError(f"{name}: cannot open shared object file")
+    monkeypatch.setattr(ctypes, "CDLL", no_lib)
+    monkeypatch.setattr(t3, "resolve_device",
+                        lambda d: torch.device("cuda", 0))
+    rows = []
+    with pytest.raises(t3.NvmlError, match="no Table 3 number"):
+        t3.main(out=rows.append)
+    assert rows == []
+
+
+class _FakeNvml:
+    """A board that draws 250 W while the energy counter is read."""
+    name, pci_bus_id = "fake", None
+
+    def __init__(self):
+        import time
+        self.t0 = time.perf_counter()
+
+    def energy_j(self):
+        import time
+        return 250.0 * (time.perf_counter() - self.t0)
+
+
+class _FakeSampler:
+    def start(self):
+        pass
+
+    def stop(self):
+        return [240.0, 260.0]
+
+
+def test_table3_measurement_arithmetic_on_the_cpu(monkeypatch):
+    """The measured columns' arithmetic, run on CPU tensors with a fake
+    energy counter: a loop lasts at least its minimum, GFLOP/s per W is
+    the flop rate over the counter's mean power, and ``loops_spmm``
+    agrees with the flat path."""
+    from repro_torch.benchmarks import table3_energy as t3
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    csr = t3._matrix("m6", 512)
+    b = np.random.default_rng(2).standard_normal((csr.shape[1], t3.N))
+    flops = 2.0 * csr.nnz * t3.N
+    rec = t3._measure(csr, b, torch.device("cpu"), _FakeNvml(),
+                      _FakeSampler(), flops, 0.05)
+    assert rec["max_err"] <= t3.TOL
+    for name in ("loops", "cusparse"):
+        m = rec[name]
+        assert m["seconds"] >= 0.05 and m["calls"] % t3.LOOP_CHUNK == 0
+        assert m["mean_w"] == pytest.approx(250.0, rel=1e-3)
+        assert m["smi_mean_w"] == 250.0 and m["smi_samples"] == 2
+        assert m["gflops"] == pytest.approx(
+            flops * m["calls"] / m["seconds"] / 1e9)
+        assert m["gflops_per_w"] == pytest.approx(m["gflops"] / m["mean_w"])
+        assert m["j_per_call"] == pytest.approx(m["joules"] / m["calls"])
+    assert rec["cusparse"]["dtype"] in ("float16", "float32")

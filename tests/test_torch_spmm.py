@@ -3,6 +3,7 @@ CPU against the JAX reference's ``loops_spmm(backend="jnp")`` and dense
 numpy, the structural step counts, the GCN forward, and the port's guards
 (no JAX import, CUDA by default, autograd never cut)."""
 import contextlib
+import pathlib
 import subprocess
 import sys
 
@@ -302,14 +303,21 @@ def test_baselines_match_reference(rng):
 # ---------------------------------------------------------------------------
 
 def test_import_pulls_in_neither_jax_nor_the_reference():
-    code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
-            "repro_torch.models, repro_torch.resilience, "
-            "repro_torch.perf.schema\n"
+    example = (pathlib.Path(__file__).resolve().parents[1] / "examples"
+               / "gcn_train_torch.py")
+    code = ("import sys, importlib.util, repro_torch, repro_torch.core, "
+            "repro_torch.kernels, repro_torch.models, "
+            "repro_torch.resilience, repro_torch.perf.schema\n"
             "from repro_torch.kernels import _build\n"
+            "from repro_torch.resilience import fallback, validate\n"
             "from repro_torch.benchmarks import (run, perf_gate, "
             "fig4_throughput, fig5_halfprec, sec43_scheduling, "
-            "batched_spmm, autotune_suite, table4_gnn, serve_traffic)\n"
+            "batched_spmm, autotune_suite, table3_energy, table4_gnn, "
+            "serve_traffic)\n"
             "run._suite_registry()\n"
+            f"spec = importlib.util.spec_from_file_location('ex', "
+            f"{str(example)!r})\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"

@@ -16,8 +16,10 @@
   give the reference's plans; an autotuned ``loops_spmm`` matches the
   reference's ``backend="jnp"``.
 * The deliberate divergences: depth pinned on ``"cuda"``, Br 2 not a
-  candidate there, a non-injected trial error propagating, and the timed
-  window (upload before the first timed call, a sync after each).
+  candidate there, a non-injected trial error propagating, the timed
+  window (upload before the first timed call; on the CPU a sync after
+  each call, on a CUDA device CUDA events around runs of calls), and on a
+  CUDA device the model's plan measured after the reference's survivors.
 
 No test touches ``~/.cache/repro-tune``: ``$REPRO_TUNE_CACHE`` points at a
 temporary directory for every test here.
@@ -376,6 +378,94 @@ def test_timed_window_uploads_first_and_syncs_every_call(monkeypatch):
     assert events == ["upload", "upload", "call", "call", "call"]
     assert "nnz" in fmt.__dict__ and str(b.device) in fmt._device_cache
     assert g > 0
+
+
+class _FakeEvent:
+    """A stand-in for ``torch.cuda.Event`` on the CPU: ``elapsed_time``
+    gives the milliseconds of a fixed per-run schedule."""
+    runs = []
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+
+    def record(self):
+        pass
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return self.runs.pop(0)
+
+
+def test_cuda_timing_is_events_around_runs_of_calls(monkeypatch):
+    """On a CUDA device ``_time_fn`` runs the warm-up, synchronises once
+    and times ``repeats`` runs of ``CUDA_RUN_CALLS`` calls with CUDA
+    events: the median run's milliseconds over its calls."""
+    import contextlib
+    events = []
+    _FakeEvent.runs = [5.0, 15.0, 10.0]
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: events.append("sync"))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    secs = tsearch._time_fn(lambda: events.append("call"), repeats=3,
+                            warmup=2, device=torch.device("cuda", 0))
+    assert events == ["call"] * 2 + ["sync"] + (
+        ["call"] * 3 * tsearch.CUDA_RUN_CALLS)
+    assert secs == pytest.approx(10.0 / 1e3 / tsearch.CUDA_RUN_CALLS)
+
+
+@pytest.mark.parametrize("top_k", [2, 4])
+@pytest.mark.parametrize("mid", ["m4", "m8", "m12"])
+def test_model_plan_is_measured_after_the_survivors_on_the_card(
+        monkeypatch, mid, top_k):
+    """Divergence: on a CUDA device the search measures the reference's
+    survivors in the reference's order and then ``plan_for``'s plan, unless
+    a survivor converts the same way; the best measured plan wins, the
+    model's included."""
+    monkeypatch.setattr(tsearch, "_on_card", lambda b: True)
+    cr, cp = pair(mid)
+    logs = ([], [])
+    budget = dict(top_k=top_k, max_trials=top_k + 1)
+    rsearch.search(cr, n_cols=8, backend="pallas", depth_choices=(1,),
+                   br_choices=(4, 8), budget=rsearch.SearchBudget(**budget),
+                   measure=measure_with(rf, logs[0]))
+    model_plan = tspmm.plan_for(cp)
+
+    def measure(csr, plan, b):
+        fmt, g = measure_with(tf, logs[1])(csr, plan, b)
+        g = 100.0 if plan == model_plan else g
+        return fmt, g
+    got = tsearch.search(cp, n_cols=8, backend="cuda", device="cpu",
+                         budget=tsearch.SearchBudget(**budget),
+                         measure=measure)
+    survivors = [as_tuple(p) for p in logs[0]]
+    assert [as_tuple(p) for p in logs[1][:len(survivors)]] == survivors
+    conv = tsearch._conversion
+    if any(conv(p) == conv(model_plan) for p in logs[1][:len(survivors)]):
+        assert len(logs[1]) == len(survivors)
+    else:
+        assert logs[1][len(survivors):] == [model_plan]
+        assert got.plan == model_plan and got.gflops == 100.0
+
+
+def test_model_plan_respects_max_trials_and_stays_off_the_cpu(monkeypatch):
+    """The model's plan is measured only within ``max_trials``, and never
+    on the CPU (where the search measures the reference's trials alone)."""
+    _, cp = pair("m4")
+    model_plan = tspmm.plan_for(cp)
+    for on_card, max_trials, want in ((True, 2, False), (True, 3, True),
+                                      (False, 3, False)):
+        monkeypatch.setattr(tsearch, "_on_card", lambda b: on_card)
+        log = []
+        tsearch.search(cp, n_cols=8, backend="cuda", device="cpu",
+                       budget=tsearch.SearchBudget(top_k=2,
+                                                   max_trials=max_trials),
+                       measure=measure_with(tf, log))
+        assert (model_plan in log) == want, (on_card, max_trials)
+    assert not tsearch._on_card(torch.zeros(1))
 
 
 # ---------------------------------------------------------------------------
