@@ -184,12 +184,43 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  power samples beside it: GFLOP/s, mean board W, J a call
                  and GFLOP/s per W, beside the paper's A100 and M4 Pro
                  columns, the idle power, the card's name and power limit.
+ 16. distributed -- the distributed LOOPS operator
+                 (``repro_torch.core.distributed``) on ``DIST_RANKS`` = 4
+                 ranks, processes of their own (``spawn``) sharing the one
+                 card on gloo (NCCL refuses two ranks on one device), each
+                 with a ``file://`` store and a gloo timeout of
+                 ``DIST_TIMEOUT_S``: ``make_test_mesh`` (1 x 4),
+                 ``shard_loops_auto`` at m6 in a fresh plan cache (a miss,
+                 then a hit), ``distributed_spmm`` at m6 fp32 and fp64
+                 (N = 32) against the single-device ``loops_spmm`` on the
+                 card at the summation bound, two calls bitwise equal, the
+                 stacked layout (a ``DTensor``) against the assembled rows,
+                 a batch of 3, dB through autograd (assembled and stacked)
+                 against the single-device flat path's autograd at |A|ᵀ·|dY|
+                 and bitwise equal on every rank; m4 fp32 forward; and
+                 ``compressed_psum`` on 1 << 22 fp32 elements a rank
+                 (int8 / bf16 / none within 2e-2 / 1e-2 / 1e-6 of the exact
+                 sum, bitwise equal on every rank, the ``dist.collective_
+                 bytes`` gauge at n + 4n/D, 2n and 4n, a ``dist.psum.int8``
+                 fault on rank 0 raising on every rank by default and
+                 degrading every rank to the fp32 sum once opted in); host
+                 ms of the forward, backward, single-device call and the
+                 collectives alone, with the backend, ``nvidia-smi``'s
+                 compute mode, name and power limit.  The ranks share one
+                 card: the times are the operator's overhead there, not
+                 multi-GPU scaling.  A rank that fails, or a phase past
+                 ``DIST_TIMEOUT_S``, fails the run.
 
-Each kernel's launch count is set to 0 just before phases 3-15 drive their
+Each kernel's launch count is set to 0 just before phases 3-16 drive their
 path and read just after; a kernel of a path that did not launch fails the
 run, and so does a launch of a kernel that is not on the path (B5 in
-phases 3-7 and 13-15, B1-B4 in phases 8 and 10 and in phase 12's LM runs,
-B3/B4 in phases 9, 14 and 15, B3-B5 in phase 11).  In phase 12 B5
+phases 3-7, 13-16, B1-B4 in phases 8 and 10 and in phase 12's LM runs,
+B3/B4 in phases 9, 14, 15 and 16, B3-B5 in phase 11).  In phase 16 each
+rank counts its own launches, the forward apart from the backward: in the
+forward a CSR-group rank launches B1 alone and a BCSR-group rank B2 alone,
+once a call; in the backward each launches B1 / B2 once a call for each
+part of its chunk's transposed format; the kernels line adds every rank's
+counts.  In phase 12 B5
 launches twice a layer and microbatch in a train step (the forward and
 the remat recompute; its backward is PyTorch, no launch).  A replayed CUDA
 graph adds the launches it captured (``repro_torch.dist.step``), and each
@@ -235,7 +266,9 @@ its norm (bf16 activations rounded apart through 16 layers; measured
 the fp32 tolerance of their summation bound, as phase 7.  Phase 13: a
 degraded call against the kernel's, each element within the fp32
 tolerance of its summation bound.  Phase 14: the example's own gradient
-check, max |g_loops - g_dense| <= 1e-4.  Phase 15: ``loops_spmm`` in fp16
+check, max |g_loops - g_dense| <= 1e-4.  Phase 16: the forward against
+the single-device ``loops_spmm`` at the dtype's tolerance of |A|·|B|, dB
+against the flat path's at that of |A|ᵀ·|dY|, as phase 3.  Phase 15: ``loops_spmm`` in fp16
 against the flat path, 1e-3 of max(1, max |flat|) (both accumulate exact
 products in fp32).  TF32 is off, and so are cuBLAS's reduced-precision
 bf16 reductions.
@@ -354,6 +387,18 @@ EX_STEPS = 3
 # and at B1's own unit size with G = 1).
 SPLIT_UNIT_PANELS = (1, 2, 3)
 HUB_K = 2000
+
+# Phase distributed: DIST_RANKS processes share the card, one rank each, on
+# gloo (NCCL refuses two ranks on one device); each rank's gloo timeout and
+# the phase's wall-clock limit.  m6 fp32 and fp64 (N = MAIN_N; a batch of
+# DIST_BATCH right-hand sides), m4 fp32 forward; compressed_psum on
+# DIST_PSUM_N fp32 elements a rank (the reference benchmark's shard),
+# within the reference test's bounds of the exact sum.
+DIST_RANKS = 4
+DIST_TIMEOUT_S = 120
+DIST_BATCH = 3
+DIST_PSUM_N = 1 << 22
+DIST_PSUM_BOUND = {"int8": 2e-2, "bf16": 1e-2, "none": 1e-6}
 
 RECORD = {"phases": []}
 # The formats validate_loops passed on (``validated``), for phase 13.
@@ -3641,6 +3686,442 @@ def phase_table3(launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the distributed operator, DIST_RANKS ranks on the card
+# ---------------------------------------------------------------------------
+
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def _dist_ms(fn, *, samples: int = 5, reps: int = 3) -> float:
+    """Host ms a call of the collective ``fn``, every rank in step: the
+    median over ``samples`` of ``reps`` calls between a barrier and a
+    synchronise, after one warm-up call."""
+    import torch
+    import torch.distributed as dist
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / reps)
+    return statistics.median(times)
+
+
+def _rank_counts(what: str, counts: dict, want: dict) -> dict:
+    for k, v in counts.items():
+        w = want.get(k, 0)
+        check(v == w, f"{what}: {k} launched {v} times (expected {w})")
+    return counts
+
+
+def _dist_matrix(rank, mesh, world, csr, dname, cache_dir, full: bool) -> dict:
+    """One matrix of phase 16 on one rank: ``plan_and_convert``, the split
+    (a fresh plan cache: a miss, then a hit), the distributed forward
+    against the single-device ``loops_spmm`` on rank 0, and with ``full``
+    two calls bitwise equal, the stacked and batched layouts and dB through
+    autograd (assembled and stacked) against the single-device flat path's
+    autograd on rank 0; the launch counts of the forward and the backward;
+    with ``full`` in fp32 the times."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import (distributed_spmm, loops_spmm,
+                                  plan_and_convert, shard_loops_auto)
+    from repro_torch.tune import PlanCache
+
+    dt = getattr(torch, dname)
+    tol = TOL[dname]
+    out = {"dtype": dname, "rows": csr.nrows, "nnz": csr.nnz}
+    t0 = time.perf_counter()
+    fmt, plan = plan_and_convert(csr, device=DEVICE)
+    out["plan_and_convert_s"] = time.perf_counter() - t0
+    cache = PlanCache(str(cache_dir))
+    t0 = time.perf_counter()
+    sh = shard_loops_auto(fmt, world, cache=cache)
+    out["split_miss_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = shard_loops_auto(fmt, world, cache=cache)
+    out["split_hit_s"] = time.perf_counter() - t0
+    check((cache.stats.misses, cache.stats.hits) == (1, 1)
+          and again.g_vpu == sh.g_vpu, f"distributed {dname}: the split "
+          f"cache gave {cache.stats} and g_vpu {again.g_vpu} / {sh.g_vpu}")
+    check(sum(sh.row_count) == csr.nrows, f"distributed {dname}: rows "
+          f"{sh.row_count} do not sum to {csr.nrows}")
+    csr_rank = rank < sh.g_vpu
+    o, c = sh.row_offset[rank], sh.row_count[rank]
+    out.update(r_boundary=plan.r_boundary, g_vpu=sh.g_vpu,
+               rows_pad=int(sh.rows_pad),
+               row_count=[int(v) for v in sh.row_count],
+               row_offset=[int(v) for v in sh.row_offset],
+               group="csr" if csr_rank else "bcsr")
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    b = torch.randn((csr.shape[1], MAIN_N), generator=gen, device=DEVICE,
+                    dtype=torch.float32).to(dt)
+    dy = torch.randn((csr.nrows, MAIN_N), generator=gen, device=DEVICE,
+                     dtype=torch.float32).to(dt)
+    b3 = torch.randn((DIST_BATCH,) + tuple(b.shape), generator=gen,
+                     device=DEVICE, dtype=torch.float32).to(dt)
+
+    # the main path: the forward calls, then the backward, counted apart
+    _reset_counts()
+    t0 = time.perf_counter()
+    bg = b.clone().requires_grad_()
+    y = distributed_spmm(sh, bg, mesh, device=DEVICE)
+    torch.cuda.synchronize()
+    out["first_call_s"] = time.perf_counter() - t0
+    fwd_calls = 1
+    if full:
+        y2 = distributed_spmm(sh, b, mesh, device=DEVICE)
+        st = distributed_spmm(sh, bg, mesh, assemble=False, device=DEVICE)
+        y3 = distributed_spmm(sh, b3, mesh, device=DEVICE)
+        fwd_calls = 4
+    torch.cuda.synchronize()
+    part = "csr_panels_spmm" if csr_rank else "bcsr_panels_spmm"
+    out["forward_launches"] = _rank_counts(
+        f"distributed {dname} rank {rank} forward", _read_counts(),
+        {part: fwd_calls if c else 0})
+    check(y.shape == (csr.nrows, MAIN_N) and bool(torch.isfinite(y).all()),
+          f"distributed {dname}: bad output {tuple(y.shape)}")
+    if full:
+        _reset_counts()
+        t0 = time.perf_counter()
+        (db,) = torch.autograd.grad(y, bg, dy)
+        loc = st.to_local()
+        (db_st,) = torch.autograd.grad(loc[0, :c], bg, dy[o:o + c])
+        torch.cuda.synchronize()
+        out["first_backward_s"] = time.perf_counter() - t0
+        # two backward calls, each B1 / B2 on the parts of the chunk's Aᵀ
+        tfmt = sh.chunk(rank).transposed(dtype=dt).fmt if c else None
+        want = {} if tfmt is None else {
+            "csr_panels_spmm": 2 * int(tfmt.r_boundary > 0),
+            "bcsr_panels_spmm": 2 * int(tfmt.r_boundary < tfmt.nrows)}
+        out["backward_launches"] = _rank_counts(
+            f"distributed {dname} rank {rank} backward", _read_counts(),
+            want)
+        out["transposed_r_boundary"] = None if tfmt is None else \
+            tfmt.r_boundary
+        check(torch.equal(y, y2), f"distributed {dname}: two calls differ")
+        check(tuple(st.shape) == (world, sh.rows_pad, MAIN_N)
+              and torch.equal(loc[0, :c], y[o:o + c])
+              and not bool(loc[0, c:].any()),
+              f"distributed {dname} rank {rank}: the stacked shard is not "
+              "its rows of the assembled result")
+        check(torch.equal(db, db_st), f"distributed {dname} rank {rank}: "
+              "dB differs between the assembled and the stacked layouts")
+        out["db_sha256"] = _digest(db)
+        out["y_sha256"] = _digest(y)
+
+    if rank == 0:
+        # against the single-device loops_spmm (and its flat path's
+        # autograd) on the card; these launches are outside the count
+        afmt = abs_format(fmt)
+        ref = loops_spmm(fmt, b, device=DEVICE)
+        absprod = loops_spmm(afmt, b.abs(), device=DEVICE, backend="torch")
+        out["max_abs_err"], out["err_of_absprod"] = sum_err(
+            y.detach(), ref, absprod)
+        check(out["err_of_absprod"] <= tol, f"distributed {dname} vs "
+              f"loops_spmm: {out['err_of_absprod']:.3g} of |A||B| > {tol:g}")
+        if full:
+            ref3 = loops_spmm(fmt, b3, device=DEVICE)
+            e3 = sum_err(y3, ref3, loops_spmm(afmt, b3.abs(), device=DEVICE,
+                                              backend="torch"))
+            out["batched_err_of_absprod"] = e3[1]
+            check(y3.shape == (DIST_BATCH, csr.nrows, MAIN_N)
+                  and e3[1] <= tol, f"distributed {dname} batched: "
+                  f"{e3[1]:.3g} of |A||B| > {tol:g}")
+            bt = b.clone().requires_grad_()
+            (db_ref,) = torch.autograd.grad(
+                loops_spmm(fmt, bt, device=DEVICE, backend="torch"), bt, dy)
+            ba = torch.zeros_like(b).requires_grad_()
+            (db_abs,) = torch.autograd.grad(
+                loops_spmm(afmt, ba, device=DEVICE, backend="torch"), ba,
+                dy.abs())
+            out["db_max_abs_err"], out["db_err_of_absprod"] = sum_err(
+                db, db_ref, db_abs)
+            check(out["db_err_of_absprod"] <= tol, f"distributed {dname} "
+                  f"dB vs the flat path: {out['db_err_of_absprod']:.3g} of "
+                  f"|A|ᵀ|dY| > {tol:g}")
+            del ref3, bt, ba, db_ref, db_abs
+        del afmt, ref, absprod
+        torch.cuda.synchronize()
+    dist.barrier()
+
+    if full and dname == "float32":
+        def single():
+            loops_spmm(fmt, b, device=DEVICE)
+        yt = distributed_spmm(sh, bg, mesh, device=DEVICE)
+        out["ms"] = {
+            "forward": _dist_ms(lambda: distributed_spmm(sh, b, mesh,
+                                                         device=DEVICE)),
+            "backward": _dist_ms(lambda: torch.autograd.grad(
+                yt, bg, dy, retain_graph=True)),
+            "all_gather": _dist_ms(lambda: dist.all_gather(
+                [torch.empty_like(loc[0]) for _ in range(world)],
+                loc[0].contiguous())),
+            "all_reduce_db": _dist_ms(lambda: dist.all_reduce(db.clone()))}
+        if rank == 0:
+            single()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    single()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3 / 3)
+            out["ms"]["single_device"] = statistics.median(times)
+        dist.barrier()
+    return out
+
+
+def _dist_psum(rank, world) -> dict:
+    """``compressed_psum`` on DIST_PSUM_N fp32 elements a rank: each
+    precision within its bound of the exact sum (an fp64 all-reduce), the
+    same bits on every rank, its wire bytes on the obs gauge and its host
+    ms; then a ``dist.psum.int8`` fault on rank 0 alone, which raises on
+    every rank under the default policy and degrades every rank to the
+    fp32 sum once opted in."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import compressed_psum
+    from repro_torch.obs import Obs, set_active
+    from repro_torch.resilience import fallback, inject
+
+    gen = torch.Generator(device=DEVICE).manual_seed(100 + rank)
+    x = torch.randn(DIST_PSUM_N, generator=gen, device=DEVICE)
+    exact = x.double()
+    dist.all_reduce(exact)
+    out = {"n": DIST_PSUM_N}
+    obs = Obs(source="chip_smoke_distributed")
+    prev = set_active(obs)
+    try:
+        for prec, bound_ in DIST_PSUM_BOUND.items():
+            got = compressed_psum(x, None, prec)
+            torch.cuda.synchronize()
+            err = float((got.double() - exact).abs().max()
+                        / exact.abs().max())
+            check(err < bound_, f"compressed_psum {prec}: error {err:.3g} "
+                  f">= {bound_:g}")
+            gauge = obs.metrics.gauge("dist.collective_bytes", kind="psum",
+                                      precision=prec).value
+            n = DIST_PSUM_N
+            want = {"int8": n + 4 * n // world, "bf16": 2 * n,
+                    "none": 4 * n}[prec]
+            check(gauge == want, f"compressed_psum {prec}: gauge {gauge} "
+                  f"bytes, expected {want}")
+            out[prec] = {"err": err, "bytes": gauge, "sha256": _digest(got),
+                         "ms": _dist_ms(lambda p=prec:
+                                        compressed_psum(x, None, p))}
+        plain = compressed_psum(x, None, "none")
+        inject.set_plan(inject.FaultPlan.parse("dist.psum.int8:raise:0:0")
+                        if rank == 0 else None)
+        try:
+            compressed_psum(x, None, "int8")
+            raised = None
+        except Exception as e:   # noqa: BLE001 - what raised is the result
+            raised = type(e).__name__
+        check(raised == ("InjectedFault" if rank == 0 else "RuntimeError"),
+              f"compressed_psum rank {rank}: a fault on rank 0 under the "
+              f"default policy gave {raised}")
+        prev_policy = fallback.set_policy(fallback.FallbackPolicy())
+        try:
+            degraded = compressed_psum(x, None, "int8")
+        finally:
+            fallback.set_policy(prev_policy)
+            inject.set_plan(None)
+        counts = sum(inst.value for kind, inst in obs.metrics.instruments()
+                     if kind == "counter" and inst.name == "dist.fallback")
+        check(torch.equal(degraded, plain) and counts == 1,
+              f"compressed_psum rank {rank}: the opted-in fault gave "
+              f"{counts} dist.fallback counts, equal to the fp32 sum: "
+              f"{torch.equal(degraded, plain)}")
+        out["fault"] = {"default_policy_raised": raised,
+                        "opted_in_fallbacks": counts}
+    finally:
+        set_active(prev)
+    return out
+
+
+def _dist_rank(rank: int, world: int, init_method: str, work: str,
+               results) -> None:
+    """One rank of phase 16, in a process of its own (``spawn``): puts a
+    record, or the traceback of what failed, on ``results``."""
+    import traceback
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        import datetime
+
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        from repro_torch.core import suite
+        from repro_torch.launch.mesh import backend_for, make_test_mesh
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        backend = backend_for(DEVICE, world)
+        dist.init_process_group(
+            backend, init_method=init_method, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        mesh = make_test_mesh(1, world, device=DEVICE)
+        rec = {"rank": rank, "backend": backend}
+        t0 = time.perf_counter()
+        rows = next(r for m, r, _ in MAIN_MATRICES if m == "m6")
+        base = suite.table2_like("m6", scale_rows=rows, seed=0,
+                                 dtype=np.float32)
+        rec["m6"] = [
+            _dist_matrix(rank, mesh, world, base.astype(np.dtype(dname)),
+                         dname, pathlib.Path(work) / f"m6_{dname}_{rank}",
+                         full=True)
+            for dname in ("float32", "float64")]
+        del base
+        rows = next(r for m, r, _ in MAIN_MATRICES if m == "m4")
+        csr = suite.table2_like("m4", scale_rows=rows, seed=0,
+                                dtype=np.float32)
+        m4 = _dist_matrix(rank, mesh, world, csr, "float32",
+                          pathlib.Path(work) / f"m4_{rank}", full=False)
+        # which rank owns the longest row (in-2004's hub)
+        hub = int(np.argmax(np.diff(csr.row_ptr)))
+        m4["longest_row"] = {"row": hub, "nnz": int(np.diff(
+            csr.row_ptr)[hub]), "rank": next(
+            d for d, (o, c) in enumerate(zip(m4["row_offset"],
+                                             m4["row_count"]))
+            if o <= hub < o + c)}
+        rec["m4"] = m4
+        del csr
+        rec["compressed_psum"] = _dist_psum(rank, world)
+        rec["seconds"] = time.perf_counter() - t0
+        dist.barrier()
+        dist.destroy_process_group()
+        results.put(rec)
+    except BaseException:   # noqa: BLE001 - the parent fails the run on it
+        results.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def phase_distributed(launches: dict, work_dir) -> dict:
+    """Phase 16: ``DIST_RANKS`` ranks, processes of their own (``spawn``)
+    sharing the card, run the distributed operator
+    (``repro_torch.core.distributed``) through ``make_test_mesh``,
+    ``shard_loops_auto`` and ``distributed_spmm``: m6 fp32 and fp64 (the
+    split a plan-cache miss then a hit, the forward against the
+    single-device ``loops_spmm``, two calls bitwise equal, the stacked and
+    batched layouts, dB through autograd against the single-device flat
+    path and bitwise equal on every rank), m4 fp32 forward, and
+    ``compressed_psum`` (:func:`_dist_psum`).  In the forward a CSR-group
+    rank launches B1 alone and a BCSR-group rank B2 alone; B3-B5 never.
+    Any rank that fails, or a phase past ``DIST_TIMEOUT_S``, fails the
+    run."""
+    import multiprocessing as mp
+    import queue
+
+    import torch
+    torch.cuda.empty_cache()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,compute_mode",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    work = pathlib.Path(work_dir) / "distributed"
+    work.mkdir()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_dist_rank, args=(
+        r, DIST_RANKS, f"file://{work}/store", str(work), results))
+        for r in range(DIST_RANKS)]
+    t0 = time.perf_counter()
+    recs, failed = {}, None
+    try:
+        for p in procs:
+            p.start()
+        while len(recs) < DIST_RANKS and failed is None:
+            if time.perf_counter() - t0 > DIST_TIMEOUT_S:
+                failed = f"not done after {DIST_TIMEOUT_S} s"
+                break
+            try:
+                r = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    failed = f"a rank exited {dead} without a record"
+                continue
+            if "error" in r:
+                failed = f"rank {r['rank']} failed:\n{r['error']}"
+            recs[r["rank"]] = r
+        for p in procs:
+            p.join(timeout=max(DIST_TIMEOUT_S - (time.perf_counter() - t0),
+                               5.0) if failed is None else 0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    seconds = time.perf_counter() - t0
+    check(failed is None, f"distributed: {failed}")
+    check(all(p.exitcode == 0 for p in procs), f"distributed: ranks exited "
+          f"{[p.exitcode for p in procs]}")
+
+    ranks = [recs[r] for r in range(DIST_RANKS)]
+    counts = {k: 0 for k in KERNELS}
+    for r in ranks:
+        for m in r["m6"] + [r["m4"]]:
+            for key in ("forward_launches", "backward_launches"):
+                for k, v in m.get(key, {}).items():
+                    counts[k] += v
+    for k, v in counts.items():
+        launches[k] += v
+        check(v > 0 if k.endswith("spmm") else v == 0,
+              f"distributed: {k} launched {v} times")
+    for i, dname in enumerate(("float32", "float64")):
+        for key in ("db_sha256", "y_sha256"):
+            digests = {r["m6"][i][key] for r in ranks}
+            check(len(digests) == 1, f"distributed m6 {dname}: {key} "
+                  f"differs across ranks")
+    for prec in DIST_PSUM_BOUND:
+        check(len({r["compressed_psum"][prec]["sha256"]
+                   for r in ranks}) == 1,
+              f"compressed_psum {prec}: ranks disagree")
+    m6 = [{**ranks[0]["m6"][i],
+           "ms": {k: max(r["m6"][i].get("ms", {}).get(k, 0.0)
+                         for r in ranks)
+                  for k in ranks[0]["m6"][i].get("ms", {})}}
+          for i in range(2)]
+    rec = {"phase": "distributed", "ranks": DIST_RANKS,
+           "backend": ranks[0]["backend"], "nvidia_smi": smi,
+           "note": f"{DIST_RANKS} ranks share one card and move their "
+                   "collectives through gloo (host memory): the times show "
+                   "the operator's overhead on one card, not multi-GPU "
+                   "scaling",
+           "m6": m6, "m4": ranks[0]["m4"],
+           "compressed_psum": {p: {k: max(r["compressed_psum"][p][k]
+                                          for r in ranks)
+                                   if k in ("ms", "err") else
+                                   ranks[0]["compressed_psum"][p][k]
+                                   for k in ("err", "bytes", "ms")}
+                               for p in DIST_PSUM_BOUND},
+           "fault": [r["compressed_psum"]["fault"] for r in ranks],
+           "per_rank": [{"rank": r["rank"], "seconds": r["seconds"],
+                         "m6_ms": [m.get("ms") for m in r["m6"]],
+                         "launches": [{"fwd": m["forward_launches"],
+                                       "bwd": m.get("backward_launches")}
+                                      for m in r["m6"] + [r["m4"]]]}
+                        for r in ranks],
+           "launches": counts, "seconds": seconds}
+    ms = m6[0]["ms"]
+    print(f"distributed ({rec['backend']}, {DIST_RANKS} ranks on one card; "
+          f"{smi}): m6 fp32 forward {ms['forward']:.3f} ms, backward "
+          f"{ms['backward']:.3f} ms, single-device {ms['single_device']:.3f}"
+          f" ms; phase {seconds:.1f} s", flush=True)
+    phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "csr_panels_spmm": ("src/repro_torch/csrc/csr_spmm.cu",
@@ -3701,6 +4182,7 @@ def main(argv=None) -> int:
         phase_fallback(launches)
         phase_gcn_example(launches, work)
         phase_table3(launches)
+        phase_distributed(launches, work)
     for k, v in launches.items():
         check(v > 0, f"{k} never launched on the port's paths")
 

@@ -1,6 +1,7 @@
 """LOOPS core on PyTorch: the hybrid CSR + vector-wise BCSR format, the
 Eq. 1 partition, the Eq. 2/3 performance model, the synthetic suite and the
-differentiable SpMM front door."""
+differentiable SpMM front door, and the distributed operator over
+``torch.distributed``."""
 from . import suite
 from .formats import (CSR, DEFAULT_PANEL_G, DeviceLoops, DevicePanels,
                       LoopsFormat, PanelBCSR, PanelCSR, TransposedLoops,
@@ -15,6 +16,8 @@ from .spmm import (SpmmPlan, default_br, loops_batched_grid_steps,
                    loops_grid_steps, loops_spmm, loops_spmm_values,
                    plan_and_convert, plan_for, spmm_csr_baseline,
                    spmm_dense_baseline)
+from .distributed import (ShardedLoops, distributed_spmm, shard_loops,
+                          shard_loops_auto)
 
 __all__ = [
     "suite", "CSR", "DEFAULT_PANEL_G", "DeviceLoops", "DevicePanels",
@@ -25,5 +28,6 @@ __all__ = [
     "QuadraticPerfModel", "best_allocation", "calibrate", "fit_perf_model",
     "SpmmPlan", "default_br", "loops_batched_grid_steps", "loops_grid_steps",
     "loops_spmm", "loops_spmm_values", "plan_and_convert", "plan_for",
-    "spmm_csr_baseline", "spmm_dense_baseline",
+    "spmm_csr_baseline", "spmm_dense_baseline", "ShardedLoops",
+    "distributed_spmm", "shard_loops", "shard_loops_auto",
 ]

@@ -4,7 +4,9 @@ the card.
 
 Port of ``repro/dist/step.py`` (:func:`build_train_step`,
 :func:`default_microbatches`, :func:`build_prefill`,
-:func:`build_serve_step` and :func:`_maybe_record`).
+:func:`build_serve_step`, :func:`_maybe_record` and
+:func:`loops_cotangent_psum`, the distributed LOOPS operator's gradient
+reduction).
 
 Training (:func:`build_train_step`): one call takes the global batch
 ``(n_mb, mb, S)`` and, per microbatch, runs ``train_loss`` forward and
@@ -41,8 +43,8 @@ On ``"cpu"`` the same static-buffer function runs the step eagerly, so
 the serving pool's bucket and slot logic (``serve/queue.py``) is one code
 path on both devices.
 
-No mesh and no sharding: the distributed operator is ROADMAP A.12 and
-``dist/sharding.py`` A.13.
+The train and serve steps take no mesh: sharding the model
+(``dist/sharding.py``'s model half) is ROADMAP A.13.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ShapeConfig
 from ..models import api
@@ -57,11 +60,33 @@ from ..optim import adamw
 from ..optim.adamw import OptConfig
 
 __all__ = ["default_microbatches", "build_train_step",
-           "build_prefill", "build_serve_step", "N_SHARDS"]
+           "build_prefill", "build_serve_step", "loops_cotangent_psum",
+           "N_SHARDS"]
 
 F32 = torch.float32
 # Shards of the flat optimizer layout: one device, one shard.
 N_SHARDS = 1
+
+
+def loops_cotangent_psum(partial_db: torch.Tensor, mesh,
+                         axis) -> torch.Tensor:
+    """Row-shard-aware reduction of the dense-operand cotangent of a
+    distributed LOOPS SpMM (``core/distributed.py``).
+
+    Forward, ``B`` is replicated on every rank (``Replicate()`` in
+    :func:`repro_torch.dist.sharding.loops_in_specs`) while the workload is
+    row-sharded over the worker axis.  The transpose of "replicate, then use
+    on every shard" is "sum the per-shard cotangents": each rank owns an
+    exclusive row slice of ``dY`` (paper §3.4), computes its partial
+    ``Aᵀ_chunk · dY_chunk``, and this all-reduce SUM over the worker group
+    of ``mesh``'s ``axis`` (a name or a tuple of names) gives every rank the
+    full ``dB``, replicated like ``B``.  ``partial_db`` is reduced in place
+    and returned."""
+    from .sharding import worker_mesh
+    wm = worker_mesh(mesh, axis)
+    if wm.size() > 1:
+        dist.all_reduce(partial_db, group=wm.get_group())
+    return partial_db
 
 
 def default_microbatches(shape: ShapeConfig,

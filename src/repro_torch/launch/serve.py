@@ -43,7 +43,7 @@ The engine's fallback chains (``repro_torch.resilience.fallback``) stay
 off here, as everywhere until a caller installs
 ``set_policy(FallbackPolicy())``: a kernel that fails raises into the
 step's retries, and inside the pool's CUDA graph captures a chain would
-re-raise in any case.  Not ported yet: the mesh flags (A.12/A.13).
+re-raise in any case.  Not ported yet: the mesh flags (A.13).
 """
 from __future__ import annotations
 

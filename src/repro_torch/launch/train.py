@@ -23,8 +23,8 @@ engine dispatch counters, the ``train.steps_per_s`` gauge and the
 ``train.steps`` counter) and saves JSONL + Chrome trace under ``--obs-dir``
 (default ``benchmarks/results/obs/``).
 
-The port runs on one device: ``--mesh-data`` / ``--mesh-model`` other
-than 1 raise (the distributed operator is ROADMAP A.12, sharding A.13).
+The port trains on one device: ``--mesh-data`` / ``--mesh-model`` other
+than 1 raise (sharding the model over a mesh is ROADMAP A.13).
 A periodic checkpoint that would fall on the last step is left to the
 final one, which the reference writes at the same step as well.
 
@@ -110,8 +110,8 @@ def main(argv=None) -> dict:
     if args.mesh_data != 1 or args.mesh_model != 1:
         raise NotImplementedError(
             f"mesh {args.mesh_data}x{args.mesh_model}: the port trains on one "
-            "device; the distributed operator is ROADMAP A.12 and sharding "
-            "(dist/sharding.py, launch/mesh.py) A.13")
+            "device; sharding the model (dist/sharding.py's model half) is "
+            "ROADMAP A.13")
     # Chaos harness: honour REPRO_FAULT_PLAN.
     from ..resilience.inject import install_from_env
     install_from_env()

@@ -23,11 +23,11 @@ from .export import (OBS_KINDS, OBS_SCHEMA_VERSION, chrome_trace,
                      write_chrome_trace, write_jsonl)
 from .metrics import (DEFAULT_BUCKETS_US, Counter, Gauge, Histogram,
                       MetricsRegistry)
-from .runtime import Obs, get_active, set_active
+from .runtime import Obs, get_active, note_collective, set_active
 from .spans import Span, SpanSink, current_span
 
 __all__ = [
-    "Obs", "set_active", "get_active",
+    "Obs", "set_active", "get_active", "note_collective",
     "MetricsRegistry", "Counter", "Gauge", "Histogram",
     "DEFAULT_BUCKETS_US",
     "Span", "SpanSink", "current_span",

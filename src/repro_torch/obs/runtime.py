@@ -26,9 +26,8 @@ built-in instrumentation seams:
 ``save()`` writes both serialisations (JSONL + Chrome trace) next to each
 other under ``benchmarks/results/obs/`` by default.
 
-Not carried over: the reference's ``note_collective`` (the wire bytes of
-``dist.compress.compressed_psum``), which arrives with the distributed
-operator (ROADMAP A.12).
+:func:`note_collective` is the collective hook: ``dist.compress.
+compressed_psum`` reports each call's per-rank wire bytes through it.
 """
 from __future__ import annotations
 
@@ -42,11 +41,11 @@ from .export import (chrome_trace, default_obs_dir, obs_records, write_chrome_tr
 from .metrics import MetricsRegistry
 from .spans import SpanSink
 
-__all__ = ["Obs", "set_active", "get_active"]
+__all__ = ["Obs", "set_active", "get_active", "note_collective"]
 
-# Process-wide active capture (the degradation counters' rendezvous,
-# ``resilience.inject.note_degraded``; the launchers install their Obs
-# here for the duration of a run).
+# Process-wide active capture (the rendezvous of the degradation counters,
+# ``resilience.inject.note_degraded``, and of the collective hook; the
+# launchers install their Obs here for the duration of a run).
 _ACTIVE: Optional["Obs"] = None
 
 
@@ -60,6 +59,22 @@ def set_active(obs: Optional["Obs"]) -> Optional["Obs"]:
 
 def get_active() -> Optional["Obs"]:
     return _ACTIVE
+
+
+def note_collective(nbytes: int, *, kind: str, precision: str) -> None:
+    """Report one collective call's per-rank wire bytes to the active
+    capture (no-op without one): the ``dist.collective_bytes`` gauge holds
+    the last call's bytes and the ``dist.collective_sites`` counter counts
+    calls.  The reference fires once per compilation, so there the counter
+    counts compiled call sites; eager PyTorch has no such point, and the
+    port counts every call."""
+    obs = _ACTIVE
+    if obs is None:
+        return
+    obs.metrics.gauge("dist.collective_bytes", kind=kind,
+                      precision=precision).set(float(nbytes))
+    obs.metrics.counter("dist.collective_sites", kind=kind,
+                        precision=precision).inc()
 
 
 class _EngineTracer:

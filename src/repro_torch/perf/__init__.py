@@ -1,7 +1,7 @@
 """Perf tooling: the trace → fit → replay loop.
 
 Port of ``repro/perf`` without ``hlo_analysis`` (roofline terms from XLA
-HLO), which is still to come with its consumers (ROADMAP A.12/A.13):
+HLO), which is still to come with the dry-run (ROADMAP A.10):
 
   * :mod:`repro_torch.perf.trace` — :class:`TraceRecorder`, JSONL trace
     files, :func:`fit_cost_model` (Eq. 2 refit from measurement,

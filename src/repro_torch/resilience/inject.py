@@ -11,13 +11,16 @@ sites fail deterministically — the tests and the CI chaos smoke use this to
 *prove* each documented fallback actually fires.
 
 Sites the port passes (the reference's registry, docs/robustness.md, also
-has ``dist.psum.*`` and ``train.step``, whose seams are not ported yet):
+has ``train.step``, whose seam is not ported yet):
 
   * ``engine.{part}.{op}.{link}`` — one attempt of an engine fallback
     chain (``resilience/fallback.py``): ``engine.csr.spmm.cuda``,
     ``engine.fused.spmm.torch``, ``engine.loops.sdd.cuda``, ...;
   * ``cache.read`` — plan-cache file parse (payload: the raw bytes);
   * ``tune.trial`` — one tuner measurement trial;
+  * ``dist.psum.{precision}`` — one compressed all-reduce
+    (``dist/compress.py``; ``int8`` / ``bf16``), agreed on across the
+    group before any rank degrades;
   * ``serve.step`` / ``serve.prefill`` — host-level step calls (the
     retry/deadline wrappers cover these);
   * ``ingest.serve.weights`` — serving weight ingestion (payload: the

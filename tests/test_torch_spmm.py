@@ -310,6 +310,9 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
             "repro_torch.resilience, repro_torch.perf.schema\n"
             "from repro_torch.kernels import _build\n"
             "from repro_torch.resilience import fallback, validate\n"
+            "from repro_torch.core import distributed\n"
+            "from repro_torch.dist import compress, sharding\n"
+            "from repro_torch.launch import mesh\n"
             "from repro_torch.benchmarks import (run, perf_gate, "
             "fig4_throughput, fig5_halfprec, sec43_scheduling, "
             "batched_spmm, autotune_suite, table3_energy, table4_gnn, "

@@ -127,7 +127,7 @@ def test_watchdog_aborts_an_overrunning_step(tmp_path):
 @pytest.mark.parametrize("flags", [("--mesh-data", "2"),
                                    ("--mesh-model", "4")])
 def test_mesh_flags_above_one_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(NotImplementedError, match="A.13"):
         train_cli.main(_args(tmp_path, "--steps", "1", *flags))
 
 
