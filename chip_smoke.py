@@ -210,8 +210,35 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  card: the times are the operator's overhead there, not
                  multi-GPU scaling.  A rank that fails, or a phase past
                  ``DIST_TIMEOUT_S``, fails the run.
+ 17. train_mesh -- llama3.2-1b trained across a (data 2, model 2) mesh:
+                 first the single-device ``build_train_step`` in this
+                 process, two steps on the global batch (4 x 2048 tokens,
+                 bf16, the launcher's seed, data and schedule); then
+                 ``launch/train.py --mesh-data 2 --mesh-model 2`` at full
+                 width, which spawns its 4 ranks (sharing the card on gloo),
+                 for 3 steps with a checkpoint after step 1, and again with
+                 ``--resume`` from it.  Step 0's loss within
+                 ``MESH_LOSS_TOL`` and gradient norm within
+                 ``MESH_GNORM_TOL`` (relative) of the single-device step's;
+                 every parameter of the checkpoint (the gathered, unsharded
+                 tree after two steps) within ``MESH_LEAF_TOL`` of its
+                 norm from the single-device one; the resumed step's loss and
+                 gradient norm bit-equal to the uninterrupted run's on every
+                 rank; B5 launched on every rank at 16 local heads, 2 x 16 a
+                 step.  Then an eager fp32 prefill of 2 x 256 tokens and 4
+                 decode steps on a (1, 2) mesh (2 spawned ranks) against
+                 the single-device logits at ``LM_TOL``, and the host ms of
+                 one activation all-reduce and one ZeRO reduce-scatter of
+                 the largest parameter's flat gradient on those ranks; and
+                 first, in this process, one layer's row-parallel ``wo``
+                 GEMMs at a rank's shapes, with fp32 output and with fp32
+                 operands.  It prints step ms per rank, tokens/s, peak GB
+                 per rank, the checkpoint's hand-off / write / restore s,
+                 the ``wo`` ms and the card's name and power limit.  A rank
+                 that fails fails the run, and so do ranks still running at
+                 ``MESH_LIMIT_S`` (every rank is killed).
 
-Each kernel's launch count is set to 0 just before phases 3-16 drive their
+Each kernel's launch count is set to 0 just before phases 3-17 drive their
 path and read just after; a kernel of a path that did not launch fails the
 run, and so does a launch of a kernel that is not on the path (B5 in
 phases 3-7, 13-16, B1-B4 in phases 8 and 10 and in phase 12's LM runs,
@@ -322,10 +349,31 @@ FFN_STEPS, FFN_LR = 3, 1e-4
 LM_ARCH, LM_SEED = "llama3.2-1b", 0
 LM_BATCH, LM_PROMPT, LM_GEN, LM_CHECK_STEPS = 4, 2048, 32, 8
 LM_TOL = 1e-4
+
+# Phase train_mesh: the launcher's arguments (its config), the mesh, the
+# global batch, steps and the checkpoint (after step 1: ckpt_2), the
+# tolerances against the single-device step (bf16 activations rounded apart
+# in another order, the tensor-parallel sums in fp32): phase 12's for the
+# loss and the gradient norm, and a third of its leaf bound, since a first
+# run measured 2.2e-5, 7.8e-5 and 1.9e-3; the (1, 2) serving check's
+# shapes, and the phase's wall-clock limit (runs took 224 and 252 s: gloo's
+# host-staged collectives ran up to 3x slower on one machine than another).
+MESH_CLI = ["--arch", LM_ARCH]
+MESH_SHAPE, MESH_SEQ, MESH_BATCH = (2, 2), 2048, 4
+MESH_STEPS, MESH_CKPT_AT = 3, 2
+MESH_LOSS_TOL, MESH_GNORM_TOL, MESH_LEAF_TOL = 1e-4, 1e-3, 1e-2
+MESH_PROMPT, MESH_GEN = (2, 256), 4
+MESH_LIMIT_S = 400
+
 # B5 in phase 2: (B, S, H, KV, hd); the reference test's three shapes, a
-# ragged S and the serving shape.
+# ragged S, a (2, 2) mesh rank's training shape and a (1, 2) rank's
+# prefill in phase 17 (llama3.2-1b's 32 / 8 heads over model 2), and the
+# serving shape (last: phase 4 reads its heads).
 FLASH_SHAPES = ((1, 64, 1, 1, 16), (2, 128, 4, 2, 32), (1, 64, 6, 2, 16),
                 (2, 1000, 8, 2, 64), (1, 1000, 4, 1, 128),
+                (MESH_BATCH // MESH_SHAPE[0], MESH_SEQ, 32 // MESH_SHAPE[1],
+                 8 // MESH_SHAPE[1], 64),
+                (*MESH_PROMPT, 32 // MESH_SHAPE[1], 8 // MESH_SHAPE[1], 64),
                 (LM_BATCH, LM_PROMPT, 32, 8, 64))
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 1e-2, "float16": 1e-2}
 # B5 also against each output row's own size (``row_err``).  A long row's
@@ -3947,6 +3995,54 @@ def _dist_psum(rank, world) -> dict:
     return out
 
 
+def _run_ranks(what: str, target, world: int, work, deadline: float
+               ) -> list:
+    """Run ``target(rank, world, init_method, work, results)`` in
+    ``world`` processes of their own (``spawn``) on a ``file://`` store in
+    ``work``; return their records in rank order.  A rank that fails or
+    exits without a record, or any still running at ``deadline``
+    (``time.perf_counter()``), fails the run; every rank is killed on the
+    way out."""
+    import multiprocessing as mp
+    import queue
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(
+        r, world, f"file://{work}/store", str(work), results))
+        for r in range(world)]
+    recs, failed = {}, None
+    try:
+        for p in procs:
+            p.start()
+        while len(recs) < world and failed is None:
+            if time.perf_counter() > deadline:
+                failed = "past the phase's limit"
+                break
+            try:
+                r = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    failed = f"a rank exited {dead} without a record"
+                continue
+            if "error" in r:
+                failed = f"rank {r['rank']} failed:\n{r['error']}"
+            recs[r["rank"]] = r
+        for p in procs:
+            p.join(timeout=max(deadline - time.perf_counter(), 5.0)
+                   if failed is None else 0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(failed is None, f"{what}: {failed}")
+    check(all(p.exitcode == 0 for p in procs), f"{what}: ranks exited "
+          f"{[p.exitcode for p in procs]}")
+    return [recs[r] for r in range(world)]
+
+
 def _dist_rank(rank: int, world: int, init_method: str, work: str,
                results) -> None:
     """One rank of phase 16, in a process of its own (``spawn``): puts a
@@ -4017,9 +4113,6 @@ def phase_distributed(launches: dict, work_dir) -> dict:
     rank launches B1 alone and a BCSR-group rank B2 alone; B3-B5 never.
     Any rank that fails, or a phase past ``DIST_TIMEOUT_S``, fails the
     run."""
-    import multiprocessing as mp
-    import queue
-
     import torch
     torch.cuda.empty_cache()
     smi = subprocess.run(
@@ -4028,45 +4121,10 @@ def phase_distributed(launches: dict, work_dir) -> dict:
         timeout=60).stdout.strip()
     work = pathlib.Path(work_dir) / "distributed"
     work.mkdir()
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    procs = [ctx.Process(target=_dist_rank, args=(
-        r, DIST_RANKS, f"file://{work}/store", str(work), results))
-        for r in range(DIST_RANKS)]
     t0 = time.perf_counter()
-    recs, failed = {}, None
-    try:
-        for p in procs:
-            p.start()
-        while len(recs) < DIST_RANKS and failed is None:
-            if time.perf_counter() - t0 > DIST_TIMEOUT_S:
-                failed = f"not done after {DIST_TIMEOUT_S} s"
-                break
-            try:
-                r = results.get(timeout=1.0)
-            except queue.Empty:
-                dead = [p.exitcode for p in procs
-                        if p.exitcode not in (None, 0)]
-                if dead:
-                    failed = f"a rank exited {dead} without a record"
-                continue
-            if "error" in r:
-                failed = f"rank {r['rank']} failed:\n{r['error']}"
-            recs[r["rank"]] = r
-        for p in procs:
-            p.join(timeout=max(DIST_TIMEOUT_S - (time.perf_counter() - t0),
-                               5.0) if failed is None else 0.1)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
+    ranks = _run_ranks("distributed", _dist_rank, DIST_RANKS, work,
+                       t0 + DIST_TIMEOUT_S)
     seconds = time.perf_counter() - t0
-    check(failed is None, f"distributed: {failed}")
-    check(all(p.exitcode == 0 for p in procs), f"distributed: ranks exited "
-          f"{[p.exitcode for p in procs]}")
-
-    ranks = [recs[r] for r in range(DIST_RANKS)]
     counts = {k: 0 for k in KERNELS}
     for r in ranks:
         for m in r["m6"] + [r["m4"]]:
@@ -4117,6 +4175,391 @@ def phase_distributed(launches: dict, work_dir) -> dict:
           f"{smi}): m6 fp32 forward {ms['forward']:.3f} ms, backward "
           f"{ms['backward']:.3f} ms, single-device {ms['single_device']:.3f}"
           f" ms; phase {seconds:.1f} s", flush=True)
+    phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the LM trained across a data x model mesh
+# ---------------------------------------------------------------------------
+
+def _mesh_cfg(dtype=None):
+    import dataclasses
+
+    from repro_torch.configs import REDUCED, get_config
+    cfg = (REDUCED[LM_ARCH]() if "--reduced" in MESH_CLI
+           else get_config(LM_ARCH))
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def _mesh_argv(ckpt_dir, *extra) -> list:
+    return [*MESH_CLI, "--device", DEVICE, "--seq-len", str(MESH_SEQ),
+            "--global-batch", str(MESH_BATCH), "--steps", str(MESH_STEPS),
+            "--seed", str(LM_SEED), "--log-every", "1",
+            "--mesh-data", str(MESH_SHAPE[0]),
+            "--mesh-model", str(MESH_SHAPE[1]), "--ckpt-dir", str(ckpt_dir),
+            *extra]
+
+
+def _mesh_single(cfg) -> dict:
+    """The launcher's first two steps on one device (its seed, data and
+    schedule): the steps' metrics, and the parameters before and after, on
+    the card."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, global_batch_at
+    from repro_torch.dist.step import build_train_step, default_microbatches
+    from repro_torch.models import api
+    from repro_torch.optim import OptConfig, init_opt_state
+    shape = ShapeConfig("cli_train", MESH_SEQ, MESH_BATCH, "train")
+    n_mb = default_microbatches(shape)
+    params = api.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        LM_SEED), device=DEVICE)
+    init = {k: v.detach().clone() for k, v in params.named_parameters()}
+    step = build_train_step(cfg, params, OptConfig(
+        lr=3e-4, total_steps=MESH_STEPS,
+        warmup_steps=max(MESH_STEPS // 20, 1)), n_microbatches=n_mb)
+    state = init_opt_state(params, 1)
+    steps = []
+    for i in range(MESH_CKPT_AT):
+        batch = global_batch_at(DataConfig(seed=LM_SEED), cfg, shape, n_mb,
+                                i, device=DEVICE)
+        _, _, m = step(params, state, batch)
+        steps.append({k: float(v) for k, v in m.items()})
+    new = {k: v.detach().clone() for k, v in params.named_parameters()}
+    del params, state, step, batch
+    _release()
+    return {"steps": steps, "init": init, "new": new}
+
+
+def _mesh_leaf_errors(ckpt_path, single) -> dict:
+    """Each parameter of the mesh's checkpoint against the single-device
+    parameters after the same steps: the largest ||mesh - single|| over
+    ||single|| (``leaf``, checked) and over ||single - init|| (``update``:
+    Adam's first steps move each element by about +-lr, so a gradient
+    element near zero whose sign the two summation orders round apart
+    moves 2 lr apart), with their leaves."""
+    import torch
+    from repro_torch.checkpoint import checkpoint as ck
+    _, arrays = ck._read(ckpt_path)
+    out = {"leaf": 0.0, "leaf_name": None, "update": 0.0,
+           "update_name": None}
+    for name, new in single["new"].items():
+        new = new.float()
+        diff = float(torch.linalg.vector_norm(
+            arrays[f"params/{name}"].to(DEVICE).float() - new))
+        for key, norm in (("leaf", torch.linalg.vector_norm(new)),
+                          ("update", torch.linalg.vector_norm(
+                              new - single["init"][name].float()))):
+            err = diff / max(float(norm), 1e-30)
+            if err > out[key]:
+                out[key], out[f"{key}_name"] = err, name
+    return out
+
+
+def _wo_ms(cfg) -> dict:
+    """One layer's two row-parallel ``wo`` GEMMs (attention, MLP) at a
+    (2, 2) rank's shapes, forward and backward without the collective, CUDA
+    event ms both ways: as ``layers.row_parallel`` runs them (the half GEMM
+    writing out its fp32 accumulator, the backward in the half dtype), and
+    with the operands upcast to fp32 (TF32 off); with the largest
+    difference of their outputs relative to max |out|, which must be fp32
+    summation order's alone."""
+    import math
+
+    import torch
+    from repro_torch.models import layers
+    tokens = MESH_BATCH // MESH_SHAPE[0] * MESH_SEQ
+    gen = torch.Generator(device=DEVICE).manual_seed(LM_SEED)
+    out = {}
+    for name, k in (("attn", cfg.num_heads * cfg.resolved_head_dim
+                     // MESH_SHAPE[1]), ("mlp", cfg.d_ff // MESH_SHAPE[1])):
+        x = torch.randn((tokens, k), generator=gen, device=DEVICE).to(
+            cfg.dtype).requires_grad_()
+        w = (torch.randn((k, cfg.d_model), generator=gen, device=DEVICE)
+             / math.sqrt(k)).to(cfg.dtype).requires_grad_()
+        dy = torch.randn((tokens, cfg.d_model), generator=gen,
+                         device=DEVICE).to(cfg.dtype).float()
+
+        def half():
+            y = layers._PartialF32.apply(x, w)
+            y.backward(dy)
+            return y
+
+        def fp32():
+            y = torch.matmul(x.float(), w.float())
+            y.backward(dy)
+            return y
+
+        with torch.no_grad():
+            a = layers._PartialF32.apply(x, w)
+            b = torch.matmul(x.float(), w.float())
+        err = float((a - b).abs().max() / b.abs().max())
+        check(err <= 1e-5, f"train_mesh: wo {name} half GEMM with fp32 "
+              f"out {err:.3g} of max |out| from the fp32 GEMM")
+        out[name] = {"shape": [tokens, k, cfg.d_model],
+                     "half_ms": time_ms(half, samples=5, reps=3),
+                     "fp32_ms": time_ms(fp32, samples=5, reps=3),
+                     "rel_err": err}
+        del x, w, dy
+    _release()
+    return out
+
+
+def _mesh_serve_rank(rank: int, world: int, init_method: str, work: str,
+                     results) -> None:
+    """One rank of phase 17's (1, 2) serving check, a process of its own:
+    the fp32 model from the seed, its shards, an eager prefill and decode
+    through ``build_prefill`` / ``build_serve_step`` with the mesh, and the
+    host ms of one activation all-reduce and one ZeRO reduce-scatter."""
+    import traceback
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        import datetime
+        import math
+
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        from repro_torch.dist import step as step_lib
+        from repro_torch.launch.mesh import backend_for, make_test_mesh
+        from repro_torch.models import api
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        dist.init_process_group(
+            backend_for(DEVICE, world), init_method=init_method, rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=MESH_LIMIT_S))
+        mesh = make_test_mesh(1, world, device=DEVICE)
+        cfg = _mesh_cfg(torch.float32)
+        full = api.init_params(cfg, torch.Generator(
+            device=DEVICE).manual_seed(LM_SEED), device=DEVICE)
+        params = api.shard_params(cfg, full, mesh, device=DEVICE)
+        del full
+        torch.cuda.empty_cache()
+        inp = np.load(pathlib.Path(work) / "serve_inputs.npz")
+        bsz, seq = MESH_PROMPT
+        cache = step_lib.local_cache(cfg, mesh, bsz, seq + MESH_GEN,
+                                     device=DEVICE)
+        prefill = step_lib.build_prefill(cfg, params, (bsz, seq), mesh=mesh,
+                                         cache=cache)
+        decode = step_lib.build_serve_step(cfg, params, cache, mesh=mesh)
+        _reset_counts()
+        _, logits = prefill({"tokens": inp["prompt"]})
+        out = [logits.cpu().numpy()]
+        for i in range(MESH_GEN):
+            _, logits = decode(inp["gen"][:, i:i + 1], seq + i)
+            out.append(logits.cpu().numpy())
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        rec = {"rank": rank, "launches": counts,
+               "local_heads": params.layers[0].attn.wq.shape[1]
+               // cfg.resolved_head_dim}
+        # one activation all-reduce (a (2, 2) rank's 2 x 2048 tokens, fp32)
+        # over the model group, and one ZeRO reduce-scatter of the largest
+        # parameter's flat fp32 gradient over the ranks
+        group = mesh.get_group("model")
+        act = torch.ones((MESH_BATCH // MESH_SHAPE[0] * MESH_SEQ,
+                          cfg.d_model), device=DEVICE)
+        rec["allreduce_ms"] = _dist_ms(
+            lambda: dist.all_reduce(act, group=group))
+        cols = math.ceil(math.prod(params.layout.shapes["embed"]) / world)
+        buf = torch.ones(world * cols, device=DEVICE)
+        row = torch.empty(cols, device=DEVICE)
+        rec["reduce_scatter_ms"] = _dist_ms(
+            lambda: dist.reduce_scatter_tensor(row, buf), samples=3, reps=1)
+        rec["reduce_scatter_mb"] = world * cols * 4 / 1e6
+        if rank == 0:
+            np.save(pathlib.Path(work) / "serve_mesh.npy", np.stack(out))
+        dist.barrier()
+        dist.destroy_process_group()
+        results.put(rec)
+    except BaseException:   # noqa: BLE001 - the parent fails the run on it
+        results.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def _mesh_serve(work, deadline: float) -> dict:
+    """Phase 17's serving check: the single-device fp32 logits here, then
+    2 spawned ranks on a (1, 2) mesh (:func:`_mesh_serve_rank`)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    cfg = _mesh_cfg(torch.float32)
+    rng = np.random.default_rng(LM_SEED + 3)
+    bsz, seq = MESH_PROMPT
+    prompt = rng.integers(0, cfg.vocab_size, (bsz, seq))
+    gen = rng.integers(0, cfg.vocab_size, (bsz, MESH_GEN))
+    serve = work / "serve"
+    serve.mkdir()
+    np.savez(serve / "serve_inputs.npz", prompt=prompt, gen=gen)
+    params = api.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        LM_SEED), device=DEVICE)
+    cache = api.init_cache(cfg, bsz, seq + MESH_GEN, device=DEVICE)
+    _, logits = api.prefill(cfg, params, {"tokens": prompt}, cache=cache)
+    want = [logits.cpu()]
+    for i in range(MESH_GEN):
+        _, logits = api.decode_step(cfg, params, cache, gen[:, i:i + 1],
+                                    seq + i)
+        want.append(logits.cpu())
+    del params, cache, logits
+    _release()
+
+    world = MESH_SHAPE[1]
+    ranks = _run_ranks("train_mesh serving", _mesh_serve_rank, world, serve,
+                       deadline)
+    got = torch.from_numpy(np.load(serve / "serve_mesh.npy"))
+    errs = [_lm_logits_err(f"train_mesh (1, 2) logits {i}", got[i], w)
+            for i, w in enumerate(want)]
+    for r in ranks:
+        _check_lm_launches(f"train_mesh serving rank {r['rank']}",
+                           r["launches"], cfg.num_layers, {k: 0 for k in
+                                                           KERNELS})
+        check(r["local_heads"] == cfg.num_heads // world,
+              f"train_mesh serving: rank {r['rank']} ran "
+              f"{r['local_heads']} heads")
+    return {"mesh": [1, world], "prompt": list(MESH_PROMPT),
+            "decode_steps": MESH_GEN, "dtype": "float32",
+            "logits_err": errs, "launches": [r["launches"] for r in ranks],
+            "allreduce_ms": max(r["allreduce_ms"] for r in ranks),
+            "allreduce_shape": [MESH_BATCH // MESH_SHAPE[0] * MESH_SEQ,
+                                cfg.d_model],
+            "reduce_scatter_ms": max(r["reduce_scatter_ms"] for r in ranks),
+            "reduce_scatter_mb": ranks[0]["reduce_scatter_mb"],
+            "collective_ranks": world}
+
+
+def phase_train_mesh(launches: dict, work_dir) -> dict:
+    """Phase 17 (the module docstring): the single-device steps, the
+    launcher on the (2, 2) mesh (run A, then run B resumed from A's
+    checkpoint), the checkpoint's parameters against the single-device
+    update, and the (1, 2) serving check."""
+    import os
+    import shutil
+
+    from repro_torch.launch import train as train_cli
+    t0 = time.perf_counter()
+    deadline = t0 + MESH_LIMIT_S
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    cfg = _mesh_cfg()
+    _release()
+    wo = _wo_ms(cfg)
+    single = _mesh_single(cfg)
+    t_single = time.perf_counter() - t0
+    work = pathlib.Path(work_dir) / "train_mesh"
+    dir_a, dir_b = work / "a", work / "b"
+    work.mkdir()
+    ckpt = f"ckpt_{MESH_CKPT_AT:010d}.tensors"
+    try:
+        run_a = train_cli.main(_mesh_argv(dir_a, "--ckpt-every",
+                                          str(MESH_CKPT_AT)),
+                               timeout_s=deadline - time.perf_counter())
+        leaf = _mesh_leaf_errors(str(dir_a / ckpt), single)
+        single_steps = single["steps"]
+        del single
+        _release()
+        os.makedirs(dir_b)
+        os.link(dir_a / ckpt, dir_b / ckpt)
+        shutil.rmtree(dir_a)     # the disk holds two full checkpoints
+        run_b = train_cli.main(_mesh_argv(dir_b, "--resume"),
+                               timeout_s=deadline - time.perf_counter())
+    finally:
+        shutil.rmtree(dir_a, ignore_errors=True)
+        shutil.rmtree(dir_b, ignore_errors=True)
+    t_train = time.perf_counter() - t0
+    serve = _mesh_serve(work, deadline)
+    seconds = time.perf_counter() - t0
+
+    ranks = MESH_SHAPE[0] * MESH_SHAPE[1]
+    n_mb = run_a["n_microbatches"]
+    rel = {}
+    for i, s1 in enumerate(single_steps):
+        a = run_a["steps"][i]
+        rel[i] = {k: abs(a[k] - s1[k]) / abs(s1[k])
+                  for k in ("loss", "grad_norm")}
+    check(rel[0]["loss"] <= MESH_LOSS_TOL, f"train_mesh: step-0 loss "
+          f"{run_a['steps'][0]['loss']} vs {single_steps[0]['loss']} on "
+          "one device")
+    check(rel[0]["grad_norm"] <= MESH_GNORM_TOL, f"train_mesh: step-0 "
+          f"gradient norm {run_a['steps'][0]['grad_norm']} vs "
+          f"{single_steps[0]['grad_norm']} on one device")
+    check(leaf["leaf"] <= MESH_LEAF_TOL, f"train_mesh: {leaf['leaf_name']} "
+          f"after {MESH_CKPT_AT} steps {leaf['leaf']:.3g} of its norm from "
+          "the single-device one")
+    check(run_b["start_step"] == MESH_CKPT_AT,
+          f"train_mesh: resumed at {run_b['start_step']}")
+    same = []
+    for ra, rb in zip(run_a["per_rank"], run_b["per_rank"]):
+        for key in ("loss", "grad_norm"):
+            same.append(ra[key][MESH_CKPT_AT:] == rb[key])
+    check(len(run_b["per_rank"]) == ranks and all(same),
+          f"train_mesh: resumed steps {[r['loss'] for r in run_b['per_rank']]}"
+          f" differ from the uninterrupted run's "
+          f"{[r['loss'][MESH_CKPT_AT:] for r in run_a['per_rank']]}")
+    per_step = 2 * cfg.num_layers * n_mb    # forward and remat recompute
+    b5 = 0
+    for run, steps in ((run_a, MESH_STEPS),
+                       (run_b, MESH_STEPS - MESH_CKPT_AT)):
+        for r in run["per_rank"]:
+            n = r["launches"]["flash_attention"]
+            b5 += n
+            check(n == per_step * steps, f"train_mesh: rank {r['rank']} "
+                  f"launched B5 {n} times (expected {per_step * steps})")
+            check(r["local_heads"] == cfg.num_heads // MESH_SHAPE[1],
+                  f"train_mesh: rank {r['rank']} ran {r['local_heads']} "
+                  "heads")
+            check(r["peak_mem_gb"] < 80, f"train_mesh: rank {r['rank']} "
+                  f"peak {r['peak_mem_gb']:.1f} GB")
+    for r in serve["launches"]:
+        b5 += r["flash_attention"]
+    launches["flash_attention"] += b5
+    check(seconds <= MESH_LIMIT_S, f"train_mesh: {seconds:.1f} s, past "
+          f"the phase's {MESH_LIMIT_S} s")
+
+    step_ms = [[t * 1e3 for t in r["step_s"]] for r in run_a["per_rank"]]
+    slowest = [max(col) for col in zip(*step_ms)]
+    med = statistics.median(slowest[1:] or slowest)
+    rec = {"phase": "train_mesh", "nvidia_smi": smi, "arch": cfg.name,
+           "dtype": str(cfg.dtype), "mesh": list(MESH_SHAPE),
+           "seq_len": MESH_SEQ, "global_batch": MESH_BATCH,
+           "n_microbatches": n_mb, "backend": "gloo, CUDA tensors",
+           "note": "4 ranks share one card and move their collectives "
+                   "through gloo (host memory): the times show what the "
+                   "mesh costs on one card, not tensor-parallel speed",
+           "single_device": single_steps, "steps": run_a["steps"],
+           "rel_err": rel, "leaf_err": leaf, "resumed_steps": run_b["steps"],
+           "resumed_equal_bitwise": all(same),
+           "step_ms_per_rank": step_ms, "step_ms_slowest": slowest,
+           "median_step_ms_slowest": med,
+           "tokens_per_s": MESH_BATCH * MESH_SEQ / (med / 1e3),
+           "peak_mem_gb_per_rank": [r["peak_mem_gb"]
+                                    for r in run_a["per_rank"]],
+           "ckpt_saves": run_a["ckpt"] + run_b["ckpt"],
+           "restore_s": run_b["restore_s"], "serve": serve, "wo": wo,
+           "launches_per_rank": {"run_a": [r["launches"] for r in
+                                           run_a["per_rank"]],
+                                 "run_b": [r["launches"] for r in
+                                           run_b["per_rank"]]},
+           "single_s": t_single, "train_s": t_train, "seconds": seconds}
+    wo_ms = {k: (round(v["half_ms"], 3), round(v["fp32_ms"], 3))
+             for k, v in wo.items()}
+    print(f"train_mesh ({MESH_SHAPE[0]}x{MESH_SHAPE[1]} on one card, gloo; "
+          f"{smi}): step ms per rank "
+          f"{[[round(t, 1) for t in r] for r in step_ms]}, slowest median "
+          f"{med:.1f}, {rec['tokens_per_s']:.0f} tok/s; step-0 loss "
+          f"{rel[0]['loss']:.2e}, norm {rel[0]['grad_norm']:.2e}, leaf "
+          f"{leaf['leaf']:.2e} (update {leaf['update']:.2e}); all-reduce "
+          f"{serve['allreduce_ms']:.1f} ms, reduce-scatter "
+          f"{serve['reduce_scatter_ms']:.1f} ms; wo GEMMs ms (half with "
+          f"fp32 out, fp32) {wo_ms}; peak GB "
+          f"{[round(g, 1) for g in rec['peak_mem_gb_per_rank']]}; restore "
+          f"{run_b['restore_s']:.1f} s; phase {seconds:.1f} s", flush=True)
     phase(rec)
     return rec
 
@@ -4183,6 +4626,7 @@ def main(argv=None) -> int:
         phase_gcn_example(launches, work)
         phase_table3(launches)
         phase_distributed(launches, work)
+        phase_train_mesh(launches, work)
     for k, v in launches.items():
         check(v > 0, f"{k} never launched on the port's paths")
 

@@ -16,6 +16,14 @@ The reference's semantics, kept:
     CPU tensors that the caller places where it wants;
   * **retention**: the newest ``keep`` checkpoints stay, older go.
 
+On a mesh the tree is still the unsharded one: every rank calls
+:meth:`Checkpointer.save_async` with a ``gather`` that gives each leaf's
+full tensor (``dist/step.py::gather_state``, one leaf at a time, a
+collective), and the writing rank copies it into its host buffers while
+the others (``write=False``) copy nothing.  :func:`restore` maps the file
+(copy-on-write) instead of reading it, so each rank copies out only its
+own part (``dist/step.py::load_state``).
+
 Format (a deliberate divergence: the reference writes one msgpack file,
 and the GPU machine has no msgpack).  One file ``ckpt_<step>.tensors``:
 the 16 bytes :data:`MAGIC`, a little-endian uint64 header length, a UTF-8
@@ -96,12 +104,16 @@ def _on_device(tree) -> bool:
                for _, leaf in _leaves(tree))
 
 
-def _host_tree(tree, buffers: Dict[str, torch.Tensor] | None = None):
+def _host_tree(tree, buffers: Dict[str, torch.Tensor] | None = None,
+               gather=None):
     """A host copy of ``tree``; device-to-host copies run into pinned
     memory and are waited for once, at the end.  ``buffers`` (path ->
     tensor) supplies the tensors the copies land in, and takes any new
-    one it lacked."""
+    one it lacked.  ``gather(path, leaf)``, when given, replaces each leaf
+    by the tensor to copy (its full tensor on a mesh) first."""
     def copy(path, leaf):
+        if gather is not None:
+            leaf = gather(path, leaf)
         if buffers is None:
             return _host(leaf)
         out = _host(leaf, out=buffers.get(path))
@@ -174,27 +186,34 @@ def latest_step(directory: str) -> int | None:
 
 
 def _read(path: str) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+    """The header and the arrays of a checkpoint file, each array mapped
+    copy-on-write from the file (a slice reads only its pages; writing
+    into a tensor leaves the file alone)."""
     with open(path, "rb") as f:
         if f.read(len(MAGIC)) != MAGIC:
             raise ValueError(f"{path} is not a checkpoint of this format")
         (hlen,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(hlen))
         base = f.tell()
-        arrays = {}
-        for key, (dtype, shape, off, nbytes) in header["arrays"].items():
-            buf = torch.empty(nbytes, dtype=torch.uint8)
-            f.seek(base + off)
-            if f.readinto(buf.numpy()) != nbytes:
-                raise ValueError(f"{path}: {key} is truncated")
-            arrays[key] = buf.view(getattr(torch, dtype)).reshape(shape)
+        size = os.fstat(f.fileno()).st_size
+    arrays = {}
+    for key, (dtype, shape, off, nbytes) in header["arrays"].items():
+        if base + off + nbytes > size:
+            raise ValueError(f"{path}: {key} is truncated")
+        buf = (torch.from_numpy(np.memmap(path, dtype=np.uint8, mode="c",
+                                          offset=base + off,
+                                          shape=(nbytes,)))
+               if nbytes else torch.empty(0, dtype=torch.uint8))
+        arrays[key] = buf.view(getattr(torch, dtype)).reshape(shape)
     return header, arrays
 
 
 def restore(directory: str, template, step: int | None = None
             ) -> Tuple[int, Any, Dict[str, Any]]:
     """Returns (step, tree, meta): ``template``'s structure with each leaf
-    the saved CPU tensor at its path.  The caller moves the tensors to its
-    own device (this is what makes restore topology-independent)."""
+    the saved CPU tensor at its path, mapped from the file.  The caller
+    copies what it needs to its own device (this is what makes restore
+    topology-independent: a mesh's rank copies out its own part)."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
@@ -212,11 +231,13 @@ class Checkpointer:
     seconds the caller spent handing the tree over (its copy to host
     memory) and the seconds the writer spent on the file.  The host
     buffers of a written save go back to a free list, and the next save
-    copies into them."""
+    copies into them.  With ``write=False`` (a mesh's other ranks) a save
+    only runs the ``gather`` of every leaf and writes nothing."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, *, write: bool = True):
         self.directory = directory
         self.keep = keep
+        self.write = write
         self.timings: list = []
         self._q: "queue.Queue" = queue.Queue(maxsize=1)
         self._err: Exception | None = None
@@ -242,15 +263,24 @@ class Checkpointer:
                     self._free.append(buffers)
                 self._q.task_done()
 
-    def save_async(self, step: int, tree, meta=None):
+    def save_async(self, step: int, tree, meta=None, *, gather=None):
+        """Hand ``tree`` over as checkpoint ``step``; ``gather(path,
+        leaf)`` gives the tensor to save for each leaf (the full one on a
+        mesh, where every rank calls this)."""
         if self._err:
             raise self._err
+        t0 = time.perf_counter()
+        if not self.write:
+            for path, leaf in _leaves(tree):
+                gather(path, leaf)
+            self.timings.append({"step": step,
+                                 "handoff_s": time.perf_counter() - t0})
+            return
         # the host copy on the caller's thread: the writer never touches
         # the device, and training may update the tensors in place after
-        t0 = time.perf_counter()
         with self._lock:
             buffers = self._free.pop() if self._free else {}
-        host_tree = _host_tree(tree, buffers)
+        host_tree = _host_tree(tree, buffers, gather)
         rec = {"step": step, "handoff_s": time.perf_counter() - t0}
         self.timings.append(rec)
         self._q.put((step, host_tree, meta or {}, rec, buffers))

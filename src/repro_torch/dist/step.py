@@ -14,9 +14,23 @@ backward (each block rematerialised, attention on B5), then adds the
 gradients into an accumulator in the flat fp32 layout of
 ``optim/adamw.py``; the mean over microbatches goes to AdamW.  The
 reference jits the step and donates the parameters and optimizer state;
-here the state is updated in place.  With one device there is no
-reduce-scatter: :data:`N_SHARDS` is 1 and the flat layout is kept for the
-sharding of ROADMAP A.13.
+here the state is updated in place.  On one device there is no
+reduce-scatter (:data:`N_SHARDS` is 1).
+
+On a ``data x model`` mesh (one process a rank, ``torch.distributed``) the
+same step runs on the rank's shards (``models/transformer.py::
+shard_params``): each rank takes its data index's rows of every
+microbatch, and after each microbatch's backward one reduce-scatter over
+all D ranks a parameter (one at a time, so no fp32 copy of the whole model
+exists) sums the gradients into the rank's flat row: the ZeRO-1
+reduce-scatter point of the reference's ``constrain`` to
+:func:`repro_torch.dist.sharding.flat_grad_specs`.  A rank writes its
+tensor-parallel shard of a gradient into a zero buffer of the full
+parameter's size (the model ranks' slices are disjoint, so their sum is the
+gathered gradient), and a whole parameter's gradient, the same on every
+model rank, comes from the rank at ``model`` index 0 alone; the sum over
+the data ranks is the batch's.  AdamW then updates the rows
+(``adamw.apply_updates`` with the mesh).
 
 Serving.  The reference jits
 each step with the mesh's shardings and donates the KV cache; eager
@@ -43,8 +57,11 @@ On ``"cpu"`` the same static-buffer function runs the step eagerly, so
 the serving pool's bucket and slot logic (``serve/queue.py``) is one code
 path on both devices.
 
-The train and serve steps take no mesh: sharding the model
-(``dist/sharding.py``'s model half) is ROADMAP A.13.
+Under a ``mesh`` the prefill and decode steps run eagerly (a CUDA graph
+cannot capture a gloo collective): the batch is cut to the rank's data
+rows, the cache holds the rank's shard of :func:`sharding.cache_specs`
+(:func:`local_cache`), and the logits come back gathered along the
+vocabulary (:func:`sharding.logits_spec`).
 """
 from __future__ import annotations
 
@@ -55,13 +72,17 @@ import torch
 import torch.distributed as dist
 
 from ..configs.base import ShapeConfig
+from ..data.pipeline import host_shard
+from ..kernels.engine import resolve_device
+from ..launch.mesh import flat_axes
 from ..models import api
 from ..optim import adamw
 from ..optim.adamw import OptConfig
+from . import sharding as shr
 
 __all__ = ["default_microbatches", "build_train_step",
            "build_prefill", "build_serve_step", "loops_cotangent_psum",
-           "N_SHARDS"]
+           "local_cache", "gather_state", "load_state", "N_SHARDS"]
 
 F32 = torch.float32
 # Shards of the flat optimizer layout: one device, one shard.
@@ -82,20 +103,22 @@ def loops_cotangent_psum(partial_db: torch.Tensor, mesh,
     of ``mesh``'s ``axis`` (a name or a tuple of names) gives every rank the
     full ``dB``, replicated like ``B``.  ``partial_db`` is reduced in place
     and returned."""
-    from .sharding import worker_mesh
-    wm = worker_mesh(mesh, axis)
+    wm = shr.worker_mesh(mesh, axis)
     if wm.size() > 1:
         dist.all_reduce(partial_db, group=wm.get_group())
     return partial_db
 
 
-def default_microbatches(shape: ShapeConfig,
+def default_microbatches(shape: ShapeConfig, mesh=None,
                          per_device_batch: int = 4) -> int:
     """Pick a microbatch count for a train cell: ``per_device_batch``
-    sequences per microbatch on the one data-parallel worker, walked down
-    until the count divides the global batch."""
-    n_mb = max(shape.global_batch // max(per_device_batch, 1), 1)
-    while n_mb > 1 and shape.global_batch % n_mb:
+    sequences per data-parallel worker per microbatch (one worker without
+    a ``mesh``), walked down until the count divides the global batch and
+    the microbatch divides evenly over the data axes."""
+    dp = shr.dp_size(mesh) if mesh is not None else 1
+    n_mb = max(shape.global_batch // max(dp * per_device_batch, 1), 1)
+    while n_mb > 1 and (shape.global_batch % n_mb
+                        or (shape.global_batch // n_mb) % dp):
         n_mb -= 1
     return n_mb
 
@@ -119,15 +142,53 @@ def _maybe_record(fn, recorder, op: str, obs=None):
     return fn
 
 
-def build_train_step(cfg, params, opt: OptConfig, *, n_microbatches: int = 1,
+def _mesh_of(params, mesh):
+    """``params``' :class:`~repro_torch.models.layers.MeshLayout`, checked
+    to be ``mesh``'s."""
+    layout = getattr(params, "layout", None)
+    if layout is None or layout.mesh is not mesh:
+        raise ValueError("the parameters are not sharded on this mesh: "
+                         "build them with models.transformer.shard_params")
+    return layout
+
+
+def _zero_scatter(g: torch.Tensor, sharding, model_rank: int, group,
+                  n_shards: int) -> torch.Tensor:
+    """This rank's ``(1, cols)`` row of the flat fp32 gradient, summed
+    over every rank (the module docstring's reduce-scatter point)."""
+    shape = sharding.global_shape(g.shape)
+    numel = math.prod(shape)
+    cols = math.ceil(numel / n_shards)
+    buf = torch.zeros(n_shards * cols, dtype=F32, device=g.device)
+    full = buf[:numel].view(shape)
+    if any(e is not None for e in sharding.spec):
+        sharding.local(full).copy_(g)
+    elif model_rank == 0:
+        full.copy_(g)
+    row = torch.empty((1, cols), dtype=F32, device=g.device)
+    dist.reduce_scatter_tensor(row, buf.view(n_shards, cols), group=group)
+    return row
+
+
+def build_train_step(cfg, params, opt: OptConfig, *, mesh=None,
+                     n_microbatches: int = 1,
                      loss_fn: Callable | None = None,
                      recorder=None, obs=None):
     """Build the grad-accumulating AdamW train step for ``cfg``:
     ``fn(params, opt_state, batch) -> (params, opt_state, metrics)``,
     updating ``params`` and ``opt_state`` in place; ``metrics`` carries 0-d
     tensors ``loss``, ``grad_norm``, ``lr`` and ``tokens``.  The
-    reference's bundle also carries spec trees, which have no counterpart
-    without a mesh, so this returns the function alone.
+    reference's bundle also carries spec trees; here they are the
+    parameters' ``layout.specs`` and :func:`repro_torch.optim.adamw.
+    opt_specs`, so this returns the function alone.
+
+    With a ``mesh``, ``params`` are this rank's shards on it
+    (``shard_params``), ``opt_state`` its rows
+    (``init_opt_state(..., param_specs=, mesh=)``) and ``batch`` the
+    global batch, of which the step takes the rank's data rows; the
+    metrics are the global batch's, the same on every rank (module
+    docstring).  ``loss_fn`` then returns the rank's share of the global
+    mean, as ``train_loss`` does on a mesh.
 
     ``params`` is the model (an ``nn.Module``) the step will train; its
     named parameters fix the flat accumulator's keys.
@@ -143,17 +204,40 @@ def build_train_step(cfg, params, opt: OptConfig, *, n_microbatches: int = 1,
     loss_fn = loss_fn or (lambda p, mb: api.train_loss(cfg, p, mb))
     n_mb = n_microbatches
     names = [name for name, _ in params.named_parameters()]
+    if mesh is not None:
+        layout = _mesh_of(params, mesh)
+        shr.constrain(dict(params.named_parameters()), mesh, layout.specs,
+                      layout.shapes)
+        shardings = shr.spec_to_sharding(layout.specs, mesh)
+        flat = shr.worker_mesh(mesh, flat_axes(mesh))
+        n_shards, group = flat.size(), flat.get_group()
+        data = shr.worker_mesh(mesh, shr.dp_axes(mesh)) \
+            if shr.dp_axes(mesh) else None
+
+    def accumulate(g_acc, grads):
+        for name, g in zip(names, grads):
+            if mesh is None:
+                g_acc[name].view(-1)[:g.numel()] += g.reshape(-1)
+            else:
+                g_acc[name] += _zero_scatter(g, shardings[name],
+                                             layout.model_rank, group,
+                                             n_shards)
 
     def step(params, opt_state, batch):
         plist = [p for _, p in params.named_parameters()]
-        g_acc = _flat_zeros(params, N_SHARDS)
+        if mesh is None:
+            g_acc = _flat_zeros(params, N_SHARDS)
+        else:
+            g_acc = {name: torch.zeros_like(tr["master"])
+                     for name, tr in opt_state["flat"].items()}
+            if data is not None:
+                batch = host_shard(batch, data.get_local_rank(), data.size())
         loss_sum = tok_sum = None
         for i in range(n_mb):
             mb = {k: v[i] for k, v in batch.items()}
             loss, aux = loss_fn(params, mb)
             grads = torch.autograd.grad(loss, plist)
-            for name, g in zip(names, grads):
-                g_acc[name].view(-1)[:g.numel()] += g.reshape(-1)
+            accumulate(g_acc, grads)
             loss = loss.detach()
             tokens = torch.as_tensor(aux.get("tokens", 0.0), dtype=F32,
                                      device=loss.device)
@@ -162,8 +246,14 @@ def build_train_step(cfg, params, opt: OptConfig, *, n_microbatches: int = 1,
             del loss, aux, grads
         for g in g_acc.values():
             g.div_(n_mb)
-        params, opt_state, gnorm = adamw.apply_updates(params, opt_state,
-                                                       g_acc, opt)
+        if mesh is None:
+            params, opt_state, gnorm = adamw.apply_updates(
+                params, opt_state, g_acc, opt)
+        else:
+            params, opt_state, gnorm = adamw.apply_updates(
+                params, opt_state, g_acc, opt, layout.specs, mesh)
+            if layout.data_group is not None:   # the ranks' shares
+                dist.all_reduce(loss_sum, group=layout.data_group)
         metrics = {"loss": loss_sum / n_mb, "grad_norm": gnorm,
                    "lr": adamw.lr_at(opt, opt_state["count"]),
                    "tokens": tok_sum}
@@ -222,8 +312,36 @@ class _Static:
         return self._out
 
 
+def _data_rows(x, mesh):
+    """The rank's data rows (dim 0) of a serving batch."""
+    axes = shr.dp_axes(mesh)
+    if not axes:
+        return x
+    data = shr.worker_mesh(mesh, axes)
+    per = x.shape[0] // data.size()
+    if per * data.size() != x.shape[0]:
+        raise ValueError(f"a batch of {x.shape[0]} does not split over "
+                         f"{data.size()} data ranks")
+    return x[data.get_local_rank() * per:(data.get_local_rank() + 1) * per]
+
+
+def local_cache(cfg, mesh, batch: int, max_len: int, *, dtype=None,
+                device=None) -> Dict[str, torch.Tensor]:
+    """This rank's zero shard of a ``(L, batch, max_len, KV, hd)`` decode
+    cache under :func:`sharding.cache_specs` (its data rows; its kv heads
+    when they are split over ``model``)."""
+    shapes = {k: (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                  cfg.resolved_head_dim) for k in ("k", "v")}
+    shardings = shr.spec_to_sharding(shr.cache_specs(shapes, mesh, cfg),
+                                     mesh)
+    return {k: torch.zeros(shardings[k].local_shape(shape),
+                           dtype=dtype or cfg.dtype,
+                           device=resolve_device(device))
+            for k, shape in shapes.items()}
+
+
 def build_prefill(cfg, params, batch_shape: Tuple[int, int], *,
-                  cache: Optional[Dict[str, torch.Tensor]] = None,
+                  mesh=None, cache: Optional[Dict[str, torch.Tensor]] = None,
                   graph_pool=None, recorder=None, obs=None):
     """Static-buffer prefill: ``fn(batch) -> (cache, last_logits)``.
 
@@ -236,10 +354,26 @@ def build_prefill(cfg, params, batch_shape: Tuple[int, int], *,
     ``graph_pool`` (a ``torch.cuda.graph_pool_handle()``; default: a
     private pool).  ``recorder`` / ``obs`` wrap ``fn`` as the reference's
     ``_maybe_record`` does.  Returns ``fn``; the reference's param and
-    cache specs have no counterpart without a mesh.
+    cache specs are ``params.layout.specs`` and :func:`sharding.
+    cache_specs`.
+
+    With a ``mesh`` (``params`` sharded on it), ``fn`` runs eagerly on the
+    rank's data rows of ``batch``, into ``cache`` (default: a new
+    :func:`local_cache` of ``prompt_len`` positions), and its logits are
+    the rank's rows, gathered along the vocabulary.
     """
     dev = params.embed.device
     bsz, seq = batch_shape
+    if mesh is not None:
+        _mesh_of(params, mesh)
+        if cache is None:
+            cache = local_cache(cfg, mesh, bsz, seq, device=dev)
+
+        def prefill(batch):
+            tokens = _data_rows(torch.as_tensor(batch["tokens"]), mesh)
+            return api.prefill(cfg, params, {"tokens": tokens.to(dev)},
+                               cache=cache)
+        return _maybe_record(prefill, recorder, "prefill", obs)
     if cache is None:
         cache = api.init_cache(cfg, bsz, seq, device=dev)
     tokens = torch.zeros((bsz, seq), dtype=torch.long, device=dev)
@@ -254,7 +388,7 @@ def build_prefill(cfg, params, batch_shape: Tuple[int, int], *,
 
 
 def build_serve_step(cfg, params, cache: Dict[str, torch.Tensor], *,
-                     graph_pool=None, recorder=None, obs=None):
+                     mesh=None, graph_pool=None, recorder=None, obs=None):
     """Static-buffer decode step over ``cache``:
     ``fn(tokens, length) -> (cache, logits)``.
 
@@ -266,9 +400,24 @@ def build_serve_step(cfg, params, cache: Dict[str, torch.Tensor], *,
     so one graph serves every position.  The step writes the new k/v into
     ``cache`` in place, as the reference's donated cache.  ``graph_pool``,
     ``recorder`` and ``obs`` as for :func:`build_prefill`.  Returns ``fn``.
+    With a ``mesh``, ``cache`` is the rank's shard (:func:`local_cache`),
+    ``tokens`` the global batch's, and ``fn`` runs eagerly as
+    :func:`build_prefill`'s does.
     """
     dev = params.embed.device
     bsz, capacity = cache["k"].shape[1:3]
+    if mesh is not None:
+        _mesh_of(params, mesh)
+
+        def decode(step_tokens, length: int):
+            length = int(length)
+            if not 0 <= length < capacity:
+                raise ValueError(f"position {length} is past the cache's "
+                                 f"{capacity} positions")
+            tokens = _data_rows(torch.as_tensor(step_tokens), mesh)
+            return api.decode_step(cfg, params, cache, tokens.to(dev),
+                                   length)
+        return _maybe_record(decode, recorder, "decode", obs)
     tokens = torch.zeros((bsz, 1), dtype=torch.long, device=dev)
     pos = torch.zeros((), dtype=torch.long, device=dev)
     step = _Static(lambda: api.decode_step(cfg, params, cache, tokens, pos),
@@ -283,3 +432,57 @@ def build_serve_step(cfg, params, cache: Dict[str, torch.Tensor], *,
         pos.fill_(length)
         return step()
     return _maybe_record(decode, recorder, "decode", obs)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints on a mesh
+# ---------------------------------------------------------------------------
+
+def gather_state(params, mesh) -> Callable:
+    """The ``gather`` of :meth:`repro_torch.checkpoint.Checkpointer.
+    save_async` for ``{"params": params.state_dict(), "opt": opt_state}``
+    on ``mesh``: each leaf's full tensor on the first rank (which writes),
+    ``None`` elsewhere: a parameter gathered over its split, an optimizer
+    leaf's ``(D, cols)`` rows over all ranks (the reference's unsharded
+    tree).  Every rank calls it for every leaf, in the tree's order."""
+    layout = _mesh_of(params, mesh)
+    shardings = shr.spec_to_sharding(layout.specs, mesh)
+    flat = shr.worker_mesh(mesh, flat_axes(mesh))
+    group, first = flat.get_group(), flat.get_local_rank() == 0
+
+    def gather(path: str, leaf: torch.Tensor):
+        kind, _, rest = path.partition("/")
+        if kind == "params":
+            return shardings[rest].gather_first(leaf)
+        if not rest.startswith("flat/"):
+            return leaf if first else None
+        rows = ([torch.empty_like(leaf) for _ in range(flat.size())]
+                if first else None)
+        dist.gather(leaf.contiguous(), rows,
+                    dst=dist.get_global_rank(group, 0), group=group)
+        return torch.cat(rows) if first else None
+    return gather
+
+
+@torch.no_grad()
+def load_state(params, opt_state, tree, mesh) -> None:
+    """Copy this rank's part of the unsharded checkpoint ``tree`` (CPU
+    tensors, memory-mapped by :func:`repro_torch.checkpoint.restore`)
+    into ``params`` (its shards) and ``opt_state`` (its rows): the
+    restore's scatter.  The rows were saved by a mesh of the
+    same number of ranks, at any shape."""
+    layout = _mesh_of(params, mesh)
+    shardings = shr.spec_to_sharding(layout.specs, mesh)
+    flat = shr.worker_mesh(mesh, flat_axes(mesh))
+    r, n = flat.get_local_rank(), flat.size()
+    for name, p in params.named_parameters():
+        p.copy_(shardings[name].local(tree["params"][name]))
+    for name, tr in opt_state["flat"].items():
+        for key, t in tr.items():
+            saved = tree["opt"]["flat"][name][key]
+            if saved.shape[0] != n:
+                raise ValueError(f"{name}/{key}: the checkpoint holds "
+                                 f"{saved.shape[0]} rows, the mesh has {n} "
+                                 "ranks")
+            t.copy_(saved[r:r + 1])
+    opt_state["count"].copy_(tree["opt"]["count"])

@@ -18,8 +18,15 @@ process per rank.  Its backend is the launcher's choice, made with
 A 1 x 1 mesh needs no launcher: :func:`make_test_mesh` then initialises a
 single-rank group on a ``HashStore``.  ``make_production_mesh`` comes with
 the dry-run (ROADMAP A.13's item on ``launch/dryrun.py``).
+
+:class:`P` is the port's ``PartitionSpec`` and :func:`abstract_mesh` its
+``AbstractMesh``: the sharding rules of :mod:`repro_torch.dist.sharding`
+read only a mesh's axis names and sizes, so they run without a process
+group on either.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.distributed as dist
@@ -27,7 +34,48 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..kernels.engine import resolve_device
 
-__all__ = ["backend_for", "make_test_mesh", "dp_axes", "flat_axes"]
+__all__ = ["P", "AbstractMesh", "abstract_mesh", "axis_sizes",
+           "backend_for", "make_test_mesh", "dp_axes", "flat_axes",
+           "all_gather_cat"]
+
+
+class P(tuple):
+    """A partition spec: one entry per tensor dimension, each ``None``
+    (whole), a mesh axis name, or a tuple of names (their devices in mesh
+    order, flattened); missing trailing entries are ``None``, so ``P()``
+    is replicated.  Equal to the reference's ``PartitionSpec`` entry for
+    entry."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Axis names and sizes without devices or a process group, read as a
+    ``DeviceMesh`` is (``mesh_dim_names``, ``shape``)."""
+
+    shape: tuple
+    mesh_dim_names: tuple
+
+
+def abstract_mesh(axis_shapes, axis_names) -> AbstractMesh:
+    """A device-free mesh for the sharding rules (the reference's
+    ``compat.abstract_mesh``)."""
+    if len(axis_shapes) != len(axis_names):
+        raise ValueError(f"{len(axis_shapes)} sizes for {len(axis_names)} "
+                         "axis names")
+    return AbstractMesh(tuple(int(n) for n in axis_shapes),
+                        tuple(axis_names))
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh`` or :class:`AbstractMesh`,
+    in mesh order."""
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
 
 
 def backend_for(device, world_size: int) -> str:
@@ -73,3 +121,16 @@ def dp_axes(mesh) -> tuple:
 def flat_axes(mesh) -> tuple:
     """All axes, for fully-flat (ZeRO) sharding."""
     return tuple(mesh.mesh_dim_names)
+
+
+def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """``t`` of every rank of ``group``, concatenated along ``dim`` in
+    rank order (one tensor-form all-gather, which gloo takes for CUDA
+    tensors too)."""
+    t = t.movedim(dim, 0).contiguous()
+    out = t.new_empty((dist.get_world_size(group) * t.shape[0],)
+                      + tuple(t.shape[1:]))
+    # (not torch 2.13's all_gather_single, after which two-rank gloo
+    # groups now and then aborted in their teardown)
+    dist.all_gather_into_tensor(out, t, group=group)
+    return out.movedim(0, dim).contiguous()

@@ -1,10 +1,9 @@
 """End-to-end training command line (port of ``repro/launch/train.py``).
 
 Thin CLI over the step layer: :func:`repro_torch.dist.step.build_train_step`
-builds the grad-accumulating AdamW step (flat ZeRO-1 layout, one shard on
-one device), whose attention runs on the CUDA kernel B5 (forward, and
-again in each block's remat recompute).  This module owns the loop: data,
-checkpoints, logging.
+builds the grad-accumulating AdamW step (flat ZeRO-1 layout), whose
+attention runs on the CUDA kernel B5 (forward, and again in each block's
+remat recompute).  This module owns the loop: data, checkpoints, logging.
 
 Fault tolerance contract (the reference's):
   * checkpoints are step-atomic and async (:mod:`repro_torch.checkpoint`);
@@ -23,8 +22,19 @@ engine dispatch counters, the ``train.steps_per_s`` gauge and the
 ``train.steps`` counter) and saves JSONL + Chrome trace under ``--obs-dir``
 (default ``benchmarks/results/obs/``).
 
-The port trains on one device: ``--mesh-data`` / ``--mesh-model`` other
-than 1 raise (sharding the model over a mesh is ROADMAP A.13).
+Mesh (``--mesh-data D --mesh-model M`` above 1 x 1): one process a rank,
+``torch.distributed``.  Under ``torchrun`` (or whatever initialised the
+process group first) the ranks join it; run plainly, the command spawns
+the ``D * M`` ranks itself on a ``file://`` store under ``--ckpt-dir``,
+with the backend of :func:`repro_torch.launch.mesh.backend_for` (NCCL with
+a GPU a rank, else gloo; on one card the ranks share it).  Each rank draws
+the full model from the seed and keeps its shards
+(:func:`repro_torch.models.transformer.shard_params`) and its ZeRO rows;
+rank 0 prints, writes the heartbeat and the (unsharded) checkpoints, and
+returns the record, with every rank's step times, peak memory and B5
+launches under ``per_rank``.  A rank that fails fails the run, and so do
+spawned ranks past :func:`main`'s ``timeout_s``; nothing falls back to
+fewer ranks or to the CPU.
 A periodic checkpoint that would fall on the last step is left to the
 final one, which the reference writes at the same step as well.
 
@@ -32,6 +42,9 @@ On the card, at llama3.2-1b's full width:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --steps 4 --seq-len 2048 --global-batch 8 --ckpt-dir build/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --steps 3 --seq-len 2048 --global-batch 4 --mesh-data 2 \\
+      --mesh-model 2 --ckpt-dir build/ckpt_mesh
 
 On the CPU, reduced:
 
@@ -42,22 +55,31 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import datetime
 import os
+import queue
 import time
+import traceback
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import Checkpointer, latest_step, restore
 from ..configs import REDUCED, get_config
 from ..configs.base import ShapeConfig
 from ..data import DataConfig, global_batch_at
 from ..dist import step as step_lib
+from ..kernels import flash_attention as b5
 from ..kernels.engine import resolve_device
 from ..models import api
 from ..optim import adamw
 from ..optim.adamw import OptConfig
+from .mesh import backend_for, make_test_mesh
 
 __all__ = ["build_args", "main"]
+
+# The collective timeout of a mesh's process group, s.
+DIST_TIMEOUT_S = 600
 
 
 def build_args(argv=None):
@@ -102,25 +124,114 @@ def _copy_into(dst, src) -> None:
         dst.copy_(src)
 
 
-def main(argv=None) -> dict:
+def _rank_main(rank: int, world: int, init_method: str, argv,
+               results) -> None:
+    """One spawned rank: join the group, run :func:`main`, and put rank
+    0's record (or any rank's traceback) on ``results``."""
+    try:
+        args = build_args(argv)
+        dev = resolve_device(args.device)
+        dist.init_process_group(
+            backend_for(dev, world), init_method=init_method, rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        rec = main(argv)
+        results.put({"rank": rank, "record": rec if rank == 0 else None})
+    except BaseException:   # noqa: BLE001 - the parent fails the run on it
+        results.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn(args, argv, timeout_s: float | None) -> dict:
+    """Run :func:`main` in ``data * model`` spawned ranks on a ``file://``
+    store under ``--ckpt-dir``; return rank 0's record.  A rank that fails
+    (or exits without a record), or ranks still running ``timeout_s``
+    after the start (None: no limit), kill every rank and raise."""
+    import multiprocessing as mp
+    world = args.mesh_data * args.mesh_model
+    deadline = (None if timeout_s is None
+                else time.monotonic() + timeout_s)
+    os.makedirs(args.ckpt_dir, exist_ok=True)
+    store = os.path.join(os.path.abspath(args.ckpt_dir),
+                         f".store.{os.getpid()}.{time.time_ns()}")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, args=(
+        r, world, f"file://{store}", argv, results)) for r in range(world)]
+    recs, failed = {}, None
+    try:
+        for p in procs:
+            p.start()
+        while len(recs) < world and failed is None:
+            if deadline is not None and time.monotonic() > deadline:
+                failed = f"past the run's limit of {timeout_s:.1f} s"
+                break
+            try:
+                r = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    failed = f"a rank exited {dead} without a record"
+                continue
+            if "error" in r:
+                failed = f"rank {r['rank']} failed:\n{r['error']}"
+            recs[r["rank"]] = r
+        for p in procs:
+            wait = 60.0 if deadline is None else deadline - time.monotonic()
+            p.join(timeout=max(min(wait, 60.0), 0.1)
+                   if failed is None else 0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if os.path.exists(store):
+            os.remove(store)
+    if failed is not None:
+        raise RuntimeError(f"mesh {args.mesh_data}x{args.mesh_model}: "
+                           f"{failed}")
+    return recs[0]["record"]
+
+
+def main(argv=None, *, timeout_s: float | None = None) -> dict:
     """Run the CLI; returns the run's record: per-step ``loss``,
     ``grad_norm``, ``lr``, ``tokens`` and ``step_s``, the checkpoint
-    timings and the restore's seconds."""
+    timings and the restore's seconds (on a mesh, rank 0's, with
+    ``per_rank``).  ``timeout_s`` limits the ranks this call spawns (by
+    default ``--max-step-seconds`` a step plus the collective timeout to
+    start, else none): past it every rank is killed and the run fails."""
     args = build_args(argv)
-    if args.mesh_data != 1 or args.mesh_model != 1:
-        raise NotImplementedError(
-            f"mesh {args.mesh_data}x{args.mesh_model}: the port trains on one "
-            "device; sharding the model (dist/sharding.py's model half) is "
-            "ROADMAP A.13")
+    dev = resolve_device(args.device)
+    world = args.mesh_data * args.mesh_model
+    if world > 1 and not dist.is_initialized():
+        if "RANK" not in os.environ:
+            if timeout_s is None and args.max_step_seconds:
+                timeout_s = (DIST_TIMEOUT_S
+                             + args.steps * args.max_step_seconds)
+            return _spawn(args, argv, timeout_s)
+        dist.init_process_group(       # torchrun: the environment's group
+            backend_for(dev, world), init_method="env://",
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
     # Chaos harness: honour REPRO_FAULT_PLAN.
     from ..resilience.inject import install_from_env
     install_from_env()
-    dev = resolve_device(args.device)
+    mesh, rank = None, 0
+    if world > 1:
+        if dev.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+            dev = torch.device("cuda", local % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        mesh = make_test_mesh(args.mesh_data, args.mesh_model, device=dev)
+        rank = dist.get_rank()
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
     obs = None
-    if args.obs:
+    if args.obs and rank == 0:
         from ..obs import Obs, set_active
         obs = Obs(source=args.obs)
         set_active(obs)
@@ -130,18 +241,29 @@ def main(argv=None) -> dict:
                         warmup_steps=max(args.steps // 20, 1))
     data_cfg = DataConfig(seed=args.seed)
 
-    n_mb = step_lib.default_microbatches(shape)
+    n_mb = step_lib.default_microbatches(shape, mesh)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = api.init_params(cfg, gen, device=dev)
-    train_step = step_lib.build_train_step(cfg, params, opt_cfg,
+    n_params = api.num_params(params)
+    gather = None
+    if mesh is None:
+        opt_state = adamw.init_opt_state(params, step_lib.N_SHARDS)
+    else:
+        params = api.shard_params(cfg, params, mesh, device=dev)
+        opt_state = adamw.init_opt_state(params, world,
+                                         param_specs=params.layout.specs,
+                                         mesh=mesh)
+        gather = step_lib.gather_state(params, mesh)
+    train_step = step_lib.build_train_step(cfg, params, opt_cfg, mesh=mesh,
                                            n_microbatches=n_mb, obs=obs)
-    opt_state = adamw.init_opt_state(params, step_lib.N_SHARDS)
 
     record = {"arch": cfg.name, "device": str(dev), "n_microbatches": n_mb,
-              "params": api.num_params(params), "start_step": 0,
+              "params": n_params, "start_step": 0,
               "restore_s": None, "steps": []}
+    if mesh is not None:
+        record["mesh"] = [args.mesh_data, args.mesh_model]
     start_step = 0
-    ckpt = Checkpointer(args.ckpt_dir)
+    ckpt = Checkpointer(args.ckpt_dir, write=rank == 0)
     if args.resume and latest_step(args.ckpt_dir) is not None:
         t0 = time.perf_counter()
         tmpl = {"params": params.state_dict(), "opt": opt_state}
@@ -149,19 +271,28 @@ def main(argv=None) -> dict:
         # Validated ingestion: a checkpoint that restores NaN/Inf params
         # would train to garbage silently; fail loudly at the boundary.
         from ..resilience.validate import check_finite_tree
-        check_finite_tree(tree["params"], what="restored params")
-        with torch.no_grad():
-            params.load_state_dict(tree["params"])
-        _copy_into(opt_state, tree["opt"])
+        if mesh is None:
+            check_finite_tree(tree["params"], what="restored params")
+            with torch.no_grad():
+                params.load_state_dict(tree["params"])
+            _copy_into(opt_state, tree["opt"])
+        else:
+            step_lib.load_state(params, opt_state, tree, mesh)
+            check_finite_tree(params.state_dict(), what="restored params")
+        del tree
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         record.update(start_step=start_step,
                       restore_s=time.perf_counter() - t0)
-        print(f"[resume] step {start_step} from {args.ckpt_dir} "
-              f"(meta={meta})")
+        if rank == 0:
+            print(f"[resume] step {start_step} from {args.ckpt_dir} "
+                  f"(meta={meta})")
 
     hb_path = os.path.join(args.ckpt_dir, "heartbeat")
     os.makedirs(args.ckpt_dir, exist_ok=True)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    b5_before = b5.flash_attention.launches
     t_start = time.perf_counter()
     metrics = None
     engine_ctx = obs.attach_engine() if obs else contextlib.nullcontext()
@@ -178,9 +309,11 @@ def main(argv=None) -> dict:
                 raise TimeoutError(
                     f"step {step} exceeded watchdog "
                     f"({t_step:.1f}s > {args.max_step_seconds}s)")
-            with open(hb_path, "w") as f:
-                f.write(str(step))
-            if step % args.log_every == 0 or step == args.steps - 1:
+            if rank == 0:
+                with open(hb_path, "w") as f:
+                    f.write(str(step))
+            if rank == 0 and (step % args.log_every == 0
+                              or step == args.steps - 1):
                 print(f"step {step:6d} loss {m['loss']:.4f} "
                       f"gnorm {m['grad_norm']:.3f} lr {m['lr']:.2e} "
                       f"({t_step:.2f}s/step)", flush=True)
@@ -189,14 +322,31 @@ def main(argv=None) -> dict:
                 ckpt.save_async(step + 1,
                                 {"params": params.state_dict(),
                                  "opt": opt_state},
-                                meta={"arch": cfg.name})
+                                meta={"arch": cfg.name}, gather=gather)
     ckpt.save_async(args.steps, {"params": params.state_dict(),
                                  "opt": opt_state},
-                    meta={"arch": cfg.name, "final": True})
+                    meta={"arch": cfg.name, "final": True}, gather=gather)
     ckpt.close()
     t_total = time.perf_counter() - t_start
     n_steps = args.steps - start_step
     record.update(train_s=t_total, ckpt=ckpt.timings)
+    if mesh is not None:
+        mine = {"rank": rank, "step_s": [s["step_s"] for s in
+                                         record["steps"]],
+                "loss": [s["loss"] for s in record["steps"]],
+                "grad_norm": [s["grad_norm"] for s in record["steps"]],
+                "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                                if dev.type == "cuda" else None),
+                "local_heads": (params.layers[0].attn.wq.shape[1]
+                                // cfg.resolved_head_dim),
+                "launches": {"flash_attention":
+                             b5.flash_attention.launches - b5_before}}
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, mine)
+        record["per_rank"] = per_rank
+        dist.barrier()
+        if rank:
+            return record
     final = (f"{record['steps'][-1]['loss']:.4f}" if record["steps"]
              else "n/a")
     print(f"trained {n_steps} steps in {t_total:.1f}s; final loss {final}")

@@ -9,6 +9,7 @@ Every architecture exposes the same entry points regardless of family:
         (``len``: an int, or a 0-d int32/int64 tensor on the device)
     init_cache(cfg, batch, max_len)            -> cache dict
     num_params(params)                         -> int
+    shard_params(cfg, full, mesh, device=)     -> this rank's params
 
 ``batch`` for ``train_loss``: ``{tokens (B, S), labels (B, S)}`` integer
 tensors (or arrays) with -1 = masked label; ``aux`` is ``{"tokens":
@@ -21,7 +22,7 @@ from ..configs.base import ModelConfig
 from . import transformer
 
 __all__ = ["init_params", "train_loss", "prefill", "decode_step",
-           "init_cache", "num_params"]
+           "init_cache", "num_params", "shard_params"]
 
 
 def _mod(cfg: ModelConfig):
@@ -54,3 +55,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
 
 def num_params(params) -> int:
     return transformer.num_params(params)
+
+
+def shard_params(cfg: ModelConfig, full, mesh, *, device=None):
+    return _mod(cfg).shard_params(cfg, full, mesh, device=device)

@@ -20,12 +20,24 @@ uses.  Conventions kept from the reference:
 Parameters live in small ``nn.Module`` s (:class:`Norm`,
 :class:`Attention`, :class:`MLP`) whose attribute names are the
 reference's pytree keys.
+
+Tensor parallelism (a model sharded over a mesh's ``model`` axis,
+:class:`MeshLayout`) is explicit collectives on each rank's local shards,
+Megatron's pair: :func:`copy_to_model` (identity forward, all-reduce of the
+gradient backward) in front of the column-split projections, and
+:func:`row_parallel` behind the row-split ``wo``, whose partial products
+leave the GEMM in fp32, are summed over ``model`` in fp32 and rounded once
+(the reference's jit sums the same fp32 partials before its cast).  Every
+collective runs in fp32.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -35,9 +47,137 @@ from ..kernels.engine import resolve_backend
 __all__ = ["F32", "Norm", "Attention", "MLP", "dense_init", "embed_init",
            "matmul", "rmsnorm", "layernorm", "norm_init", "norm_apply",
            "rope", "attention_init", "flash_attention", "decode_attention",
-           "mlp_init", "mlp_apply"]
+           "mlp_init", "mlp_apply", "MeshLayout", "copy_to_model",
+           "reduce_from_model", "row_parallel", "take_kv"]
 
 F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MeshLayout:
+    """Where a rank's shards of a model sharded over a mesh sit
+    (``dist/sharding.py::model_layout``; ``transformer.shard_params`` sets
+    it on the model as ``layout``).
+
+    ``specs`` / ``shapes``: each parameter's spec and global shape.
+    ``model_group`` / ``model_rank``: the ``model`` axis's group (None
+    when it splits nothing) and this rank's index on it.  ``heads``: this
+    rank's ``[first, end)`` q heads when ``wq``/``wo`` are split over
+    ``model`` (None: whole attention); ``kv_take``: the kv head each of
+    them reads when ``wk``/``wv`` stay whole (None: split alike);
+    ``ff``: the MLP's ``d_ff`` is split; ``vocab``: this rank's rows of
+    the embedding table (None: whole).  ``data_group``: the data-parallel
+    axes' group (None for one data rank), over which the loss's token
+    count is summed (the loss is the global batch's mean)."""
+
+    mesh: Any
+    specs: Mapping
+    shapes: Mapping
+    model_group: Any
+    model_rank: int
+    heads: Optional[Tuple[int, int]]
+    kv_take: Optional[Tuple[int, ...]]
+    ff: bool
+    vocab: Optional[Tuple[int, int]]
+    data_group: Any
+
+
+def _all_reduce_f32(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, taken in fp32, in ``x``'s dtype (a
+    new tensor)."""
+    y = x.to(F32, copy=True)
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over the model group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_f32(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the model group forward; identity backward (every rank
+    goes on with the same sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, layout: MeshLayout) -> torch.Tensor:
+    """``x`` whole on every rank of ``model`` (an activation in front of a
+    column-split projection, or a whole weight whose ranks use different
+    parts of it): its gradient is summed over ``model``."""
+    return _CopyToModel.apply(x, layout.model_group)
+
+
+def reduce_from_model(x: torch.Tensor, layout: MeshLayout) -> torch.Tensor:
+    """The sum of the ranks' ``x`` over ``model``, in fp32, in ``x``'s
+    dtype."""
+    return _ReduceFromModel.apply(x, layout.model_group)
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (2-D) written out in fp32: on the card a half-precision
+    GEMM hands over its fp32 accumulator unrounded (``out_dtype``);
+    elsewhere the operands are upcast, whose products are exact in fp32
+    all the same."""
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+        return torch.mm(x, w, out_dtype=F32)
+    return torch.mm(x.to(F32), w.to(F32))
+
+
+class _PartialF32(torch.autograd.Function):
+    """``x @ w`` in fp32 (:func:`_mm_f32`).  Backward, the two GEMMs run in
+    ``x``'s dtype, as :func:`matmul`'s do on one device: the incoming
+    gradient is the fp32 copy of one in ``x``'s dtype (the rounding after
+    the sum), so nothing is lost casting it back."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        out = _mm_f32(x.reshape(-1, x.shape[-1]), w)
+        return out.view(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dw = torch.mm(x.reshape(-1, x.shape[-1]).t(),
+                      g.reshape(-1, g.shape[-1]))
+        return torch.matmul(g, w.t()), dw
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor,
+                 layout: MeshLayout) -> torch.Tensor:
+    """``x @ w`` for ``w`` split on its rows (``x`` on its columns): the
+    partial products leave the GEMM in fp32 (:class:`_PartialF32`), are
+    summed over ``model`` in fp32 and rounded once to ``x.dtype``."""
+    partial = _PartialF32.apply(x, w)
+    return reduce_from_model(partial, layout).to(x.dtype)
+
+
+def take_kv(t: torch.Tensor, layout: MeshLayout) -> torch.Tensor:
+    """The kv head (dim 2 of ``(B, S, KV, hd)``) of each of this rank's q
+    heads, when ``wk``/``wv`` are whole and ``wq`` is split."""
+    idx = torch.as_tensor(layout.kv_take, device=t.device)
+    return t.index_select(2, idx)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -227,7 +367,14 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
     return p
 
 
-def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    """swiglu: ``(silu(x wg) * (x wi)) wo``, silu in fp32."""
+def mlp_apply(p: MLP, x: torch.Tensor,
+              layout: MeshLayout | None = None) -> torch.Tensor:
+    """swiglu: ``(silu(x wg) * (x wi)) wo``, silu in fp32.  With a
+    ``layout`` whose ``ff`` is split, ``wi``/``wg`` are column shards and
+    ``wo`` a row shard (:func:`row_parallel`)."""
+    split = layout is not None and layout.ff
+    if split:
+        x = copy_to_model(x, layout)
     h = F.silu(matmul(x, p.wg).to(F32)).to(x.dtype)
-    return matmul(h * matmul(x, p.wi), p.wo)
+    h = h * matmul(x, p.wi)
+    return row_parallel(h, p.wo, layout) if split else matmul(h, p.wo)

@@ -30,6 +30,16 @@ PyTorch runs eagerly, so the layer loop is a Python loop.
   forward and its recompute launch B5 once each.  The parameters are
   trainable; :func:`prefill` and :func:`decode_step` run under
   ``torch.no_grad`` and record no graph.
+* On a mesh (:func:`shard_params`: each rank holds its shards of the
+  parameters, by ``dist/sharding.py::param_specs``, and the model's
+  ``layout``) every entry point runs on the rank's shards with explicit
+  collectives over ``model`` (``layers``' column/row pair): attention on
+  the rank's heads (B5 on them), the MLP on its ``d_ff`` slice, and the
+  tied embedding vocab-parallel: the lookup zeros the rows another rank
+  holds and sums over ``model``, the cross-entropy takes its log-sum-exp
+  from an all-reduce of each chunk's max and sum of exponentials, and the
+  logits are gathered along the vocabulary.  The loss is the mean over the
+  global batch: the token count is summed over the data axes.
 
 Families other than dense, and within it sliding-window attention,
 qk-norm, activations other than swiglu and frontends, raise
@@ -45,14 +55,17 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+import torch.distributed as dist
+
 from ..configs.base import ModelConfig
 from ..kernels.engine import resolve_device
+from ..launch.mesh import all_gather_cat
 from . import layers
-from .layers import F32
+from .layers import F32, MeshLayout
 
 __all__ = ["LM", "Block", "init_params", "train_loss", "chunked_ce",
            "prefill", "decode_step", "init_cache", "num_params",
-           "params_from_numpy", "LOGIT_CHUNK_ELEMS"]
+           "params_from_numpy", "shard_params", "LOGIT_CHUNK_ELEMS"]
 
 # Unembedding table elements widened to fp32 at a time (64 MB in fp32).
 LOGIT_CHUNK_ELEMS = 1 << 24
@@ -95,11 +108,13 @@ class Block(nn.Module):
 
 class LM(nn.Module):
     """The parameter tree of a dense LM (weights uninitialised until
-    :func:`init_params` or :func:`params_from_numpy` fills them)."""
+    :func:`init_params` or :func:`params_from_numpy` fills them).
+    ``layout`` is None on one device, a :class:`MeshLayout` on a mesh."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         check_supported(cfg)
+        self.layout: MeshLayout | None = None
         shape = (cfg.vocab_padded(), cfg.d_model)
         self.embed = nn.Parameter(torch.empty(shape, dtype=cfg.dtype,
                                               device=device))
@@ -160,6 +175,21 @@ def _host_array(a) -> np.ndarray:
     return np.ascontiguousarray(a)
 
 
+def _numpy_leaf(tree: Dict[str, Any], name: str) -> np.ndarray:
+    """The reference tree's array of the port's parameter ``name`` (the
+    stacked ``layers`` arrays split per block)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        node = tree["layers"]
+        for key in parts[2:]:
+            node = node[key]
+        return _host_array(node)[int(parts[1])]
+    node = tree
+    for key in parts:
+        node = node[key]
+    return _host_array(node)
+
+
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], *,
                       device=None) -> LM:
     """The reference's parameter pytree (``jax.tree.map(np.asarray,
@@ -171,21 +201,41 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], *,
     lm = LM(cfg, dev)
     with torch.no_grad():
         for name, p in lm.named_parameters():
-            parts = name.split(".")
-            if parts[0] == "layers":
-                node = tree["layers"]
-                for key in parts[2:]:
-                    node = node[key]
-                arr = _host_array(node)[int(parts[1])]
-            else:
-                node = tree
-                for key in parts:
-                    node = node[key]
-                arr = _host_array(node)
+            arr = _numpy_leaf(tree, name)
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: reference shape {arr.shape} vs "
                                  f"port shape {tuple(p.shape)}")
             p.copy_(torch.tensor(arr, dtype=cfg.dtype))
+    return lm
+
+
+def shard_params(cfg: ModelConfig, full, mesh, *, device=None) -> LM:
+    """This rank's :class:`LM` on ``mesh``: its shard of every parameter
+    of the full tree ``full`` (the port's own one-device :class:`LM`, on
+    any device, or the reference's numpy pytree) by
+    ``dist/sharding.py::param_specs``, copied in ``cfg.dtype`` onto
+    ``device``, and the :class:`MeshLayout` the entry points run it by.  The
+    same full tree gives the same model at every mesh shape."""
+    from ..dist import sharding as shr
+    dev = resolve_device(device)
+    lm = LM(cfg, torch.device("meta"))
+    shapes = {name: tuple(p.shape) for name, p in lm.named_parameters()}
+    specs = shr.param_specs(shapes, mesh, cfg)
+    shardings = shr.spec_to_sharding(specs, mesh)
+    source = (dict(full.named_parameters()) if isinstance(full, nn.Module)
+              else None)
+    with torch.no_grad():
+        for name, shape in shapes.items():
+            t = (source[name].detach() if source is not None
+                 else torch.from_numpy(_numpy_leaf(full, name)))
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name}: full shape {tuple(t.shape)} vs "
+                                 f"{shape}")
+            local = shardings[name].local(t).to(dev, cfg.dtype, copy=True)
+            module, _, leaf = name.rpartition(".")
+            setattr(lm.get_submodule(module) if module else lm, leaf,
+                    nn.Parameter(local.contiguous()))
+    lm.layout = shr.model_layout(mesh, cfg, specs, shapes)
     return lm
 
 
@@ -194,15 +244,25 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], *,
 # ---------------------------------------------------------------------------
 
 def _attn_block(cfg: ModelConfig, lp: Block, x, positions, *, mode,
-                cache=None, length=None, backend=None):
+                cache=None, length=None, backend=None, layout=None):
     """Returns (attn_out, cache_out); cache_out is (k, v) for prefill and
-    the updated cache views for decode."""
+    the updated cache views for decode.  The head counts are the local
+    weights' (all of them on one device)."""
     hd = cfg.resolved_head_dim
     bsz, seq, _ = x.shape
     ap = lp.attn
-    q = layers.matmul(x, ap.wq).reshape(bsz, seq, cfg.num_heads, hd)
-    k = layers.matmul(x, ap.wk).reshape(bsz, seq, cfg.num_kv_heads, hd)
-    v = layers.matmul(x, ap.wv).reshape(bsz, seq, cfg.num_kv_heads, hd)
+    wk, wv = ap.wk, ap.wv
+    split = layout is not None and layout.heads is not None
+    take = split and layout.kv_take is not None   # whole wk/wv
+    if split:
+        x = layers.copy_to_model(x, layout)
+        if take:   # each rank reads other kv heads: sum their gradients
+            wk = layers.copy_to_model(wk, layout)
+            wv = layers.copy_to_model(wv, layout)
+    heads = ap.wq.shape[1] // hd
+    q = layers.matmul(x, ap.wq).reshape(bsz, seq, heads, hd)
+    k = layers.matmul(x, wk).reshape(bsz, seq, wk.shape[1] // hd, hd)
+    v = layers.matmul(x, wv).reshape(bsz, seq, wv.shape[1] // hd, hd)
     q = layers.rope(q, positions, cfg.rope_theta)
     k = layers.rope(k, positions, cfg.rope_theta)
 
@@ -213,24 +273,33 @@ def _attn_block(cfg: ModelConfig, lp: Block, x, positions, *, mode,
         idx = length.reshape(1)
         k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
         v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
-        out = layers.decode_attention(q, k_cache, v_cache, length + 1)
+        kc, vc = ((layers.take_kv(k_cache, layout),
+                   layers.take_kv(v_cache, layout)) if take
+                  else (k_cache, v_cache))
+        out = layers.decode_attention(q, kc, vc, length + 1)
         cache_out = (k_cache, v_cache)
     else:
-        out = layers.flash_attention(q, k, v, causal=True, backend=backend)
+        ka, va = ((layers.take_kv(k, layout), layers.take_kv(v, layout))
+                  if take else (k, v))
+        out = layers.flash_attention(q, ka, va, causal=True,
+                                     backend=backend)
         cache_out = (k, v)
-    out = out.reshape(bsz, seq, cfg.num_heads * hd)
+    out = out.reshape(bsz, seq, heads * hd)
+    if split:
+        return layers.row_parallel(out, ap.wo, layout), cache_out
     return layers.matmul(out, ap.wo), cache_out
 
 
 def _layer_apply(cfg: ModelConfig, lp: Block, x, positions, *, mode,
-                 cache=None, length=None, backend=None):
+                 cache=None, length=None, backend=None, layout=None):
     """One block.  Returns (x, (k, v))."""
     h = layers.norm_apply(cfg.norm, lp.norm1, x)
     attn_out, kv = _attn_block(cfg, lp, h, positions, mode=mode,
-                               cache=cache, length=length, backend=backend)
+                               cache=cache, length=length, backend=backend,
+                               layout=layout)
     x = x + attn_out
     h2 = layers.norm_apply(cfg.norm, lp.norm2, x)
-    x = x + layers.mlp_apply(lp.mlp, h2)
+    x = x + layers.mlp_apply(lp.mlp, h2, layout)
     return x, kv
 
 
@@ -238,12 +307,27 @@ def _layer_apply(cfg: ModelConfig, lp: Block, x, positions, *, mode,
 # embedding / head
 # ---------------------------------------------------------------------------
 
+def _vocab(params: LM):
+    """This rank's ``[first, end)`` rows of a vocab-split table, or
+    None."""
+    return params.layout.vocab if params.layout is not None else None
+
+
 def _embed_inputs(cfg: ModelConfig, params: LM,
                   tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) -> embeddings (B, S, d) (no frontend prefix): the
     table's rows, as ``embed[tokens]``; ``F.embedding``'s gradient sums
-    repeated tokens in a fixed order on the card."""
-    return F.embedding(tokens, params.embed)
+    repeated tokens in a fixed order on the card.  Vocab-split: each rank
+    looks up the tokens in its rows, zeros the rest, and the ranks' sum
+    (one of them non-zero) is every token's row."""
+    vocab = _vocab(params)
+    if vocab is None:
+        return F.embedding(tokens, params.embed)
+    v0, v1 = vocab
+    mine = (tokens >= v0) & (tokens < v1)
+    x = F.embedding((tokens - v0).clamp(0, v1 - v0 - 1), params.embed)
+    return layers.reduce_from_model(x * mine[..., None].to(x.dtype),
+                                    params.layout)
 
 
 def _unembed_w(cfg: ModelConfig, params: LM) -> torch.Tensor:
@@ -260,6 +344,8 @@ def _logits(cfg: ModelConfig, params: LM, h: torch.Tensor) -> torch.Tensor:
     step = max(1, LOGIT_CHUNK_ELEMS // w.shape[1])
     for r0 in range(0, w.shape[0], step):
         out[:, r0:r0 + step] = hf @ w[r0:r0 + step].to(F32).T
+    if _vocab(params) is not None:       # gathered along the vocabulary
+        out = all_gather_cat(out, params.layout.model_group, dim=1)
     return out
 
 
@@ -285,27 +371,46 @@ class _ChunkedCE(torch.autograd.Function):
     forward keeps only each token's log-sum-exp, and the backward
     recomputes a chunk's logits to form ``softmax - onehot`` and its two
     products, accumulating the table's gradient in fp32 across chunks and
-    rounding it once."""
+    rounding it once.
+
+    Vocab-parallel (``group`` the model group, ``w`` this rank's rows from
+    ``v0``): a chunk's log-sum-exp comes from an all-reduce of the local
+    max, then of the local sums of exponentials with the gold logits (each
+    taken on the rank that holds the label's row); the backward forms
+    ``softmax - onehot`` on the local columns, sums ``dh`` over the group
+    in fp32 and keeps ``dw`` local."""
 
     @staticmethod
-    def forward(h, w, labels, chunk):
+    def forward(h, w, labels, chunk, group=None, v0=0):
         wf = w.to(F32)
         logz = torch.empty(h.shape[0], dtype=F32, device=h.device)
         loss = torch.zeros((), dtype=F32, device=h.device)
         for t0 in range(0, h.shape[0], chunk):
             lc = labels[t0:t0 + chunk]
             logits = h[t0:t0 + chunk].to(F32) @ wf.T
-            lz = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(1, lc.clamp_min(0)[:, None])[:, 0]
+            if group is None:
+                lz = torch.logsumexp(logits, dim=-1)
+                gold = logits.gather(1, lc.clamp_min(0)[:, None])[:, 0]
+            else:
+                mx = logits.amax(dim=-1)
+                dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+                mine = (lc >= v0) & (lc < v0 + w.shape[0])
+                local = (lc - v0).clamp(0, w.shape[0] - 1)
+                sums = torch.stack([
+                    torch.exp(logits - mx[:, None]).sum(dim=-1),
+                    logits.gather(1, local[:, None])[:, 0]
+                    * mine.to(F32)])
+                dist.all_reduce(sums, group=group)
+                lz, gold = mx + torch.log(sums[0]), sums[1]
             loss = loss + torch.sum((lz - gold) * (lc >= 0).to(F32))
             logz[t0:t0 + chunk] = lz
         return loss, logz
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        h, w, labels, chunk = inputs
+        h, w, labels, chunk, group, v0 = inputs
         ctx.save_for_backward(h, w, labels, output[1])
-        ctx.chunk = chunk
+        ctx.chunk, ctx.group, ctx.v0 = chunk, group, v0
         ctx.mark_non_differentiable(output[1])
 
     @staticmethod
@@ -319,11 +424,19 @@ class _ChunkedCE(torch.autograd.Function):
             hc = h[t0:t0 + ctx.chunk].to(F32)
             p = torch.exp(hc @ wf.T - logz[t0:t0 + ctx.chunk, None])
             rows = torch.arange(lc.shape[0], device=h.device)
-            p[rows, lc.clamp_min(0)] -= 1.0
+            if ctx.group is None:
+                p[rows, lc.clamp_min(0)] -= 1.0
+            else:
+                mine = (lc >= ctx.v0) & (lc < ctx.v0 + w.shape[0])
+                local = (lc - ctx.v0).clamp(0, w.shape[0] - 1)
+                p[rows, local] -= mine.to(F32)
             p *= ((lc >= 0).to(F32) * g)[:, None]
-            dh[t0:t0 + ctx.chunk] = (p @ wf).to(h.dtype)
+            dhc = p @ wf
+            if ctx.group is not None:
+                dist.all_reduce(dhc, group=ctx.group)
+            dh[t0:t0 + ctx.chunk] = dhc.to(h.dtype)
             dw.addmm_(p.T, hc)
-        return dh, dw.to(w.dtype), None, None
+        return dh, dw.to(w.dtype), None, None, None, None
 
 
 def chunked_ce(cfg: ModelConfig, params: LM, hidden: torch.Tensor,
@@ -333,19 +446,27 @@ def chunked_ce(cfg: ModelConfig, params: LM, hidden: torch.Tensor,
     hidden: (B, S, d); labels: (B, S) with -1 = masked.  Returns
     (loss_mean, n_tokens), both fp32 0-d tensors.  Chunks hold
     ``cfg.ce_chunk`` tokens and the last may be shorter (the reference
-    picks a chunk that divides T; the sum is the same)."""
+    picks a chunk that divides T; the sum is the same).  On a mesh
+    ``n_tokens`` is the global batch's count (summed over the data axes)
+    and ``loss_mean`` this rank's tokens' share of the global mean: the
+    ranks' losses sum to it."""
     bsz, seq, d = hidden.shape
     h2 = hidden.reshape(bsz * seq, d)
     l2 = labels.reshape(bsz * seq).long()
-    loss_sum, _ = _ChunkedCE.apply(h2, _unembed_w(cfg, params), l2,
-                                   max(1, cfg.ce_chunk))
+    layout, vocab = params.layout, _vocab(params)
+    loss_sum, _ = _ChunkedCE.apply(
+        h2, _unembed_w(cfg, params), l2, max(1, cfg.ce_chunk),
+        layout.model_group if vocab else None, vocab[0] if vocab else 0)
     count = (l2 >= 0).sum().to(F32)
+    if layout is not None and layout.data_group is not None:
+        dist.all_reduce(count, group=layout.data_group)
     return loss_sum / count.clamp_min(1.0), count
 
 
-def _train_block(cfg: ModelConfig, lp: Block, x, positions, backend):
+def _train_block(cfg: ModelConfig, lp: Block, x, positions, backend,
+                 layout):
     return _layer_apply(cfg, lp, x, positions, mode="train",
-                        backend=backend)[0]
+                        backend=backend, layout=layout)[0]
 
 
 def _run_stack(cfg: ModelConfig, params: LM, x, positions, *,
@@ -356,7 +477,8 @@ def _run_stack(cfg: ModelConfig, params: LM, x, positions, *,
     recomputes one block at a time."""
     for lp in params.layers:
         x = checkpoint(_train_block, cfg, lp, x, positions, backend,
-                       use_reentrant=False, preserve_rng_state=False)
+                       params.layout, use_reentrant=False,
+                       preserve_rng_state=False)
     return x
 
 
@@ -395,8 +517,9 @@ def prefill(cfg: ModelConfig, params: LM, batch: Dict[str, Any], *,
     x = _embed_inputs(cfg, params, tokens)
     bsz, seq = tokens.shape
     positions = torch.arange(seq, device=tokens.device)[None, :]
-    shape = (cfg.num_layers, bsz, seq, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    hd = cfg.resolved_head_dim
+    shape = (cfg.num_layers, bsz, seq, params.layers[0].attn.wk.shape[1]
+             // hd, hd)
     if cache is None:
         cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
                  "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
@@ -412,7 +535,7 @@ def prefill(cfg: ModelConfig, params: LM, batch: Dict[str, Any], *,
                     f"x {shape[3:]} {x.dtype} on {x.device}")
     for i, lp in enumerate(params.layers):
         x, (k, v) = _layer_apply(cfg, lp, x, positions, mode="prefill",
-                                 backend=backend)
+                                 backend=backend, layout=params.layout)
         cache["k"][i, :, :seq] = k
         cache["v"][i, :, :seq] = v
     x = layers.norm_apply(cfg.norm, params.final_norm, x)
@@ -456,7 +579,7 @@ def decode_step(cfg: ModelConfig, params: LM, cache, tokens, length):
     for i, lp in enumerate(params.layers):
         x, _ = _layer_apply(cfg, lp, x, positions, mode="decode",
                             cache=(cache["k"][i], cache["v"][i]),
-                            length=pos)
+                            length=pos, layout=params.layout)
     x = layers.norm_apply(cfg.norm, params.final_norm, x)
     return cache, _logits(cfg, params, x[:, 0])
 

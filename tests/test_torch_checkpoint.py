@@ -1,8 +1,10 @@
 """The port's checkpoints (``repro_torch.checkpoint``): the six cases of
 tests/test_checkpoint.py on torch trees, the format read back with numpy
 alone, the restore-time NaN/Inf check against the reference's
-``check_finite_tree``, and a training run resumed from a checkpoint that
-equals the uninterrupted run bit for bit on the CPU."""
+``check_finite_tree``, a training run resumed from a checkpoint that
+equals the uninterrupted run bit for bit on the CPU, and the two pieces a
+mesh uses: the memory-mapped restore and a save that gathers each leaf
+(``tests/test_torch_mesh.py`` runs them across ranks)."""
 import json
 import os
 import struct
@@ -216,3 +218,41 @@ def _template(directory):
             node = node.setdefault(part, {})
         node[parts[-1]] = None
     return tmpl
+
+
+def test_restore_maps_the_file_copy_on_write(tmp_path):
+    """``restore`` maps the file (copy-on-write): the tensors equal the
+    saved ones, and writing into one leaves the file alone."""
+    tree = _tree(3)
+    save(str(tmp_path), 5, tree)
+    _, mapped, _ = restore(str(tmp_path), tree)
+    for a, b in zip(_leaves(tree), _leaves(mapped)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    mapped["params"]["b"][0] = 123.0
+    _, again, _ = restore(str(tmp_path), tree)
+    assert torch.equal(again["params"]["b"], tree["params"]["b"])
+
+
+def test_save_gathers_each_leaf_and_a_non_writer_writes_nothing(tmp_path):
+    """``save_async(gather=)`` saves what ``gather(path, leaf)`` returns
+    for each leaf, in the tree's order; a ``write=False`` checkpointer
+    calls the same gathers and writes no file."""
+    tree = _tree(4)
+    seen = []
+
+    def gather(path, leaf):
+        seen.append(path)
+        return leaf * 2 if leaf.is_floating_point() else leaf
+    ck_w = Checkpointer(str(tmp_path / "w"))
+    ck_w.save_async(1, tree, gather=gather)
+    ck_w.close()
+    paths = [p for p, _ in ck._leaves(tree)]
+    assert seen == paths
+    _, back, _ = restore(str(tmp_path / "w"), tree)
+    assert torch.equal(back["params"]["w"], tree["params"]["w"] * 2)
+    assert torch.equal(back["opt"]["count"], tree["opt"]["count"])
+    seen.clear()
+    ck_r = Checkpointer(str(tmp_path / "r"), write=False)
+    ck_r.save_async(1, tree, gather=gather)
+    ck_r.close()
+    assert seen == paths and latest_step(str(tmp_path / "r")) is None

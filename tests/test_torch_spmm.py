@@ -311,8 +311,10 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
             "from repro_torch.kernels import _build\n"
             "from repro_torch.resilience import fallback, validate\n"
             "from repro_torch.core import distributed\n"
-            "from repro_torch.dist import compress, sharding\n"
-            "from repro_torch.launch import mesh\n"
+            "from repro_torch.dist import compress, sharding, step\n"
+            "from repro_torch.launch import mesh, train\n"
+            "sharding.param_specs, sharding.cache_specs, "
+            "sharding.model_layout\n"
             "from repro_torch.benchmarks import (run, perf_gate, "
             "fig4_throughput, fig5_halfprec, sec43_scheduling, "
             "batched_spmm, autotune_suite, table3_energy, table4_gnn, "

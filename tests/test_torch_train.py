@@ -302,4 +302,4 @@ def test_default_microbatches_matches_reference(global_batch, per):
     want = ref_step.default_microbatches(
         RefShape("t", 16, global_batch, "train"), make_test_mesh(1, 1), per)
     shape = ShapeConfig("t", 16, global_batch, "train")
-    assert step_lib.default_microbatches(shape, per) == want
+    assert step_lib.default_microbatches(shape, None, per) == want
