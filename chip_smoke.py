@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU: the LOOPS
-SpMM paths, its autotuner, the llama3.2-1b server and its trainer.
+SpMM paths, its autotuner, the dense LMs' server (llama3.2-1b, on one
+device and on a mesh, and qwen3-32b, granite-34b and internlm2-20b) and
+the llama3.2-1b trainer.
 
 Run from the repository root, on a machine with an NVIDIA H100:
 
@@ -23,7 +25,9 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  row and block-row span more than 50 units, with the split
                  block-row right after the boundary of the fused buffer;
                  and B5 (flash attention) at the reference test's three
-                 shapes, a ragged S of 1000 (hd 64 and 128) and the serving
+                 shapes, a ragged S of 1000 (hd 64 and 128), the mesh
+                 ranks' shapes, the dense family's hd-128 head layouts
+                 (phase 18's, and theirs on a (1, 2) mesh) and the serving
                  shape (4, 2048, 32 heads, 8 kv heads, hd 64), causal and
                  not, fp32 / bf16 / f16;
   3. main     -- ``plan_and_convert`` -> ``loops_spmm`` at the published
@@ -212,38 +216,58 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  ``DIST_TIMEOUT_S``, fails the run.
  17. train_mesh -- llama3.2-1b trained across a (data 2, model 2) mesh:
                  first the single-device ``build_train_step`` in this
-                 process, two steps on the global batch (4 x 2048 tokens,
+                 process, one step on the global batch (4 x 2048 tokens,
                  bf16, the launcher's seed, data and schedule); then
                  ``launch/train.py --mesh-data 2 --mesh-model 2`` at full
                  width, which spawns its 4 ranks (sharing the card on gloo),
-                 for 3 steps with a checkpoint after step 1, and again with
-                 ``--resume`` from it.  Step 0's loss within
+                 for 2 steps with a checkpoint after step 0, and again with
+                 ``--resume`` from it (neither writes a final checkpoint:
+                 ``--no-final-ckpt``).  Step 0's loss within
                  ``MESH_LOSS_TOL`` and gradient norm within
                  ``MESH_GNORM_TOL`` (relative) of the single-device step's;
                  every parameter of the checkpoint (the gathered, unsharded
-                 tree after two steps) within ``MESH_LEAF_TOL`` of its
-                 norm from the single-device one; the resumed step's loss and
+                 tree after one step) within ``MESH_LEAF_TOL`` of its norm
+                 from the single-device one; the resumed step's loss and
                  gradient norm bit-equal to the uninterrupted run's on every
                  rank; B5 launched on every rank at 16 local heads, 2 x 16 a
-                 step.  Then an eager fp32 prefill of 2 x 256 tokens and 4
-                 decode steps on a (1, 2) mesh (2 spawned ranks) against
-                 the single-device logits at ``LM_TOL``, and the host ms of
-                 one activation all-reduce and one ZeRO reduce-scatter of
-                 the largest parameter's flat gradient on those ranks; and
-                 first, in this process, one layer's row-parallel ``wo``
-                 GEMMs at a rank's shapes, with fp32 output and with fp32
-                 operands.  It prints step ms per rank, tokens/s, peak GB
-                 per rank, the checkpoint's hand-off / write / restore s,
-                 the ``wo`` ms and the card's name and power limit.  A rank
-                 that fails fails the run, and so do ranks still running at
-                 ``MESH_LIMIT_S`` (every rank is killed).
+                 step.  Then serving through ``launch/serve.py`` and its
+                 ``ServeQueue``, on one device here (the graphed pool) and
+                 with ``--mesh-data`` / ``--mesh-model`` (spawned ranks,
+                 rank 0 scheduling, eager steps): at (1, 2) in fp32, 2
+                 requests of 256 + 4 tokens, every logits row within
+                 ``LM_TOL`` of one device's and the streams equal; at (2, 2)
+                 in bf16, 4 requests of 256 + 16 tokens, every rank's
+                 streams equal rank 0's, with the first position where they
+                 differ from one device's, decode ms a step and tokens/s;
+                 B5 once a layer per prefill on every rank.  First, in this
+                 process, one layer's row-parallel ``wo`` GEMMs at a rank's
+                 shapes, with fp32 output and with fp32 operands.  It
+                 prints step ms per rank, tokens/s, peak GB per rank, the
+                 checkpoint's hand-off / write / restore s, the serving
+                 numbers, the ``wo`` ms and the card's name and power
+                 limit.  A rank that fails fails the run, and so do ranks
+                 still running at ``MESH_LIMIT_S`` (every rank is killed).
+ 18. serve_dense -- the dense family's other configs served in bf16
+                 through ``ServeQueue`` and its graphed pool (the bucket
+                 warmed first), 4 requests of 2048 + 32 tokens, greedy:
+                 qwen3-32b at full width and depth (64 layers, d 5120, 64
+                 heads on 8 kv heads, hd 128, qk-norm, an untied 152,064-row
+                 vocabulary; 32.8B parameters, 65.5 GB), and granite-34b
+                 (48 heads on 1 kv head) and internlm2-20b (48 on 8) at full
+                 width, 4 layers each: init s, prefill ms, TTFT, decode ms
+                 a step, tokens/s and peak GB (qwen3 below 80 GB), B5 once a
+                 layer per prefill replay, and each served stream equal to
+                 the eager path's (teacher-forced); then qwen3-32b's
+                 config at 2 layers in fp32, one 2048-token prompt and 4
+                 decode steps, its logits through B5 against the plain
+                 attention path at ``LM_TOL``.
 
-Each kernel's launch count is set to 0 just before phases 3-17 drive their
+Each kernel's launch count is set to 0 just before phases 3-18 drive their
 path and read just after; a kernel of a path that did not launch fails the
 run, and so does a launch of a kernel that is not on the path (B5 in
-phases 3-7, 13-16, B1-B4 in phases 8 and 10 and in phase 12's LM runs,
-B3/B4 in phases 9, 14, 15 and 16, B3-B5 in phase 11).  In phase 16 each
-rank counts its own launches, the forward apart from the backward: in the
+phases 3-7, 13-16, B1-B4 in phases 8, 10 and 18 and in the LM runs of
+phases 12 and 17, B3/B4 in phases 9, 14, 15 and 16, B3-B5 in phase 11).
+In phase 16 each rank counts its own launches, the forward apart from the backward: in the
 forward a CSR-group rank launches B1 alone and a BCSR-group rank B2 alone,
 once a call; in the backward each launches B1 / B2 once a call for each
 part of its chunk's transposed format; the kernels line adds every rank's
@@ -351,29 +375,54 @@ LM_BATCH, LM_PROMPT, LM_GEN, LM_CHECK_STEPS = 4, 2048, 32, 8
 LM_TOL = 1e-4
 
 # Phase train_mesh: the launcher's arguments (its config), the mesh, the
-# global batch, steps and the checkpoint (after step 1: ckpt_2), the
+# global batch, steps and the checkpoint (after step 0: ckpt_1), the
 # tolerances against the single-device step (bf16 activations rounded apart
 # in another order, the tensor-parallel sums in fp32): phase 12's for the
 # loss and the gradient norm, and a third of its leaf bound, since a first
 # run measured 2.2e-5, 7.8e-5 and 1.9e-3; the (1, 2) serving check's
-# shapes, and the phase's wall-clock limit (runs took 224 and 252 s: gloo's
+# shapes, and the phase's wall-clock limit (runs took 224-268 s: gloo's
 # host-staged collectives ran up to 3x slower on one machine than another).
 MESH_CLI = ["--arch", LM_ARCH]
 MESH_SHAPE, MESH_SEQ, MESH_BATCH = (2, 2), 2048, 4
-MESH_STEPS, MESH_CKPT_AT = 3, 2
+MESH_STEPS, MESH_CKPT_AT = 2, 1
 MESH_LOSS_TOL, MESH_GNORM_TOL, MESH_LEAF_TOL = 1e-4, 1e-3, 1e-2
 MESH_PROMPT, MESH_GEN = (2, 256), 4
 MESH_LIMIT_S = 400
+# Phase train_mesh's serving check through launch/serve.py: (mesh,
+# requests, prompt, generated tokens, dtype): fp32 logits at (1, 2), and
+# the bf16 model's streams at (2, 2).
+MESH_SERVE_FP32 = ((1, 2), MESH_PROMPT[0], MESH_PROMPT[1], MESH_GEN + 1,
+                   "float32")
+MESH_SERVE_BF16 = (MESH_SHAPE, 4, 256, 16, "bfloat16")
+
+# Phase serve_dense: qwen3-32b at full width and depth (64 layers, d 5120,
+# 64 heads on 8 kv heads, hd 128, qk-norm, vocab 151,936 untied; 32.8B
+# parameters, 65.5 GB in bf16), served 4 x (2048 + 32) tokens; its first
+# DENSE_CHECK_LAYERS layers in fp32 (logits through B5 against the plain
+# path); granite-34b (48 heads on 1 kv head) and internlm2-20b (48 on 8)
+# at full width, DENSE_CUT_LAYERS layers (95 and 40 GB in bf16 at full
+# depth).  DENSE_REDUCED serves the reduced configs (a CPU rehearsal).
+DENSE_ARCH, DENSE_CUT = "qwen3-32b", ("granite-34b", "internlm2-20b")
+DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 4, 2048, 32
+DENSE_CHECK_LAYERS, DENSE_CHECK_STEPS, DENSE_CUT_LAYERS = 2, 4, 4
+DENSE_REDUCED = False
 
 # B5 in phase 2: (B, S, H, KV, hd); the reference test's three shapes, a
 # ragged S, a (2, 2) mesh rank's training shape and a (1, 2) rank's
-# prefill in phase 17 (llama3.2-1b's 32 / 8 heads over model 2), and the
-# serving shape (last: phase 4 reads its heads).
+# prefill in phase 17 (llama3.2-1b's 32 / 8 heads over model 2); the dense
+# family's hd-128 layouts of phase 18 -- qwen3-32b 64 / 8, internlm2-20b
+# 48 / 8, granite-34b 48 / 1 (rep 48) -- and on a (1, 2) mesh 32 / 4, 24 /
+# 4 and granite's 24 / 24 (its whole kv head taken once a q head), with 24
+# / 8 and 24 / 1; and the serving shape (last: phase 4 reads its heads).
 FLASH_SHAPES = ((1, 64, 1, 1, 16), (2, 128, 4, 2, 32), (1, 64, 6, 2, 16),
                 (2, 1000, 8, 2, 64), (1, 1000, 4, 1, 128),
                 (MESH_BATCH // MESH_SHAPE[0], MESH_SEQ, 32 // MESH_SHAPE[1],
                  8 // MESH_SHAPE[1], 64),
                 (*MESH_PROMPT, 32 // MESH_SHAPE[1], 8 // MESH_SHAPE[1], 64),
+                (2, 2048, 64, 8, 128), (2, 2048, 48, 8, 128),
+                (2, 2048, 48, 1, 128), (2, 1024, 32, 4, 128),
+                (2, 1024, 24, 4, 128), (2, 1024, 24, 24, 128),
+                (2, 1024, 24, 8, 128), (2, 1024, 24, 1, 128),
                 (LM_BATCH, LM_PROMPT, 32, 8, 64))
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 1e-2, "float16": 1e-2}
 # B5 also against each output row's own size (``row_err``).  A long row's
@@ -449,6 +498,8 @@ DIST_PSUM_N = 1 << 22
 DIST_PSUM_BOUND = {"int8": 2e-2, "bf16": 1e-2, "none": 1e-6}
 
 RECORD = {"phases": []}
+# Each phase record's ``at_s``: seconds since the script started.
+T_START = time.perf_counter()
 # The formats validate_loops passed on (``validated``), for phase 13.
 VALIDATED = []
 
@@ -467,6 +518,7 @@ def emit(obj: dict) -> None:
 
 
 def phase(obj: dict) -> None:
+    obj.setdefault("at_s", time.perf_counter() - T_START)
     RECORD["phases"].append(obj)
     emit(obj)
 
@@ -4306,130 +4358,116 @@ def _wo_ms(cfg) -> dict:
     return out
 
 
-def _mesh_serve_rank(rank: int, world: int, init_method: str, work: str,
-                     results) -> None:
-    """One rank of phase 17's (1, 2) serving check, a process of its own:
-    the fp32 model from the seed, its shards, an eager prefill and decode
-    through ``build_prefill`` / ``build_serve_step`` with the mesh, and the
-    host ms of one activation all-reduce and one ZeRO reduce-scatter."""
-    import traceback
-    sys.path.insert(0, str(ROOT / "src"))
-    try:
-        import datetime
-        import math
+def _serve_cli(argv, **kw):
+    """``repro_torch.launch.serve.main(argv)`` (its stdout kept in the
+    log)."""
+    from repro_torch.launch import serve as serve_cli
+    _release()
+    return serve_cli.main(argv, **kw)
 
-        import numpy as np
-        import torch
-        import torch.distributed as dist
-        from repro_torch.dist import step as step_lib
-        from repro_torch.launch.mesh import backend_for, make_test_mesh
-        from repro_torch.models import api
 
-        torch.cuda.set_device(0)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
-            False
-        dist.init_process_group(
-            backend_for(DEVICE, world), init_method=init_method, rank=rank,
-            world_size=world,
-            timeout=datetime.timedelta(seconds=MESH_LIMIT_S))
-        mesh = make_test_mesh(1, world, device=DEVICE)
-        cfg = _mesh_cfg(torch.float32)
-        full = api.init_params(cfg, torch.Generator(
-            device=DEVICE).manual_seed(LM_SEED), device=DEVICE)
-        params = api.shard_params(cfg, full, mesh, device=DEVICE)
-        del full
-        torch.cuda.empty_cache()
-        inp = np.load(pathlib.Path(work) / "serve_inputs.npz")
-        bsz, seq = MESH_PROMPT
-        cache = step_lib.local_cache(cfg, mesh, bsz, seq + MESH_GEN,
-                                     device=DEVICE)
-        prefill = step_lib.build_prefill(cfg, params, (bsz, seq), mesh=mesh,
-                                         cache=cache)
-        decode = step_lib.build_serve_step(cfg, params, cache, mesh=mesh)
-        _reset_counts()
-        _, logits = prefill({"tokens": inp["prompt"]})
-        out = [logits.cpu().numpy()]
-        for i in range(MESH_GEN):
-            _, logits = decode(inp["gen"][:, i:i + 1], seq + i)
-            out.append(logits.cpu().numpy())
-        torch.cuda.synchronize()
-        counts = _read_counts()
-        rec = {"rank": rank, "launches": counts,
-               "local_heads": params.layers[0].attn.wq.shape[1]
-               // cfg.resolved_head_dim}
-        # one activation all-reduce (a (2, 2) rank's 2 x 2048 tokens, fp32)
-        # over the model group, and one ZeRO reduce-scatter of the largest
-        # parameter's flat fp32 gradient over the ranks
-        group = mesh.get_group("model")
-        act = torch.ones((MESH_BATCH // MESH_SHAPE[0] * MESH_SEQ,
-                          cfg.d_model), device=DEVICE)
-        rec["allreduce_ms"] = _dist_ms(
-            lambda: dist.all_reduce(act, group=group))
-        cols = math.ceil(math.prod(params.layout.shapes["embed"]) / world)
-        buf = torch.ones(world * cols, device=DEVICE)
-        row = torch.empty(cols, device=DEVICE)
-        rec["reduce_scatter_ms"] = _dist_ms(
-            lambda: dist.reduce_scatter_tensor(row, buf), samples=3, reps=1)
-        rec["reduce_scatter_mb"] = world * cols * 4 / 1e6
-        if rank == 0:
-            np.save(pathlib.Path(work) / "serve_mesh.npy", np.stack(out))
-        dist.barrier()
-        dist.destroy_process_group()
-        results.put(rec)
-    except BaseException:   # noqa: BLE001 - the parent fails the run on it
-        results.put({"rank": rank, "error": traceback.format_exc()})
-        raise
+def _first_diff(got: dict, want: dict) -> dict:
+    """Per request id: the first token index where ``got``'s stream
+    differs from ``want``'s (None where they are equal)."""
+    out = {}
+    for rid, w in want.items():
+        g = got[rid]
+        out[rid] = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                        None if len(g) == len(w) else min(len(g), len(w)))
+    return out
 
 
 def _mesh_serve(work, deadline: float) -> dict:
-    """Phase 17's serving check: the single-device fp32 logits here, then
-    2 spawned ranks on a (1, 2) mesh (:func:`_mesh_serve_rank`)."""
+    """Phase 17's serving check, through ``launch/serve.py`` and its
+    ``ServeQueue``: on one device here (the graphed pool), then with the
+    mesh flags (spawned ranks, eager steps): at ``MESH_SERVE_FP32`` every
+    request's fp32 logits against one device's at ``LM_TOL``, the streams
+    equal; at ``MESH_SERVE_BF16`` every rank's streams equal rank 0's, and
+    the first position where they differ from one device's, decode ms a
+    step and tokens/s.  B5 launches once a layer per prefill on every
+    rank."""
     import numpy as np
     import torch
-    from repro_torch.models import api
-    cfg = _mesh_cfg(torch.float32)
-    rng = np.random.default_rng(LM_SEED + 3)
-    bsz, seq = MESH_PROMPT
-    prompt = rng.integers(0, cfg.vocab_size, (bsz, seq))
-    gen = rng.integers(0, cfg.vocab_size, (bsz, MESH_GEN))
-    serve = work / "serve"
-    serve.mkdir()
-    np.savez(serve / "serve_inputs.npz", prompt=prompt, gen=gen)
-    params = api.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
-        LM_SEED), device=DEVICE)
-    cache = api.init_cache(cfg, bsz, seq + MESH_GEN, device=DEVICE)
-    _, logits = api.prefill(cfg, params, {"tokens": prompt}, cache=cache)
-    want = [logits.cpu()]
-    for i in range(MESH_GEN):
-        _, logits = api.decode_step(cfg, params, cache, gen[:, i:i + 1],
-                                    seq + i)
-        want.append(logits.cpu())
-    del params, cache, logits
-    _release()
-
-    world = MESH_SHAPE[1]
-    ranks = _run_ranks("train_mesh serving", _mesh_serve_rank, world, serve,
-                       deadline)
-    got = torch.from_numpy(np.load(serve / "serve_mesh.npy"))
-    errs = [_lm_logits_err(f"train_mesh (1, 2) logits {i}", got[i], w)
-            for i, w in enumerate(want)]
-    for r in ranks:
-        _check_lm_launches(f"train_mesh serving rank {r['rank']}",
-                           r["launches"], cfg.num_layers, {k: 0 for k in
-                                                           KERNELS})
-        check(r["local_heads"] == cfg.num_heads // world,
-              f"train_mesh serving: rank {r['rank']} ran "
-              f"{r['local_heads']} heads")
-    return {"mesh": [1, world], "prompt": list(MESH_PROMPT),
-            "decode_steps": MESH_GEN, "dtype": "float32",
-            "logits_err": errs, "launches": [r["launches"] for r in ranks],
-            "allreduce_ms": max(r["allreduce_ms"] for r in ranks),
-            "allreduce_shape": [MESH_BATCH // MESH_SHAPE[0] * MESH_SEQ,
-                                cfg.d_model],
-            "reduce_scatter_ms": max(r["reduce_scatter_ms"] for r in ranks),
-            "reduce_scatter_mb": ranks[0]["reduce_scatter_mb"],
-            "collective_ranks": world}
+    cfg = _mesh_cfg()
+    out = {}
+    for tag, (mesh, bsz, prompt, gen, dtype) in (
+            ("fp32", MESH_SERVE_FP32), ("bf16", MESH_SERVE_BF16)):
+        argv = [*MESH_CLI, "--device", DEVICE, "--batch", str(bsz),
+                "--prompt-len", str(prompt), "--gen-len", str(gen),
+                "--seed", str(LM_SEED), "--max-batch", "8", "--dtype",
+                dtype]
+        one_npz, mesh_npz = work / f"one_{tag}.npz", work / f"mesh_{tag}.npz"
+        if tag == "fp32":
+            argv_one = argv + ["--logits-out", str(one_npz)]
+            argv_mesh = argv + ["--logits-out", str(mesh_npz)]
+        else:
+            argv_one = argv_mesh = argv
+        _reset_counts()
+        one = _serve_cli(argv_one)
+        torch.cuda.synchronize()
+        one_counts = _read_counts()
+        want = {r.rid: r.tokens for r in one.completed}
+        one_rec = {"decode_ms_median": statistics.median(
+            one.engine_s["decode"]) * 1e3, "prefill_ms": [
+            t * 1e3 for t in one.engine_s["prefill"]],
+            "prefill_calls": one.sched.counters["prefill_batches"],
+            "slots": one.pool.slots}
+        del one
+        # the one-device pool: one eager prefill a slot before its capture,
+        # then one replay a prefill call
+        _check_lm_launches(f"train_mesh serving {tag} one device",
+                           one_counts, cfg.num_layers * (
+                               one_rec["prefill_calls"] + one_rec["slots"]),
+                           {k: 0 for k in KERNELS})
+        _reset_counts()
+        rec = _serve_cli(argv_mesh + ["--mesh-data", str(mesh[0]),
+                                      "--mesh-model", str(mesh[1])],
+                         timeout_s=deadline - time.perf_counter())
+        check(_read_counts() == {k: 0 for k in KERNELS}, "train_mesh "
+              "serving: a kernel launched in the spawning process")
+        n_pre = rec["counters"]["prefill_batches"]
+        for r in rec["per_rank"]:
+            check(r["streams"] == rec["streams"], f"train_mesh serving "
+                  f"{tag}: rank {r['rank']}'s streams differ from rank 0's")
+            check(r["launches"]["flash_attention"] == cfg.num_layers * n_pre,
+                  f"train_mesh serving {tag}: rank {r['rank']} launched B5 "
+                  f"{r['launches']['flash_attention']} times for {n_pre} "
+                  "prefill calls")
+            check(r["local_heads"] == cfg.num_heads // mesh[1],
+                  f"train_mesh serving {tag}: rank {r['rank']} ran "
+                  f"{r['local_heads']} heads")
+        check(rec["completed"] == bsz and all(
+            len(t) == gen for t in rec["streams"].values()),
+            f"train_mesh serving {tag}: {rec['completed']} of {bsz} "
+            "requests served")
+        res = {"mesh": mesh, "requests": bsz, "prompt_len": prompt,
+               "gen_len": gen, "dtype": dtype,
+               "first_diff_from_one_device": _first_diff(rec["streams"],
+                                                         want),
+               "decode_ms_median": statistics.median(
+                   rec["engine_s"]["decode"]) * 1e3,
+               "prefill_ms": [t * 1e3 for t in rec["engine_s"]["prefill"]],
+               "tokens_per_s": rec["tokens_per_s"],
+               "ttft_ms": [t * 1e3 for t in rec["ttft_s"]],
+               "served_s": rec["served_s"], "pool": rec["pool"],
+               "peak_mem_gb_per_rank": [r["peak_mem_gb"]
+                                        for r in rec["per_rank"]],
+               "launches_per_rank": [r["launches"]
+                                     for r in rec["per_rank"]],
+               "one_device": one_rec, "one_device_launches": one_counts}
+        if tag == "fp32":
+            check(rec["streams"] == want, "train_mesh serving fp32: the "
+                  f"streams differ from one device's at "
+                  f"{res['first_diff_from_one_device']}")
+            got, ref = np.load(mesh_npz), np.load(one_npz)
+            res["logits_err"] = {
+                rid: [_lm_logits_err(f"train_mesh {mesh} fp32 logits, "
+                                     f"request {rid} token {i}",
+                                     torch.from_numpy(g), torch.from_numpy(w))
+                      for i, (g, w) in enumerate(zip(got[rid], ref[rid]))]
+                for rid in ref.files}
+        out[tag] = res
+    return out
 
 
 def phase_train_mesh(launches: dict, work_dir) -> dict:
@@ -4458,7 +4496,8 @@ def phase_train_mesh(launches: dict, work_dir) -> dict:
     ckpt = f"ckpt_{MESH_CKPT_AT:010d}.tensors"
     try:
         run_a = train_cli.main(_mesh_argv(dir_a, "--ckpt-every",
-                                          str(MESH_CKPT_AT)),
+                                          str(MESH_CKPT_AT),
+                                          "--no-final-ckpt"),
                                timeout_s=deadline - time.perf_counter())
         leaf = _mesh_leaf_errors(str(dir_a / ckpt), single)
         single_steps = single["steps"]
@@ -4467,7 +4506,8 @@ def phase_train_mesh(launches: dict, work_dir) -> dict:
         os.makedirs(dir_b)
         os.link(dir_a / ckpt, dir_b / ckpt)
         shutil.rmtree(dir_a)     # the disk holds two full checkpoints
-        run_b = train_cli.main(_mesh_argv(dir_b, "--resume"),
+        run_b = train_cli.main(_mesh_argv(dir_b, "--resume",
+                                          "--no-final-ckpt"),
                                timeout_s=deadline - time.perf_counter())
     finally:
         shutil.rmtree(dir_a, ignore_errors=True)
@@ -4516,8 +4556,9 @@ def phase_train_mesh(launches: dict, work_dir) -> dict:
                   "heads")
             check(r["peak_mem_gb"] < 80, f"train_mesh: rank {r['rank']} "
                   f"peak {r['peak_mem_gb']:.1f} GB")
-    for r in serve["launches"]:
-        b5 += r["flash_attention"]
+    for res in serve.values():
+        b5 += res["one_device_launches"]["flash_attention"]
+        b5 += sum(r["flash_attention"] for r in res["launches_per_rank"])
     launches["flash_attention"] += b5
     check(seconds <= MESH_LIMIT_S, f"train_mesh: {seconds:.1f} s, past "
           f"the phase's {MESH_LIMIT_S} s")
@@ -4549,17 +4590,205 @@ def phase_train_mesh(launches: dict, work_dir) -> dict:
            "single_s": t_single, "train_s": t_train, "seconds": seconds}
     wo_ms = {k: (round(v["half_ms"], 3), round(v["fp32_ms"], 3))
              for k, v in wo.items()}
+    fp32_err = max(max(v) for v in serve["fp32"]["logits_err"].values())
     print(f"train_mesh ({MESH_SHAPE[0]}x{MESH_SHAPE[1]} on one card, gloo; "
           f"{smi}): step ms per rank "
           f"{[[round(t, 1) for t in r] for r in step_ms]}, slowest median "
           f"{med:.1f}, {rec['tokens_per_s']:.0f} tok/s; step-0 loss "
           f"{rel[0]['loss']:.2e}, norm {rel[0]['grad_norm']:.2e}, leaf "
-          f"{leaf['leaf']:.2e} (update {leaf['update']:.2e}); all-reduce "
-          f"{serve['allreduce_ms']:.1f} ms, reduce-scatter "
-          f"{serve['reduce_scatter_ms']:.1f} ms; wo GEMMs ms (half with "
-          f"fp32 out, fp32) {wo_ms}; peak GB "
+          f"{leaf['leaf']:.2e} (update {leaf['update']:.2e}); serving "
+          f"(2, 2) bf16 decode {serve['bf16']['decode_ms_median']:.1f} ms "
+          f"a step (one device "
+          f"{serve['bf16']['one_device']['decode_ms_median']:.1f}), "
+          f"{serve['bf16']['tokens_per_s']:.1f} tok/s, first differing "
+          f"token {serve['bf16']['first_diff_from_one_device']}; (1, 2) "
+          f"fp32 logits {fp32_err:.2e}; wo GEMMs ms (half with fp32 out, "
+          f"fp32) {wo_ms}; peak GB "
           f"{[round(g, 1) for g in rec['peak_mem_gb_per_rank']]}; restore "
           f"{run_b['restore_s']:.1f} s; phase {seconds:.1f} s", flush=True)
+    phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the dense family's other configs, served
+# ---------------------------------------------------------------------------
+
+def _dense_cfg(arch: str, layers: int | None = None, dtype=None):
+    import dataclasses
+
+    from repro_torch.configs import REDUCED, get_config
+    cfg = REDUCED[arch]() if DENSE_REDUCED else get_config(arch)
+    kw = {}
+    if layers is not None and layers < cfg.num_layers:
+        kw["num_layers"] = layers
+    if dtype is not None:
+        kw["dtype"] = dtype
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def _serve_dense_one(cfg, launches: dict) -> dict:
+    """``cfg`` served at ``DENSE_BATCH`` x (``DENSE_PROMPT`` +
+    ``DENSE_GEN``), greedy, through ``ServeQueue`` and its graphed pool
+    (the bucket warmed before traffic): init s, prefill ms, TTFT, decode ms
+    a step, tokens/s and peak GB; B5 once a layer per prefill replay; then,
+    the pool freed, the served stream against the eager path's
+    (``api.prefill`` / ``api.decode_step`` into a cache of the bucket's
+    length, teacher-forced with the served tokens): equal."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    from repro_torch.serve.queue import (DEFAULT_LEN_QUANTUM, ExecutorPool,
+                                         ServeQueue)
+    from repro_torch.serve.scheduler import SchedulerConfig
+
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(LM_SEED),
+        device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = api.num_params(params)
+    rng = np.random.default_rng(LM_SEED + 1)
+    prompts = rng.integers(0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT))
+    max_len = DENSE_PROMPT + -(-DENSE_GEN // DEFAULT_LEN_QUANTUM) * \
+        DEFAULT_LEN_QUANTUM
+    pool = ExecutorPool(cfg, params)
+    t0 = time.perf_counter()
+    pool.warm([(DENSE_BATCH, DENSE_PROMPT, max_len)])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    queue = ServeQueue(cfg, params, config=SchedulerConfig(max_batch=8),
+                       pool=pool)
+    _reset_counts()
+    t0 = time.perf_counter()
+    reqs = [queue.submit(row.tolist(), DENSE_GEN) for row in prompts]
+    queue.drain()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = _read_counts()
+    n_prefill = queue.sched.counters["prefill_batches"]
+    _check_lm_launches(f"serve_dense {cfg.name}", counts,
+                       cfg.num_layers * n_prefill, launches)
+    served = np.array([r.tokens for r in reqs])
+    check(n_prefill == 1 and served.shape == (DENSE_BATCH, DENSE_GEN)
+          and 0 <= served.min() and served.max() < cfg.vocab_size,
+          f"serve_dense {cfg.name}: {n_prefill} prefill calls, tokens "
+          f"{served.shape}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decode_ms = [t * 1e3 for t in queue.engine_s["decode"]]
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "dtype": str(cfg.dtype), "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.resolved_head_dim, "qk_norm": cfg.qk_norm,
+           "vocab": cfg.vocab_size, "init_s": init_s, "warm_s": warm_s,
+           "serve_s": serve_s,
+           "prefill_ms": [t * 1e3 for t in queue.engine_s["prefill"]],
+           "ttft_ms": [r.wall_ttft_s * 1e3 for r in reqs],
+           "decode_ms_median": statistics.median(decode_ms),
+           "decode_ms": decode_ms, "tokens_per_s": served.size / serve_s,
+           "peak_mem_gb": peak_gb,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "launches": counts}
+    del queue, pool
+    _release()
+    # the eager path, teacher-forced with the served tokens (a comparison:
+    # its launches are not the path's)
+    toks = torch.as_tensor(served, device=DEVICE)
+    cache = api.init_cache(cfg, DENSE_BATCH, max_len, device=DEVICE)
+    _, logits = api.prefill(cfg, params, {"tokens": torch.as_tensor(
+        prompts, device=DEVICE)}, cache=cache)
+    same = [logits[:, :cfg.vocab_size].argmax(-1) == toks[:, 0]]
+    for i in range(DENSE_GEN - 1):
+        _, logits = api.decode_step(cfg, params, cache, toks[:, i:i + 1],
+                                    DENSE_PROMPT + i)
+        same.append(logits[:, :cfg.vocab_size].argmax(-1) == toks[:, i + 1])
+    agree = torch.stack(same, 1)
+    torch.cuda.synchronize()
+    rec["eager_agreement"] = float(agree.float().mean())
+    check(bool(agree.all()), f"serve_dense {cfg.name}: the served stream "
+          f"differs from the eager path's (agreement "
+          f"{rec['eager_agreement']:.4f})")
+    del params, cache, logits
+    _release()
+    print(f"serve_dense {cfg.name} ({cfg.num_layers} layers, "
+          f"{n_params / 1e9:.2f}B parameters): prefill "
+          f"{rec['prefill_ms'][0]:.1f} ms, decode "
+          f"{rec['decode_ms_median']:.2f} ms a step, "
+          f"{rec['tokens_per_s']:.1f} tok/s, peak {peak_gb:.1f} GB",
+          flush=True)
+    return rec
+
+
+def _dense_fp32_check(cfg) -> dict:
+    """``cfg`` (fp32) on one ``DENSE_PROMPT`` prompt and
+    ``DENSE_CHECK_STEPS`` teacher-forced decode steps, through B5 and
+    through the plain attention path: the logits at ``LM_TOL``."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    _release()
+    params = api.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(LM_SEED),
+        device=DEVICE)
+    rng = np.random.default_rng(LM_SEED + 2)
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (1, DENSE_PROMPT + DENSE_CHECK_STEPS)),
+        device=DEVICE)
+
+    def run(backend):
+        cache = api.init_cache(cfg, 1, toks.shape[1], device=DEVICE)
+        _, logits = api.prefill(cfg, params,
+                                {"tokens": toks[:, :DENSE_PROMPT]},
+                                backend=backend, cache=cache)
+        outs = [logits]
+        for i in range(DENSE_CHECK_STEPS):
+            _, logits = api.decode_step(
+                cfg, params, cache,
+                toks[:, DENSE_PROMPT + i:DENSE_PROMPT + i + 1],
+                DENSE_PROMPT + i)
+            outs.append(logits)
+        return outs
+    n0 = _kernel_fns()["flash_attention"].launches
+    kernel = run(None)
+    check(_kernel_fns()["flash_attention"].launches == n0 + cfg.num_layers,
+          f"serve_dense fp32 {cfg.name}: B5 did not launch once a layer")
+    plain = run("torch")
+    torch.cuda.synchronize()
+    errs = [_lm_logits_err(f"serve_dense fp32 {cfg.name} logits step {i}",
+                           g, w) for i, (g, w) in enumerate(zip(kernel,
+                                                                plain))]
+    del params, kernel, plain
+    _release()
+    return {"arch": cfg.name, "layers": cfg.num_layers, "dtype": "float32",
+            "prompt_len": DENSE_PROMPT, "decode_steps": DENSE_CHECK_STEPS,
+            "logits_err_rel": errs}
+
+
+def phase_serve_dense(launches: dict) -> dict:
+    """Phase 18 (the module docstring): qwen3-32b at full width and depth
+    served in bf16, its first ``DENSE_CHECK_LAYERS`` layers' fp32 logits
+    through B5 against the plain path, and granite-34b and internlm2-20b
+    at full width, ``DENSE_CUT_LAYERS`` layers each."""
+    import torch
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    n0 = launches["flash_attention"]
+    full = _serve_dense_one(_dense_cfg(DENSE_ARCH), launches)
+    check(full["peak_mem_gb"] < 80, f"serve_dense {DENSE_ARCH}: peak "
+          f"{full['peak_mem_gb']:.1f} GB")
+    fp32 = _dense_fp32_check(_dense_cfg(DENSE_ARCH, DENSE_CHECK_LAYERS,
+                                        torch.float32))
+    cut = [_serve_dense_one(_dense_cfg(arch, DENSE_CUT_LAYERS), launches)
+           for arch in DENSE_CUT]
+    rec = {"phase": "serve_dense",
+           "nvidia_smi": RECORD["phases"][0].get("nvidia_smi"),
+           "requests": DENSE_BATCH, "prompt_len": DENSE_PROMPT,
+           "gen_len": DENSE_GEN, "served": [full] + cut, "fp32_check": fp32,
+           "b5_launches": launches["flash_attention"] - n0,
+           "seconds": time.perf_counter() - t0}
     phase(rec)
     return rec
 
@@ -4627,6 +4856,7 @@ def main(argv=None) -> int:
         phase_table3(launches)
         phase_distributed(launches, work)
         phase_train_mesh(launches, work)
+        phase_serve_dense(launches)
     for k, v in launches.items():
         check(v > 0, f"{k} never launched on the port's paths")
 

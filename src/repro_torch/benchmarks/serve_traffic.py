@@ -80,19 +80,35 @@ def build_trace(rng, n_clients: int, rounds: int, shapes, vocab: int):
 
 
 def run_traffic(cfg, params, trace, *, sched_cfg, pool, obs=None,
-                seed: int = 0):
+                seed: int = 0, mesh=None):
     """Drive one full closed-loop pass of ``trace`` through a fresh queue
     over ``pool``.
 
     Returns the stats dict for the pass.  The virtual clock advances one
     tick per engine action and jumps across idle gaps to the next arrival;
     wall time is measured around the whole pass.
+
+    With a ``mesh`` (``params`` and ``pool`` this rank's, built on it)
+    every rank calls this alike: rank 0 drives the load and returns the
+    stats, the other ranks follow its engine calls and return
+    ``{"streams": ...}``, each request's tokens by id
+    (``ServeQueue.follow``).
     """
     from ..serve.queue import ServeQueue
 
-    queue = ServeQueue(cfg, params, config=sched_cfg, pool=pool, obs=obs,
-                       temperature=0.0, seed=seed,
+    queue = ServeQueue(cfg, params, mesh=mesh, config=sched_cfg, pool=pool,
+                       obs=obs, temperature=0.0, seed=seed,
                        retry_kw={"retries": 2, "backoff_s": 0.01})
+    if not queue.pool.leader:
+        return {"streams": queue.follow()}
+    try:
+        return _drive(queue, trace)
+    finally:
+        queue.stop()
+
+
+def _drive(queue, trace) -> dict:
+    """:func:`run_traffic`'s closed loop on rank 0."""
     # (arrival_tick, client, round) heap; client order breaks tick ties
     # deterministically.
     arrivals = [(0.0, c, 0) for c in range(len(trace))]

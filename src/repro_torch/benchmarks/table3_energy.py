@@ -6,8 +6,9 @@ each of Table 3's six matrices, a loop of ``loops_spmm`` (kernels B1/B2)
 that lasts at least ``MIN_LOOP_S`` seconds, then the same loop of
 cuSPARSE (``torch.sparse`` CSR @ B), each between two readings of NVML's
 total-energy counter (``nvmlDeviceGetTotalEnergyConsumption``, through
-``ctypes`` on ``libnvidia-ml.so.1``, which ships with the driver).  The
-board's power is also sampled with ``nvidia-smi --query-gpu=power.draw``
+``ctypes`` on ``libnvidia-ml.so.1``, which ships with the driver), each
+reading taken where the counter changes (it is refreshed at an interval,
+recorded as ``energy_refresh_ms``).  The board's power is also sampled with ``nvidia-smi --query-gpu=power.draw``
 during each loop as a cross-check, and its idle power is read before the
 loops.
 
@@ -59,6 +60,11 @@ SMOKE_LOOP_S = 0.25
 LOOP_CHUNK = 16
 IDLE_S = 1.0
 SMI_PERIOD_MS = 100
+# NVML refreshes its energy counter at an interval, not on every read: the
+# window of a reading is taken from one change of the counter to another
+# (``_tick``), polling every TICK_POLL_S, for at most TICK_WAIT_S.
+TICK_POLL_S = 5e-4
+TICK_WAIT_S = 5.0
 # loops_spmm against the flat path: max |diff| / max(1, max |flat|); both
 # accumulate exact fp16 products in fp32, in another order.
 TOL = 1e-3
@@ -187,28 +193,58 @@ class PowerSampler:
         return watts
 
 
+def _tick(nvml: Nvml) -> tuple:
+    """Wait for NVML's energy counter to change and return ``(joules,
+    host time of the change)``.  The counter is refreshed at an interval,
+    so a reading taken at an arbitrary moment is up to one interval old:
+    right after heavy work it still lacks part of that work's energy,
+    which a window opened there would credit to the window (a host-bound
+    loop read 483 W against ``nvidia-smi``'s 164 W so)."""
+    e0, t0 = nvml.energy_j(), time.perf_counter()
+    while True:
+        time.sleep(TICK_POLL_S)
+        e, t = nvml.energy_j(), time.perf_counter()
+        if e != e0:
+            return e, t
+        if t - t0 > TICK_WAIT_S:
+            raise NvmlError(f"NVML's energy counter did not move in "
+                            f"{TICK_WAIT_S} s")
+
+
+def refresh_ms(nvml: Nvml) -> float:
+    """The counter's refresh interval: ms between two of its changes."""
+    _, t0 = _tick(nvml)
+    _, t1 = _tick(nvml)
+    return (t1 - t0) * 1e3
+
+
 def _energy_loop(fn, nvml: Nvml, sampler: PowerSampler, device,
                  min_s: float) -> dict:
     """``fn`` called back to back, ``LOOP_CHUNK`` calls at a time, until
-    ``min_s`` seconds have passed on the host clock, then synchronised:
-    the energy counter is read before the first call and after the sync,
-    with power sampled alongside."""
+    ``min_s`` seconds have passed on the host clock, then synchronised.
+    The energy window runs from a change of the counter just before the
+    first call to the first change after the sync (:func:`_tick`), so it
+    holds the loop and at most one refresh interval of the idle card on
+    each side; power is sampled alongside.  ``seconds`` is the loop's own
+    time (calls to the sync), ``window_s`` the energy window's."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize(device)
     sampler.start()
-    e0, t0 = nvml.energy_j(), time.perf_counter()
+    e0, w0 = _tick(nvml)
+    t0 = time.perf_counter()
     calls = 0
     while time.perf_counter() - t0 < min_s:
         for _ in range(LOOP_CHUNK):
             fn()
         calls += LOOP_CHUNK
     torch.cuda.synchronize(device)
-    t1, e1 = time.perf_counter(), nvml.energy_j()
+    t1 = time.perf_counter()
+    e1, w1 = _tick(nvml)
     watts = sampler.stop()
-    secs, joules = t1 - t0, e1 - e0
+    secs, joules, window = t1 - t0, e1 - e0, w1 - w0
     return {"calls": calls, "seconds": secs, "ms_per_call": secs / calls * 1e3,
-            "joules": joules, "mean_w": joules / secs,
+            "window_s": window, "joules": joules, "mean_w": joules / window,
             "j_per_call": joules / calls,
             "smi_mean_w": statistics.fmean(watts) if watts else None,
             "smi_samples": len(watts)}
@@ -237,11 +273,13 @@ def main(out=print, device: str = "cuda", smoke: bool = False) -> list:
         if on_card:
             sampler = PowerSampler(nvml.pci_bus_id or str(dev.index or 0))
             torch.cuda.synchronize(dev)
-            e0, t0 = nvml.energy_j(), time.perf_counter()
+            refresh = refresh_ms(nvml)
+            e0, t0 = _tick(nvml)
             time.sleep(IDLE_S)
+            e1, t1 = _tick(nvml)
             card = {"card": nvml.name, "power_limit_w": nvml.power_limit_w(),
-                    "idle_w": (nvml.energy_j() - e0)
-                    / (time.perf_counter() - t0)}
+                    "idle_w": (e1 - e0) / (t1 - t0),
+                    "energy_refresh_ms": refresh}
         rng = np.random.default_rng(2)
         for mid, a100_eff, m4_eff in PAPER_TABLE3:
             if on_card and not smoke:

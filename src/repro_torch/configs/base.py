@@ -3,8 +3,9 @@
 Port of ``repro/configs/base.py``: the same fields and defaults, with
 ``dtype`` a ``torch.dtype``, and the same input-shape cells
 (:class:`ShapeConfig`, :data:`SHAPES`).  Only the architectures whose family the port
-runs are registered (the dense family: llama3.2-1b); the other nine come
-with their families (ROADMAP A.13).
+runs are registered (the dense family: qwen3-32b, granite-34b,
+llama3.2-1b and internlm2-20b); the other six come with their families
+(ROADMAP A.13).
 """
 from __future__ import annotations
 

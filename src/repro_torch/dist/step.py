@@ -61,7 +61,13 @@ Under a ``mesh`` the prefill and decode steps run eagerly (a CUDA graph
 cannot capture a gloo collective): the batch is cut to the rank's data
 rows, the cache holds the rank's shard of :func:`sharding.cache_specs`
 (:func:`local_cache`), and the logits come back gathered along the
-vocabulary (:func:`sharding.logits_spec`).
+vocabulary and over the data ranks, the whole batch's on every rank (the
+reference's one controller holds the global array of
+:func:`sharding.logits_spec`).  A batch that the data ranks do not divide
+is zero-padded to a multiple of them, ``ceil(B / D)`` rows a rank, and
+the pad rows' logits are dropped; the reference's jit raises for it
+(``in_shardings`` must divide), so its serving queue fails on a group of
+3 at ``data = 2`` where the port's serves it.
 """
 from __future__ import annotations
 
@@ -74,7 +80,7 @@ import torch.distributed as dist
 from ..configs.base import ShapeConfig
 from ..data.pipeline import host_shard
 from ..kernels.engine import resolve_device
-from ..launch.mesh import flat_axes
+from ..launch.mesh import all_gather_cat, flat_axes
 from ..models import api
 from ..optim import adamw
 from ..optim.adamw import OptConfig
@@ -313,24 +319,37 @@ class _Static:
 
 
 def _data_rows(x, mesh):
-    """The rank's data rows (dim 0) of a serving batch."""
+    """The rank's data rows (dim 0) of a serving batch: the batch
+    zero-padded to a multiple of the data ranks, ``ceil(B / D)`` rows a
+    rank (module docstring)."""
     axes = shr.dp_axes(mesh)
     if not axes:
         return x
     data = shr.worker_mesh(mesh, axes)
-    per = x.shape[0] // data.size()
-    if per * data.size() != x.shape[0]:
-        raise ValueError(f"a batch of {x.shape[0]} does not split over "
-                         f"{data.size()} data ranks")
+    per = -(-x.shape[0] // data.size())
+    pad = per * data.size() - x.shape[0]
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
     return x[data.get_local_rank() * per:(data.get_local_rank() + 1) * per]
+
+
+def _all_rows(logits: torch.Tensor, params, batch: int) -> torch.Tensor:
+    """The global batch's ``(batch, vocab)`` logits on every rank: the
+    data ranks' rows gathered (one all-gather), the pad rows dropped."""
+    group = params.layout.data_group
+    if group is None:
+        return logits
+    return all_gather_cat(logits, group, dim=0)[:batch]
 
 
 def local_cache(cfg, mesh, batch: int, max_len: int, *, dtype=None,
                 device=None) -> Dict[str, torch.Tensor]:
     """This rank's zero shard of a ``(L, batch, max_len, KV, hd)`` decode
-    cache under :func:`sharding.cache_specs` (its data rows; its kv heads
-    when they are split over ``model``)."""
-    shapes = {k: (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+    cache under :func:`sharding.cache_specs` (its data rows, ``ceil(batch
+    / D)`` of them; its kv heads when they are split over ``model``)."""
+    dp = shr.dp_size(mesh)
+    rows = -(-batch // dp) * dp
+    shapes = {k: (cfg.num_layers, rows, max_len, cfg.num_kv_heads,
                   cfg.resolved_head_dim) for k in ("k", "v")}
     shardings = shr.spec_to_sharding(shr.cache_specs(shapes, mesh, cfg),
                                      mesh)
@@ -360,7 +379,8 @@ def build_prefill(cfg, params, batch_shape: Tuple[int, int], *,
     With a ``mesh`` (``params`` sharded on it), ``fn`` runs eagerly on the
     rank's data rows of ``batch``, into ``cache`` (default: a new
     :func:`local_cache` of ``prompt_len`` positions), and its logits are
-    the rank's rows, gathered along the vocabulary.
+    the whole batch's on every rank, gathered along the vocabulary and
+    over the data ranks.
     """
     dev = params.embed.device
     bsz, seq = batch_shape
@@ -371,8 +391,10 @@ def build_prefill(cfg, params, batch_shape: Tuple[int, int], *,
 
         def prefill(batch):
             tokens = _data_rows(torch.as_tensor(batch["tokens"]), mesh)
-            return api.prefill(cfg, params, {"tokens": tokens.to(dev)},
-                               cache=cache)
+            out, logits = api.prefill(cfg, params,
+                                      {"tokens": tokens.to(dev)},
+                                      cache=cache)
+            return out, _all_rows(logits, params, bsz)
         return _maybe_record(prefill, recorder, "prefill", obs)
     if cache is None:
         cache = api.init_cache(cfg, bsz, seq, device=dev)
@@ -402,7 +424,7 @@ def build_serve_step(cfg, params, cache: Dict[str, torch.Tensor], *,
     ``recorder`` and ``obs`` as for :func:`build_prefill`.  Returns ``fn``.
     With a ``mesh``, ``cache`` is the rank's shard (:func:`local_cache`),
     ``tokens`` the global batch's, and ``fn`` runs eagerly as
-    :func:`build_prefill`'s does.
+    :func:`build_prefill`'s does, its logits the global batch's.
     """
     dev = params.embed.device
     bsz, capacity = cache["k"].shape[1:3]
@@ -414,9 +436,11 @@ def build_serve_step(cfg, params, cache: Dict[str, torch.Tensor], *,
             if not 0 <= length < capacity:
                 raise ValueError(f"position {length} is past the cache's "
                                  f"{capacity} positions")
-            tokens = _data_rows(torch.as_tensor(step_tokens), mesh)
-            return api.decode_step(cfg, params, cache, tokens.to(dev),
-                                   length)
+            step_tokens = torch.as_tensor(step_tokens)
+            tokens = _data_rows(step_tokens, mesh)
+            out, logits = api.decode_step(cfg, params, cache,
+                                          tokens.to(dev), length)
+            return out, _all_rows(logits, params, step_tokens.shape[0])
         return _maybe_record(decode, recorder, "decode", obs)
     tokens = torch.zeros((bsz, 1), dtype=torch.long, device=dev)
     pos = torch.zeros((), dtype=torch.long, device=dev)

@@ -43,17 +43,40 @@ The engine's fallback chains (``repro_torch.resilience.fallback``) stay
 off here, as everywhere until a caller installs
 ``set_policy(FallbackPolicy())``: a kernel that fails raises into the
 step's retries, and inside the pool's CUDA graph captures a chain would
-re-raise in any case.  Not ported yet: the mesh flags (A.13).
+re-raise in any case.
+
+Mesh (``--mesh-data D --mesh-model M`` above 1 x 1): one process a rank,
+``torch.distributed``, as ``launch/train.py``: under ``torchrun`` (or a
+caller that initialised the group) the ranks join it; run plainly, the
+command spawns its ``D * M`` ranks on a ``file://`` store in a temporary
+directory (:func:`repro_torch.launch.spawn.spawn_ranks`), and
+:func:`main`'s ``timeout_s`` kills every spawned rank past it.  Each rank
+draws the full model from the seed and keeps its shards
+(:func:`repro_torch.models.transformer.shard_params`); rank 0 runs the
+queue's scheduler and sends every engine call to the others, which
+follow it (:class:`repro_torch.serve.queue.ServeQueue`), and rank 0 alone
+prints and saves.  Under ``--obs`` rank 0 alone warms the LOOPS plan
+cache, from its full model before sharding, exactly as one device does:
+the warm-up runs B1/B2 beside the LM and feeds none of its tokens, and
+one rank writing the plan cache keeps the ranks off one another's files.
+The slots run eagerly on a mesh (no CUDA graph captures a gloo
+collective).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --reduced --device cpu --mesh-data 2 --mesh-model 2 --batch 4 \\
+      --prompt-len 8 --gen-len 4
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import os
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import REDUCED, get_config
 from ..kernels import flash_attention as b5
@@ -62,6 +85,10 @@ from ..models import api
 from ..resilience.inject import fault_point, install_from_env, note_degraded
 from ..serve.queue import ServeQueue
 from ..serve.scheduler import POLICIES, SchedulerConfig
+from .mesh import make_test_mesh
+from .spawn import join_env_group, spawn_ranks
+
+__all__ = ["build_args", "main", "warm_spmm_plan_cache"]
 
 
 def warm_spmm_plan_cache(cfg, params, obs, *, sparsity: float = 0.9,
@@ -137,8 +164,8 @@ def warm_spmm_plan_cache(cfg, params, obs, *, sparsity: float = 0.9,
     return pool
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
+def build_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4,
@@ -147,6 +174,10 @@ def main(argv=None):
     ap.add_argument("--gen-len", type=int, default=16,
                     help="tokens generated per request (prefill's first "
                          "token included)")
+    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-model", type=int, default=1)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
+                    help="the model's dtype (default: the config's)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int,
                     default=int(os.environ.get("REPRO_TEST_SEED", "0")),
@@ -188,24 +219,60 @@ def main(argv=None):
     ap.add_argument("--step-deadline-ms", type=float, default=None,
                     help="per-request deadline across retries; exceeding it "
                          "raises DeadlineExceeded instead of sleeping past")
-    args = ap.parse_args(argv)
+    ap.add_argument("--logits-out", default=None, metavar="FILE",
+                    help="save every request's logits rows (fp32, the "
+                         "real vocabulary) to FILE as .npz, keyed by "
+                         "request id")
+    return ap.parse_args(argv)
+
+
+def main(argv=None, *, timeout_s: float | None = None):
+    """Run the CLI.  On one device, returns the drained
+    :class:`~repro_torch.serve.queue.ServeQueue`; on a mesh, rank 0's
+    record (``streams``, ``engine_s``, the scheduler's counters, the
+    pool's buckets and slots, and ``per_rank``: every rank's streams, B5
+    launches and peak memory).  ``timeout_s`` limits the ranks this call
+    spawns: past it every rank is killed and the run fails."""
+    args = build_args(argv)
+    dev = resolve_device(args.device)
+    world = args.mesh_data * args.mesh_model
+    if world > 1 and not dist.is_initialized():
+        if "RANK" not in os.environ:
+            with tempfile.TemporaryDirectory(prefix="repro_serve_") as tmp:
+                return spawn_ranks(
+                    main, argv, world=world, device=dev, store_dir=tmp,
+                    timeout_s=timeout_s,
+                    what=f"mesh {args.mesh_data}x{args.mesh_model}")
+        join_env_group(dev, world)      # torchrun: the environment's group
 
     # Chaos harness: honour REPRO_FAULT_PLAN so a stock serving run can be
     # steered into failures.
     install_from_env()
 
-    dev = resolve_device(args.device)
+    mesh, rank = None, 0
+    if world > 1:
+        if dev.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+            dev = torch.device("cuda", local % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        mesh = make_test_mesh(args.mesh_data, args.mesh_model, device=dev)
+        rank = dist.get_rank()
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
+        torch.cuda.reset_peak_memory_stats(dev)
     cfg = REDUCED[args.arch]() if args.reduced else get_config(args.arch)
+    if args.dtype:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, dtype=getattr(torch, args.dtype))
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = api.init_params(cfg, gen, device=dev)
+    n_params = api.num_params(params)
     init_s = time.perf_counter() - t0
 
     obs = None
-    if args.obs:
+    if args.obs and rank == 0:
         from ..obs import Obs, set_active
         obs = Obs(source=args.obs)
         set_active(obs)
@@ -234,25 +301,68 @@ def main(argv=None):
         if obs is not None and not args.no_warm_spmm_cache:
             warm_spmm_plan_cache(cfg, params, obs,
                                  on_miss=args.plan_on_miss, device=dev)
+        if mesh is not None:
+            params = api.shard_params(cfg, params, mesh, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
 
-        queue = ServeQueue(cfg, params, config=sched_cfg, obs=obs,
-                           temperature=args.temperature, seed=args.seed,
-                           retry_kw=retry_kw)
-
-        # Seeded prompt set: one request per row, all through the queue.
-        rng = np.random.default_rng(args.seed + 1)
-        prompts = rng.integers(0, cfg.vocab_size,
-                               (args.batch, args.prompt_len))
+        queue = ServeQueue(cfg, params, mesh=mesh, config=sched_cfg,
+                           obs=obs, temperature=args.temperature,
+                           seed=args.seed, retry_kw=retry_kw,
+                           record_logits=args.logits_out is not None)
         t0 = time.perf_counter()
-        reqs = [queue.submit([int(t) for t in row], args.gen_len)
-                for row in prompts]
-        done = queue.drain()
+        if not queue.pool.leader:
+            queue.follow()
+            reqs = done = []
+        else:
+            # Seeded prompt set: one request per row, all through the
+            # queue; request i has id i, so its sampling stream (keyed on
+            # the id) is the same in every run.
+            rng = np.random.default_rng(args.seed + 1)
+            prompts = rng.integers(0, cfg.vocab_size,
+                                   (args.batch, args.prompt_len))
+            try:
+                reqs = [queue.submit([int(t) for t in row], args.gen_len,
+                                     rid=i)
+                        for i, row in enumerate(prompts)]
+                done = queue.drain()
+            finally:
+                queue.stop()
         t_total = time.perf_counter() - t0
 
-    counters = queue.sched.counters
+    launched = b5.flash_attention.launches - launches0
     n_tokens = sum(r.tokens_generated for r in done)
     tps = n_tokens / max(t_total, 1e-9)
-    print(f"{cfg.name} on {dev}: {api.num_params(params):,} parameters "
+    record = None
+    if mesh is not None:
+        mine = {"rank": rank, "streams": queue.streams,
+                "launches": {"flash_attention": launched},
+                "local_heads": (params.layers[0].attn.wq.shape[1]
+                                // cfg.resolved_head_dim),
+                "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                                if dev.type == "cuda" else None)}
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, mine)
+        dist.barrier()
+        if rank:
+            return mine
+        record = {"arch": cfg.name, "dtype": str(cfg.dtype).split(".")[-1],
+                  "device": str(dev), "mesh": [args.mesh_data,
+                                               args.mesh_model],
+                  "params": n_params, "init_s": init_s,
+                  "streams": queue.streams, "served_s": t_total,
+                  "tokens_per_s": tps, "engine_s": queue.engine_s,
+                  "counters": dict(queue.sched.counters),
+                  "completed": len(done),
+                  "ttft_s": [r.wall_ttft_s for r in done],
+                  "pool": {"buckets": len(queue.pool),
+                           "builds": queue.pool.builds,
+                           "slots": queue.pool.slots},
+                  "per_rank": per_rank}
+    counters = queue.sched.counters
+    where = (f"{dev}" if mesh is None
+             else f"a {args.mesh_data}x{args.mesh_model} mesh of {dev}")
+    print(f"{cfg.name} on {where}: {n_params:,} parameters "
           f"({cfg.dtype}), initialised in {init_s:.2f}s")
     print(f"served {len(done)}/{len(reqs)} requests "
           f"({args.batch}x{args.prompt_len}+{args.gen_len}) in "
@@ -261,10 +371,15 @@ def main(argv=None):
           f"{counters['decode_steps']} decode steps, "
           f"{counters['rejected']} rejected; pool: {len(queue.pool)} "
           f"buckets, {queue.pool.slots} slots; flash-attention kernel "
-          f"launches: {b5.flash_attention.launches - launches0}")
+          f"launches: {launched}"
+          + ("" if mesh is None else " on rank 0"))
     if done:
         print("generated token ids (first request):",
               np.asarray(done[0].tokens[:16]))
+    if args.logits_out is not None:
+        np.savez(args.logits_out, **{
+            str(rid): np.stack(rows)[:, :cfg.vocab_size]
+            for rid, rows in queue.logits_log.items()})
     if obs is not None:
         from ..obs import set_active
         obs.gauge("serve.tokens_per_s").set(tps)
@@ -274,7 +389,7 @@ def main(argv=None):
         print(f"obs: {chrome}  (load in ui.perfetto.dev)")
         print(f"obs summary: {obs.summary()}")
         set_active(None)
-    return queue
+    return queue if record is None else record
 
 
 if __name__ == "__main__":

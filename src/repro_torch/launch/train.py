@@ -36,7 +36,9 @@ launches under ``per_rank``.  A rank that fails fails the run, and so do
 spawned ranks past :func:`main`'s ``timeout_s``; nothing falls back to
 fewer ranks or to the CPU.
 A periodic checkpoint that would fall on the last step is left to the
-final one, which the reference writes at the same step as well.
+final one, which the reference writes at the same step as well;
+``--no-final-ckpt`` skips the final one (a run whose end state no one
+resumes: on a mesh it is a gather of every leaf to rank 0).
 
 On the card, at llama3.2-1b's full width:
 
@@ -55,11 +57,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import datetime
 import os
-import queue
 import time
-import traceback
 
 import torch
 import torch.distributed as dist
@@ -74,12 +73,10 @@ from ..kernels.engine import resolve_device
 from ..models import api
 from ..optim import adamw
 from ..optim.adamw import OptConfig
-from .mesh import backend_for, make_test_mesh
+from .mesh import make_test_mesh
+from .spawn import DIST_TIMEOUT_S, join_env_group, spawn_ranks
 
 __all__ = ["build_args", "main"]
-
-# The collective timeout of a mesh's process group, s.
-DIST_TIMEOUT_S = 600
 
 
 def build_args(argv=None):
@@ -95,6 +92,9 @@ def build_args(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default="build/repro_torch_ckpt")
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--no-final-ckpt", action="store_true",
+                    help="skip the checkpoint after the last step (the "
+                         "periodic ones are still written)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -124,79 +124,6 @@ def _copy_into(dst, src) -> None:
         dst.copy_(src)
 
 
-def _rank_main(rank: int, world: int, init_method: str, argv,
-               results) -> None:
-    """One spawned rank: join the group, run :func:`main`, and put rank
-    0's record (or any rank's traceback) on ``results``."""
-    try:
-        args = build_args(argv)
-        dev = resolve_device(args.device)
-        dist.init_process_group(
-            backend_for(dev, world), init_method=init_method, rank=rank,
-            world_size=world,
-            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
-        rec = main(argv)
-        results.put({"rank": rank, "record": rec if rank == 0 else None})
-    except BaseException:   # noqa: BLE001 - the parent fails the run on it
-        results.put({"rank": rank, "error": traceback.format_exc()})
-        raise
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-
-
-def _spawn(args, argv, timeout_s: float | None) -> dict:
-    """Run :func:`main` in ``data * model`` spawned ranks on a ``file://``
-    store under ``--ckpt-dir``; return rank 0's record.  A rank that fails
-    (or exits without a record), or ranks still running ``timeout_s``
-    after the start (None: no limit), kill every rank and raise."""
-    import multiprocessing as mp
-    world = args.mesh_data * args.mesh_model
-    deadline = (None if timeout_s is None
-                else time.monotonic() + timeout_s)
-    os.makedirs(args.ckpt_dir, exist_ok=True)
-    store = os.path.join(os.path.abspath(args.ckpt_dir),
-                         f".store.{os.getpid()}.{time.time_ns()}")
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    procs = [ctx.Process(target=_rank_main, args=(
-        r, world, f"file://{store}", argv, results)) for r in range(world)]
-    recs, failed = {}, None
-    try:
-        for p in procs:
-            p.start()
-        while len(recs) < world and failed is None:
-            if deadline is not None and time.monotonic() > deadline:
-                failed = f"past the run's limit of {timeout_s:.1f} s"
-                break
-            try:
-                r = results.get(timeout=1.0)
-            except queue.Empty:
-                dead = [p.exitcode for p in procs
-                        if p.exitcode not in (None, 0)]
-                if dead:
-                    failed = f"a rank exited {dead} without a record"
-                continue
-            if "error" in r:
-                failed = f"rank {r['rank']} failed:\n{r['error']}"
-            recs[r["rank"]] = r
-        for p in procs:
-            wait = 60.0 if deadline is None else deadline - time.monotonic()
-            p.join(timeout=max(min(wait, 60.0), 0.1)
-                   if failed is None else 0.1)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        if os.path.exists(store):
-            os.remove(store)
-    if failed is not None:
-        raise RuntimeError(f"mesh {args.mesh_data}x{args.mesh_model}: "
-                           f"{failed}")
-    return recs[0]["record"]
-
-
 def main(argv=None, *, timeout_s: float | None = None) -> dict:
     """Run the CLI; returns the run's record: per-step ``loss``,
     ``grad_norm``, ``lr``, ``tokens`` and ``step_s``, the checkpoint
@@ -212,10 +139,11 @@ def main(argv=None, *, timeout_s: float | None = None) -> dict:
             if timeout_s is None and args.max_step_seconds:
                 timeout_s = (DIST_TIMEOUT_S
                              + args.steps * args.max_step_seconds)
-            return _spawn(args, argv, timeout_s)
-        dist.init_process_group(       # torchrun: the environment's group
-            backend_for(dev, world), init_method="env://",
-            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+            return spawn_ranks(
+                main, argv, world=world, device=dev,
+                store_dir=args.ckpt_dir, timeout_s=timeout_s,
+                what=f"mesh {args.mesh_data}x{args.mesh_model}")
+        join_env_group(dev, world)      # torchrun: the environment's group
     # Chaos harness: honour REPRO_FAULT_PLAN.
     from ..resilience.inject import install_from_env
     install_from_env()
@@ -323,9 +251,11 @@ def main(argv=None, *, timeout_s: float | None = None) -> dict:
                                 {"params": params.state_dict(),
                                  "opt": opt_state},
                                 meta={"arch": cfg.name}, gather=gather)
-    ckpt.save_async(args.steps, {"params": params.state_dict(),
-                                 "opt": opt_state},
-                    meta={"arch": cfg.name, "final": True}, gather=gather)
+    if not args.no_final_ckpt:
+        ckpt.save_async(args.steps, {"params": params.state_dict(),
+                                     "opt": opt_state},
+                        meta={"arch": cfg.name, "final": True},
+                        gather=gather)
     ckpt.close()
     t_total = time.perf_counter() - t_start
     n_steps = args.steps - start_step

@@ -222,11 +222,16 @@ class Norm(nn.Module):
             self.bias = _param(torch.zeros((d,), dtype=dtype, device=device))
 
 
-def rmsnorm(p: Norm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(p: Norm, x: torch.Tensor, eps: float = 1e-6, *,
+            layout: MeshLayout | None = None) -> torch.Tensor:
+    """rmsnorm over the last dim.  With a ``layout``, ``p`` is a scale
+    that the model ranks share over heads they split (qk-norm on a rank's
+    heads): its gradient is summed over ``model`` (:func:`copy_to_model`)."""
+    scale = p.scale if layout is None else copy_to_model(p.scale, layout)
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * p.scale.to(F32)).to(x.dtype)
+    return (out * scale.to(F32)).to(x.dtype)
 
 
 def layernorm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -271,10 +276,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 class Attention(nn.Module):
     """``wq (d, H*hd)``, ``wk``/``wv (d, KV*hd)``, ``wo (H*hd, d)``
-    (uninitialised; :func:`attention_init` draws them)."""
+    (uninitialised; :func:`attention_init` draws them), and with
+    ``qk_norm`` the rmsnorm scales ``q_norm``/``k_norm (hd,)`` (ones)."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int,
-                 dtype, device):
+                 dtype, device, qk_norm: bool = False):
         super().__init__()
 
         def empty(*shape):
@@ -283,6 +289,9 @@ class Attention(nn.Module):
         self.wk = empty(d_model, n_kv * head_dim)
         self.wv = empty(d_model, n_kv * head_dim)
         self.wo = empty(n_heads * head_dim, d_model)
+        if qk_norm:
+            self.q_norm = Norm("rmsnorm", head_dim, dtype, device)
+            self.k_norm = Norm("rmsnorm", head_dim, dtype, device)
 
 
 def _fill(module: nn.Module, names, gen: torch.Generator) -> None:
@@ -293,8 +302,9 @@ def _fill(module: nn.Module, names, gen: torch.Generator) -> None:
 
 
 def attention_init(gen: torch.Generator, d_model: int, n_heads: int,
-                   n_kv: int, head_dim: int, dtype, device) -> Attention:
-    p = Attention(d_model, n_heads, n_kv, head_dim, dtype, device)
+                   n_kv: int, head_dim: int, dtype, device,
+                   qk_norm: bool = False) -> Attention:
+    p = Attention(d_model, n_heads, n_kv, head_dim, dtype, device, qk_norm)
     _fill(p, ("wq", "wk", "wv", "wo"), gen)
     return p
 

@@ -41,8 +41,13 @@ PyTorch runs eagerly, so the layer loop is a Python loop.
   logits are gathered along the vocabulary.  The loss is the mean over the
   global batch: the token count is summed over the data axes.
 
+* qk-norm (qwen3-32b): ``q_norm``/``k_norm`` rmsnorm scales over the
+  head dim, applied after the projections and before rope, as the
+  reference's; on a mesh they stay whole on every rank, and where the
+  heads are split over ``model`` their gradients are summed over it.
+
 Families other than dense, and within it sliding-window attention,
-qk-norm, activations other than swiglu and frontends, raise
+activations other than swiglu and frontends, raise
 ``NotImplementedError``: they come with ROADMAP A.13.
 """
 from __future__ import annotations
@@ -78,7 +83,7 @@ def check_supported(cfg: ModelConfig) -> None:
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
             "port runs the dense family (ROADMAP A.13)")
     unported = {"sliding_window": bool(cfg.sliding_window),
-                "qk_norm": cfg.qk_norm, "act": cfg.act != "swiglu",
+                "act": cfg.act != "swiglu",
                 "frontend": cfg.frontend != "none"}
     for field, hit in unported.items():
         if hit:
@@ -102,7 +107,7 @@ class Block(nn.Module):
                                       device)
         self.attn = layers.Attention(cfg.d_model, cfg.num_heads,
                                      cfg.num_kv_heads, cfg.resolved_head_dim,
-                                     cfg.dtype, device)
+                                     cfg.dtype, device, cfg.qk_norm)
         self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, cfg.dtype, device)
 
 
@@ -148,7 +153,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                                          dev)
             blk.attn = layers.attention_init(
                 generator, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                cfg.resolved_head_dim, cfg.dtype, dev)
+                cfg.resolved_head_dim, cfg.dtype, dev, cfg.qk_norm)
             blk.mlp = layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
                                       cfg.dtype, dev)
         shape = (cfg.vocab_padded(), cfg.d_model)
@@ -263,6 +268,9 @@ def _attn_block(cfg: ModelConfig, lp: Block, x, positions, *, mode,
     q = layers.matmul(x, ap.wq).reshape(bsz, seq, heads, hd)
     k = layers.matmul(x, wk).reshape(bsz, seq, wk.shape[1] // hd, hd)
     v = layers.matmul(x, wv).reshape(bsz, seq, wv.shape[1] // hd, hd)
+    if cfg.qk_norm:   # the scales are shared by the heads split over model
+        q = layers.rmsnorm(ap.q_norm, q, layout=layout if split else None)
+        k = layers.rmsnorm(ap.k_norm, k, layout=layout if split else None)
     q = layers.rope(q, positions, cfg.rope_theta)
     k = layers.rope(k, positions, cfg.rope_theta)
 

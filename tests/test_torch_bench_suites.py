@@ -177,6 +177,51 @@ class _FakeSampler:
         return [240.0, 260.0]
 
 
+class _SteppedNvml:
+    """A board at 400 W until ``switch_s`` after its start, 100 W after,
+    whose energy counter is refreshed every ``period_s`` (a read returns
+    the energy at the last refresh)."""
+    name, pci_bus_id = "stepped", None
+
+    def __init__(self, period_s=0.03, switch_s=0.1):
+        import time
+        self.t0, self.period, self.switch = time.perf_counter(), period_s, \
+            switch_s
+
+    def _energy(self, t):
+        return 400.0 * min(t, self.switch) + 100.0 * max(t - self.switch, 0)
+
+    def energy_j(self):
+        import time
+        t = time.perf_counter() - self.t0
+        return self._energy(t // self.period * self.period)
+
+
+def test_table3_window_opens_and_closes_on_a_change_of_the_counter(
+        monkeypatch):
+    """Each energy reading waits for the counter to change, so a loop
+    started right after heavy work is not credited with that work's
+    energy (a reading taken at once is up to one refresh old: here 400 W
+    for up to 30 ms), and the refresh interval is measured."""
+    import time
+
+    from repro_torch.benchmarks import table3_energy as t3
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    nvml = _SteppedNvml()
+    assert 20.0 <= t3.refresh_ms(nvml) <= 60.0
+    nvml = _SteppedNvml()
+    time.sleep(nvml.switch + 0.005)     # the loop starts after the switch
+    stale = nvml.energy_j()
+    assert stale < nvml._energy(nvml.switch)     # a read at once lags
+    m = t3._energy_loop(lambda: None, nvml, _FakeSampler(),
+                        torch.device("cpu"), 0.2)
+    # (the window's ends are seen within a poll of the refresh; a window
+    # opened at the stale reading would read ~120 W here)
+    assert m["mean_w"] == pytest.approx(100.0, rel=1e-2)
+    assert m["window_s"] >= m["seconds"] >= 0.2
+    assert m["j_per_call"] == pytest.approx(m["joules"] / m["calls"])
+
+
 def test_table3_measurement_arithmetic_on_the_cpu(monkeypatch):
     """The measured columns' arithmetic, run on CPU tensors with a fake
     energy counter: a loop lasts at least its minimum, GFLOP/s per W is

@@ -1001,3 +1001,52 @@ def test_cuda_nvml_energy_counter_increases_around_a_loop(cuda):
         assert e1 > e0
     finally:
         nvml.close()
+
+
+@pytest.mark.gpu
+def test_cuda_nvml_counter_refresh_interval_is_measured(cuda):
+    """Table 3's window ends: NVML's energy counter changes within
+    ``TICK_WAIT_S`` and its refresh interval is positive."""
+    from repro_torch.benchmarks import table3_energy
+    nvml = table3_energy.Nvml(cuda)
+    try:
+        assert 0 < table3_energy.refresh_ms(nvml) < 1e3 * \
+            table3_energy.TICK_WAIT_S
+    finally:
+        nvml.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-34b", "internlm2-20b",
+                                  "qwen3-32b"])
+def test_cuda_dense_family_serving_matches_cpu(cuda, arch):
+    """The dense family's reduced configs (MQA; kv 2; qk-norm) in fp32 on
+    the card: a prefill through B5 (one launch a layer) and 2 decode steps
+    against the same weights on the CPU, logits within 1e-4 of max(1, max
+    |logits|)."""
+    from repro_torch.configs import REDUCED
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(REDUCED[arch](), dtype=torch.float32)
+    cpu = api.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    card = transformer.LM(cfg, cuda)
+    with torch.no_grad():
+        card.load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 34))
+    outs = []
+    for params, dev in ((cpu, "cpu"), (card, cuda)):
+        cache = api.init_cache(cfg, 2, 34, device=dev)
+        before = b5.flash_attention.launches
+        _, lg = api.prefill(cfg, params, {"tokens": torch.as_tensor(
+            toks[:, :32], device=dev)}, cache=cache)
+        launched = b5.flash_attention.launches - before
+        got = [lg]
+        for i in range(2):
+            _, lg = api.decode_step(cfg, params, cache, torch.as_tensor(
+                toks[:, 32 + i:33 + i], device=dev), 32 + i)
+            got.append(lg)
+        outs.append((got, launched))
+    assert outs[0][1] == 0 and outs[1][1] == cfg.num_layers
+    for w, g in zip(outs[0][0], outs[1][0]):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale

@@ -61,6 +61,20 @@ def test_cli_runs_and_resumes(tmp_path, capsys):
     assert rec["steps"][-1]["lr"] == pytest.approx(3e-4 * 0.1, rel=1e-5)
 
 
+def test_no_final_ckpt_keeps_the_periodic_ones_only(tmp_path):
+    """``--no-final-ckpt`` writes the periodic checkpoints and skips the
+    one after the last step; ``--resume`` starts from the newest."""
+    rec = train_cli.main(_args(tmp_path, "--steps", "3", "--ckpt-every",
+                               "2", "--no-final-ckpt"))
+    assert [s["step"] for s in rec["steps"]] == [0, 1, 2]
+    assert [t["step"] for t in rec["ckpt"]] == [2]
+    assert latest_step(str(tmp_path)) == 2
+    rec = train_cli.main(_args(tmp_path, "--steps", "3", "--resume",
+                               "--no-final-ckpt"))
+    assert rec["start_step"] == 2 and rec["ckpt"] == []
+    assert latest_step(str(tmp_path)) == 2
+
+
 def test_resume_refuses_nonfinite_params(tmp_path):
     """A checkpoint whose parameters hold a NaN fails ``--resume`` at the
     restore (``check_finite_tree``), before any step runs."""
