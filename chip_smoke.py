@@ -29,7 +29,10 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  ranks' shapes, the dense family's hd-128 head layouts
                  (phase 18's, and theirs on a (1, 2) mesh) and the serving
                  shape (4, 2048, 32 heads, 8 kv heads, hd 64), causal and
-                 not, fp32 / bf16 / f16;
+                 not, fp32 / bf16 / f16; and each of B1-B5 through its
+                 ``torch.ops.repro_torch`` operator (``kernels/_ops.py``):
+                 one operator call and one launch a wrapper call, two
+                 calls bitwise equal;
   3. main     -- ``plan_and_convert`` -> ``loops_spmm`` at the published
                  sizes of pwtk (m6, 200k rows) and in-2004 (m4, 1.4M rows),
                  N=32, checked against the flat PyTorch path on the card
@@ -129,11 +132,13 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  port's bench schema and gated (``perf_gate``, wall columns
                  off) against the committed CPU baseline; Fig. 4 at the
                  published sizes (the block family at the rows that give
-                 the published nnz), N=32, fp32 and fp64, each
+                 the published nnz), N=32, fp32 (fp64 cut for the
+                 script's budget in PR 26: phase 3 keeps m6 and m4 in
+                 fp64, the smoke suite Fig. 4's fp64 records), each
                  ``loops_spmm`` checked against the flat path and timed
                  beside the flat path, cuSPARSE and dense cuBLAS (None where
                  A dense exceeds the budget), with the calibrated plan at
-                 m6 once; the batched suite at pwtk's size (batch 1/4/16,
+                 m6 once; the batched suite at pwtk's size (batch 1/16,
                  loop / stack / native / ``torch.vmap``, forward and
                  backward, bitwise equal), with each strategy's launches
                  in one call; Table 4 with ogbn-arxiv's row; §4.3's five
@@ -261,6 +266,18 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  config at 2 layers in fp32, one 2048-token prompt and 4
                  decode steps, its logits through B5 against the plain
                  attention path at ``LM_TOL``.
+ 19. dryrun   -- the production-mesh dry-run (``repro_torch.launch.dryrun``)
+                 on fake CUDA tensors over a fake process group, in three
+                 processes at once: llama3.2-1b's ``train_4k``,
+                 ``prefill_32k`` and ``decode_32k`` cells on (16, 16) and
+                 qwen3-32b's ``decode_32k`` on (2, 16, 16), each ``ok``
+                 with its per-device flops, HBM bytes, collective bytes by
+                 kind, memory record, three roofline terms (an H100's
+                 published peaks) and trace s; ``benchmarks/spmm_dryrun``
+                 at full size (1.4M rows over 256 ranks; the traced CSR and
+                 BCSR ranks' flops equal 2 x their lanes x N); and
+                 ``benchmarks/compress_bytes`` (int8 >= 3x and bf16 2x fewer
+                 bytes than fp32).  Nothing launches.
 
 Each kernel's launch count is set to 0 just before phases 3-18 drive their
 path and read just after; a kernel of a path that did not launch fails the
@@ -451,9 +468,9 @@ OBS_FAULT_PLAN = "serve.step:raise:0"
 # Phase operator_bench: Fig. 4's dtypes at the published sizes, the matrix
 # and dtype whose calibrated plan is timed once, the batched suite's
 # batches at pwtk's size, and §4.3's row count.
-FIG4_DTYPES = ("float32", "float64")
+FIG4_DTYPES = ("float32",)
 FIG4_CALIBRATED = ("m6", "float32")
-BATCHED_BATCHES = (1, 4, 16)
+BATCHED_BATCHES = (1, 16)
 SEC43_ROWS = 100_000
 
 # Phase train_lm: the launcher at llama3.2-1b's full width (bf16, 4 x 2048
@@ -938,15 +955,77 @@ def phase_kernels() -> dict:
         units=bp.units))
     worst_row = {k: 0.0 for k in FLASH_ROW_TOL}
     ncheck += _flash_checks(worst, worst_row)
+    ops = _op_checks(fmt, cp, bp, b, dy)
     rec = {"phase": "kernels_vs_plain", "checks": ncheck,
            "most_units_in_one_group": most_units,
-           "flash_attention_max_row_err": worst_row,
+           "flash_attention_max_row_err": worst_row, "operators": ops,
            "kernels": [{"name": k, "launches_in_checks":
                         _kernel_fns()[k].launches,
                         "max_rel_err": worst[k],
                         "ms_300x257_fp32_n32": ms.get(k)}
                        for k in worst]}
     phase(rec)
+    return rec
+
+
+def _op_checks(fmt, cp, bp, b, dy) -> dict:
+    """B1-B5 through their operators (``kernels/_ops.py``), at the timing
+    case (fp32, N 32) and B5 at (2, 256, 8 heads, 2 kv, hd 64) causal in
+    bf16: a wrapper call is one ``torch.ops.repro_torch`` call and one
+    launch, and two calls are bitwise equal.  (Fake calls, which launch
+    nothing, and the operators' flop counts are phase 19's and
+    ``tests/test_torch_gpu.py``'s.)"""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.kernels import (bcsr_spmm, csr_spmm, flash_attention,
+                                     spmm_sdd)
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.name())
+            return func(*args, **(kwargs or {}))
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    q = torch.randn((2, 256, 8, 64), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    k, v = (torch.randn((2, 256, 2, 64), generator=gen, device=DEVICE).to(
+        torch.bfloat16) for _ in range(2))
+    nb = fmt.bcsr_part.nblocks
+    calls = {
+        "csr_panels_spmm": lambda: csr_spmm.csr_panels_spmm(
+            cp.rows, cp.cols, cp.vals, cp.mask, b, nrows=fmt.r_boundary,
+            units=cp.units, live=cp.live),
+        "bcsr_panels_spmm": lambda: bcsr_spmm.bcsr_panels_spmm(
+            bp.rows, bp.cols, bp.vals, bp.mask, b, nblocks=nb,
+            units=bp.units, live=bp.live),
+        "csr_sdd_panels": lambda: spmm_sdd.csr_sdd_panels(
+            cp.rows, cp.cols, cp.mask, dy, b, blocks=cp.sdd_blocks,
+            live=cp.live),
+        "bcsr_sdd_panels": lambda: spmm_sdd.bcsr_sdd_panels(
+            bp.rows, bp.cols, bp.mask, dy, b, br=8,
+            row_offset=fmt.r_boundary, nrows=fmt.nrows - fmt.r_boundary,
+            units=bp.units, live=bp.live),
+        "flash_attention": lambda: flash_attention.flash_attention(
+            q, k, v, causal=True),
+    }
+    fns = _kernel_fns()
+    rec = {}
+    for name, call in calls.items():
+        before = fns[name].launches
+        with Ops() as mode:
+            first = call()
+        second = call()
+        torch.cuda.synchronize()
+        check(mode.names.count(f"repro_torch::{name}") == 1
+              and fns[name].launches == before + 2,
+              f"{name}: one call dispatched {mode.names} and the two "
+              f"launched {fns[name].launches - before} times")
+        check(torch.equal(first, second), f"{name}: two calls differ")
+        rec[name] = f"repro_torch::{name}"
     return rec
 
 
@@ -4794,6 +4873,140 @@ def phase_serve_dense(launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the production-mesh dry-run
+# ---------------------------------------------------------------------------
+
+# (arch, shape, mesh) traced by ``launch/dryrun.py`` on the card's machine.
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k", "single"),
+                ("llama3.2-1b", "prefill_32k", "single"),
+                ("llama3.2-1b", "decode_32k", "single"),
+                ("qwen3-32b", "decode_32k", "multi"))
+DRYRUN_LIMIT_S = 400
+
+# One job of the dry-run, in a process of its own (the fake process group
+# and FakeTensorMode stay out of this one): argv[2] names its cells and
+# whether it runs spmm_dryrun and compress_bytes; it prints its results as
+# one JSON object, with the kernels its process launched (none may).
+_DRYRUN_DRIVER = """
+import json, sys, time
+t0 = time.time()
+from repro_torch.benchmarks import compress_bytes, spmm_dryrun
+from repro_torch.kernels import bcsr_spmm, csr_spmm, flash_attention, spmm_sdd
+from repro_torch.launch import dryrun
+out_dir, job = sys.argv[1], json.loads(sys.argv[2])
+res = {"import_s": time.time() - t0, "lines": []}
+res["cells"] = [dryrun.run_cell(a, s, m, device="cuda", out_dir=out_dir)
+                for a, s, m in job["cells"]]
+if job["suites"]:
+    t0 = time.time()
+    res["spmm"] = spmm_dryrun.main(["--device", "cuda", "--out", out_dir],
+                                   out=res["lines"].append)
+    res["spmm_s"] = time.time() - t0
+    t0 = time.time()
+    res["compress"] = compress_bytes.main(out=res["lines"].append)
+    res["compress_s"] = time.time() - t0
+res["launches"] = sum(f.launches for f in (
+    csr_spmm.csr_panels_spmm, bcsr_spmm.bcsr_panels_spmm,
+    spmm_sdd.csr_sdd_panels, spmm_sdd.bcsr_sdd_panels,
+    flash_attention.flash_attention))
+print(json.dumps(res))
+"""
+
+
+def phase_dryrun(work_dir) -> dict:
+    """Phase 19 (the module docstring): ``launch/dryrun.py``'s cells of
+    ``DRYRUN_CELLS``, ``benchmarks/spmm_dryrun.py`` at full size and
+    ``benchmarks/compress_bytes.py``, traced on fake CUDA tensors over a
+    fake process group, in three processes at once (the train cell; the
+    other cells; the two suites); every cell must end ``ok``, and nothing
+    may launch."""
+    import math
+    import os
+    from repro_torch.benchmarks import roofline
+    from repro_torch.benchmarks._util import PEAK_FLOPS_F32, PEAKS_SOURCE
+    from repro_torch.configs import SHAPES, get_config
+    out_dir = pathlib.Path(work_dir) / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    jobs = [{"cells": DRYRUN_CELLS[:1], "suites": False},
+            {"cells": DRYRUN_CELLS[1:], "suites": False},
+            {"cells": (), "suites": True}]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-W", "ignore::FutureWarning", "-c", _DRYRUN_DRIVER,
+         str(out_dir), json.dumps(job)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for job in jobs]
+    outs = []
+    try:
+        for proc in procs:
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, DRYRUN_LIMIT_S - (time.perf_counter() - t0)))
+            check(proc.returncode == 0, f"dryrun exited {proc.returncode}: "
+                  f"{stdout[-2000:]} {stderr[-3000:]}")
+            outs.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    res = {**outs[2], "cells": [c for o in outs for c in o["cells"]],
+           "launches": sum(o["launches"] for o in outs),
+           "import_s": [o["import_s"] for o in outs]}
+    check(res["launches"] == 0, f"dryrun: the fake trace launched "
+          f"{res['launches']} kernels")
+    cells = []
+    for rec in res["cells"]:
+        name = f"{rec['arch']} {rec['shape']} {rec['mesh']}"
+        check(rec["status"] == "ok", f"dryrun {name}: {rec.get('error')} "
+              f"{rec.get('traceback', '')[-1500:]}")
+        h = rec["hlo"]
+        check(h["flops_per_device"] > 0 and h["hbm_bytes_per_device"] > 0,
+              f"dryrun {name}: counted nothing ({h})")
+        if SHAPES[rec["shape"]].kind == "train":
+            check({"all-reduce", "reduce-scatter"} <= set(
+                h["collective_by_kind"]), f"dryrun {name}: the step's "
+                f"collectives are {sorted(h['collective_by_kind'])}")
+        terms = roofline.terms(rec)
+        cells.append({
+            "cell": name, "mesh_shape": rec["mesh_shape"],
+            "n_microbatches": rec["n_microbatches"],
+            "flops": h["flops_per_device"], "hbm_bytes":
+            h["hbm_bytes_per_device"], "collective_bytes":
+            h["collective_bytes_per_device"], "collective_by_kind":
+            h["collective_by_kind"], "ops": h["n_ops"],
+            "memory": rec["memory_analysis"], "terms_s": terms,
+            "dominant": max(terms, key=terms.get),
+            "model_flops_per_device": roofline.model_flops(
+                get_config(rec["arch"]), SHAPES[rec["shape"]])
+            / math.prod(rec["mesh_shape"].values()),
+            "trace_s": rec["trace_s"]})
+    spmm = res["spmm"]
+    check(spmm["status"] == "ok", f"spmm_dryrun: {spmm}")
+    for group, r in spmm["ranks"].items():
+        lanes = r["nnz"] if group == "csr" else r["tiles"] * 8
+        check(r["hlo"]["flops_per_device"] == 2 * lanes * 32,
+              f"spmm_dryrun {group} rank {r['rank']}: "
+              f"{r['hlo']['flops_per_device']} flops, its chunk needs "
+              f"2 x {lanes} x 32")
+    comp = res["compress"]
+    check(comp["int8"] * 3 <= comp["fp32"] and
+          1.9 <= comp["fp32"] / comp["bf16"] <= 2.1,
+          f"compress_bytes: {comp}")
+    rec = {"phase": "dryrun", "peaks": PEAKS_SOURCE,
+           "nvidia_smi": RECORD["phases"][0].get("nvidia_smi"),
+           "cells": cells,
+           "spmm": {"ranks": spmm["ranks"], "overrides": spmm["overrides"],
+                    "hlo": spmm["hlo"], "terms_s": roofline.terms(
+                        spmm, PEAK_FLOPS_F32), "trace_s": spmm["trace_s"],
+                    "s": res["spmm_s"]},
+           "compress_bytes": comp, "compress_s": res["compress_s"],
+           "import_s": res["import_s"], "seconds": seconds}
+    phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "csr_panels_spmm": ("src/repro_torch/csrc/csr_spmm.cu",
@@ -4857,6 +5070,7 @@ def main(argv=None) -> int:
         phase_distributed(launches, work)
         phase_train_mesh(launches, work)
         phase_serve_dense(launches)
+        phase_dryrun(work)
     for k, v in launches.items():
         check(v > 0, f"{k} never launched on the port's paths")
 

@@ -29,6 +29,15 @@ returns) and the functions that took most of that host time under
 ``cProfile`` over 200 calls (``profile``: own µs a call;
 ``profile_cum``: with their callees).
 
+``--cases gcn_request`` (with ``--entry``) times one request of the
+2-layer GCN at ogbn-arxiv's widths (169,343 nodes, 128 -> 256 -> 40), as
+``chip_smoke.py``'s phase ``gcn`` serves it.  ``--dispatch`` (a checkout
+whose kernels launch through ``torch.ops.repro_torch`` operators) times
+one B1 and one B2 launch at each fp32 case through the operator, through
+a ``torch.library.custom_op`` twin of it and through its kernel function
+called directly, in turns in one process: the registrations' own host
+cost a launch, and the wrapper's whole call beside them.
+
 ``--root DIR`` imports ``repro_torch`` from another checkout, for instance
 the parent commit unpacked with ``git archive`` into a git-ignored
 directory, and times its kernels as they are; a checkout whose kernels take
@@ -71,6 +80,10 @@ def cases(names):
                 fmt, _ = plan_and_convert(base.astype(np.dtype(dname)),
                                           device="cuda")
                 yield name, dname, fmt, 32
+        elif name == "gcn_request":
+            adj = suite.gcn_graph(169_343, 7, seed=0)
+            fmt, _ = plan_and_convert(adj, device="cuda")
+            yield name, "float32", fmt, None
         elif name == "gcn":
             adj = suite.gcn_graph(169_343, 7, seed=0)
             fmt, _ = plan_and_convert(adj, device="cuda")
@@ -112,19 +125,82 @@ def host_profile(fn, *, calls: int = 200, top: int = 8,
     return [[name, round(t / calls * 1e6, 2)] for t, name in rows]
 
 
-def time_entries(fmt, dname: str, n: int, root) -> list:
+def dispatch_us(fmt, *, blocks: int = 40, calls: int = 100) -> dict:
+    """Host microseconds a launch of B1 and of B2 (``fmt``'s two parts,
+    N 32, fp32) takes through its ``torch.ops.repro_torch`` operator,
+    through a ``torch.library.custom_op`` twin of it, through its kernel
+    function called directly (no dispatcher), and the wrapper's whole call
+    (its checks, then the kernel function: nothing observes it), the four
+    in turns: for each, the median over ``blocks`` blocks of ``calls``
+    launches, each block timed from an idle card to the return of its last
+    call."""
+    import torch
+    from repro_torch.kernels import bcsr_spmm, csr_spmm
+    dev = fmt.on("cuda")
+    b3 = torch.randn((1, fmt.ncols, 32), device="cuda")
+    r_b, nb = fmt.r_boundary, fmt.bcsr_part.nblocks
+    out = {}
+    for name, p, kernel, rows, extra in (
+            ("csr_panels_spmm", dev.csr, csr_spmm._launch_b1, r_b, ()),
+            ("bcsr_panels_spmm", dev.bcsr, bcsr_spmm._launch_b2, nb * 8,
+             (0,))):
+        o3 = torch.empty((1, rows, 32), device="cuda")
+        args = (p.units.units, p.units.splits, p.cols, p.vals, p.mask, b3,
+                o3, p.units.nslots, p.units.max_slots, *extra, rows, p.live)
+        schema = getattr(torch.ops.repro_torch, name).default._schema
+        twin = torch.library.custom_op(
+            f"repro_probe::{name}_dispatch", kernel, mutates_args=["out"],
+            schema=str(schema)[str(schema).index("("):])
+        wrapper = {
+            "csr_panels_spmm": lambda: csr_spmm.csr_panels_spmm(
+                p.rows, p.cols, p.vals, p.mask, b3, nrows=r_b, units=p.units,
+                out=o3, live=p.live),
+            "bcsr_panels_spmm": lambda: bcsr_spmm.bcsr_panels_spmm(
+                p.rows, p.cols, p.vals, p.mask, b3, nblocks=nb,
+                units=p.units, out=o3, live=p.live)}[name]
+        fns = {"library": getattr(torch.ops.repro_torch, name).default,
+               "custom_op": twin, "direct": kernel,
+               "wrapper": lambda *a, w=wrapper: w()}
+        times = {k: [] for k in fns}
+        for _ in range(blocks):
+            for k, fn in fns.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn(*args)
+                times[k].append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+        out[name] = {k: statistics.median(v) for k, v in times.items()}
+    return out
+
+
+def time_entries(fmt, dname: str, n, root) -> list:
     """``--entry``: one line each for ``loops_spmm`` and
-    ``engine.loops_spmm_fused`` on a ``(K, n)`` operand."""
+    ``engine.loops_spmm_fused`` on a ``(K, n)`` operand, or for one GCN
+    request when ``n`` is None."""
     import torch
     from repro_torch.core import loops_spmm
     from repro_torch.kernels import engine
     gen = torch.Generator(device="cuda").manual_seed(1)
-    b = torch.randn((fmt.ncols, n), generator=gen, device="cuda",
-                    dtype=torch.float32).to(getattr(torch, dname))
+    if n is None:
+        from repro_torch.models import GCN
+        w0 = torch.randn((128, 256), generator=gen, device="cuda") * 0.1
+        w1 = torch.randn((256, 40), generator=gen, device="cuda") * 0.1
+        model = GCN(fmt, w0, w1)
+        x = torch.randn((fmt.ncols, 128), generator=gen, device="cuda")
+
+        def request():
+            with torch.inference_mode():
+                return model(x)
+        entries = (("gcn_request", request),)
+    else:
+        b = torch.randn((fmt.ncols, n), generator=gen, device="cuda",
+                        dtype=torch.float32).to(getattr(torch, dname))
+        entries = (("loops_spmm", lambda: loops_spmm(fmt, b)),
+                   ("engine.loops_spmm_fused",
+                    lambda: engine.loops_spmm_fused(fmt, b)))
     lines = []
-    for entry, fn in (("loops_spmm", lambda: loops_spmm(fmt, b)),
-                      ("engine.loops_spmm_fused",
-                       lambda: engine.loops_spmm_fused(fmt, b))):
+    for entry, fn in entries:
         lines.append({"root": str(root), "dtype": dname, "n": n,
                       "entry": entry, "device_ms": device_ms(fn),
                       "event_ms": time_ms(fn), "host_us": host_us(fn),
@@ -144,6 +220,10 @@ def main(argv=None) -> int:
     ap.add_argument("--entry", action="store_true",
                     help="time loops_spmm and engine.loops_spmm_fused, "
                          "with their host time, instead of the kernels")
+    ap.add_argument("--dispatch", action="store_true",
+                    help="time a B1 and a B2 launch at each case through "
+                         "its operator, a custom_op twin and the kernel "
+                         "function itself (m6, fp32)")
     ap.add_argument("--out", type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
     import torch
@@ -160,6 +240,12 @@ def main(argv=None) -> int:
     sizes = [int(u) for u in args.unit_panels.split(",") if u]
     lines = []
     for case, dname, fmt, n in cases(args.cases.split(",")):
+        if args.dispatch:
+            if dname == "float32" and n is not None:
+                rec = {"case": case, "dispatch_us": dispatch_us(fmt)}
+                print(json.dumps(rec), flush=True)
+                lines.append(rec)
+            continue
         if args.entry:
             for rec in time_entries(fmt, dname, n, args.root):
                 rec["case"] = case

@@ -2,15 +2,30 @@
 ``benchmarks/_util.py::bench_rng``, ``csv_row`` and ``gflops``, a timer
 for the card and the CPU, and the two library baselines the paper compares
 against on a GPU (cuSPARSE and dense cuBLAS), which the port never calls
-in its own paths."""
+in its own paths; the H100's published peaks that the dry-run's roofline
+terms divide by, and the card's name and power limit to print beside
+them."""
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 
 import numpy as np
 import torch
+
+# One H100 SXM's published peaks (NVIDIA H100 Tensor Core GPU data sheet,
+# SXM part, dense rates, at its 700 W limit): what the dry-run's roofline
+# terms divide by.  A card set below 700 W runs slower under load, so every
+# suite that prints a term prints the card's name and power limit beside
+# it (:func:`card_label`).
+PEAK_FLOPS_BF16 = 989e12      # bf16 / f16, tensor cores
+PEAK_FLOPS_F32 = 67e12        # fp32 on the CUDA cores (no TF32)
+HBM_BW = 3.35e12              # bytes/s
+NVLINK_BW = 450e9             # bytes/s each way to the other cards
+PEAKS_SOURCE = ("NVIDIA H100 SXM data sheet: 989 TFLOP/s bf16, 67 TFLOP/s "
+                "fp32, 3.35 TB/s HBM, 450 GB/s NVLink a direction")
 
 # The densified A the dense baseline may hold on the device.  At the
 # published sizes A dense is far larger (pwtk's 200,000 rows: 160 GB in
@@ -96,3 +111,18 @@ def exact_fp32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def card_label() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (the first card), or
+    why there is none."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"no card ({type(e).__name__})"
+    lines = out.stdout.strip().splitlines()
+    return lines[0].strip() if out.returncode == 0 and lines else "no card"

@@ -27,11 +27,20 @@ repository root).
               batching queue: p50/p99 latency and goodput, batched
               against no batching
 
+  roofline -- the three-term roofline of every dry-run record
+            (``launch/dryrun.py``) against an H100's published peaks
+  spmm_dryrun -- the distributed LOOPS SpMM on the 16 x 16 production
+            mesh at in-2004's size, two ranks traced on fake tensors
+  compress_bytes -- collective bytes of an fp32 all-reduce against
+            ``compressed_psum`` (bf16, int8) on a 16-rank axis
+  reanalyze -- recount the dry-run's kept traces in place
+
 Every suite runs on ``--device`` (default ``cuda``; without a GPU it
-raises: ``--device cpu`` runs the kernels' plain versions).  The
-reference's ``roofline``, ``spmm_dryrun`` and ``compress_bytes`` are not
-ported yet: naming one raises with the ROADMAP item that ports it, and
-writes no record.
+raises: ``--device cpu`` runs the kernels' plain versions).  The four
+dry-run suites (:data:`DRYRUN_SUITES`) run only when named with
+``--only``: they read or write ``build/dryrun/`` and trace at production
+scale, and write CSV rows but no bench.json record.  No suite of the
+reference is left unported (:data:`UNPORTED` is empty).
 
 ``--smoke`` shrinks the suites that support it.  In smoke mode fig4 plans
 deterministically (no calibration), so the grid-step columns are a pure
@@ -66,21 +75,16 @@ DEFAULT_OUT = pathlib.Path("build") / "bench"
 
 SUITE_NAMES = ["fig4", "fig5", "sec43", "table3", "table4", "autotune",
                "batched", "serve_traffic"]
-# The reference's suites still to be ported, with the ROADMAP item.
-UNPORTED = {"roofline": "A.13", "spmm_dryrun": "A.13",
-            "compress_bytes": "A.13"}
-
-
-def _unported(name: str):
-    def run(out=print):
-        raise NotImplementedError(
-            f"the {name} suite is not ported yet (ROADMAP {UNPORTED[name]})")
-    return run
+# Registered, run only when named (module docstring).
+DRYRUN_SUITES = ["roofline", "spmm_dryrun", "compress_bytes", "reanalyze"]
+# The reference's suites still to be ported (none), with the ROADMAP item.
+UNPORTED: dict = {}
 
 
 def _suite_registry():
-    from . import (autotune_suite, batched_spmm, fig4_throughput,
-                   fig5_halfprec, sec43_scheduling, serve_traffic,
+    from . import (autotune_suite, batched_spmm, compress_bytes,
+                   fig4_throughput, fig5_halfprec, reanalyze, roofline,
+                   sec43_scheduling, serve_traffic, spmm_dryrun,
                    table3_energy, table4_gnn)
     suites = {
         "fig4": fig4_throughput.main,
@@ -91,16 +95,20 @@ def _suite_registry():
         "autotune": autotune_suite.main,
         "batched": batched_spmm.main,
         "serve_traffic": serve_traffic.main,
+        "roofline": roofline.main,
+        "spmm_dryrun": spmm_dryrun.bench_main,
+        "compress_bytes": compress_bytes.main,
+        "reanalyze": reanalyze.main,
     }
-    suites.update({name: _unported(name) for name in UNPORTED})
     return suites
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=None,
-                    help="comma list of suites (default: every ported "
-                         "one): " + ",".join(SUITE_NAMES))
+                    help="comma list of suites (default: "
+                         + ",".join(SUITE_NAMES) + "; also "
+                         + ",".join(DRYRUN_SUITES) + ")")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny suites (those that support it)")
     ap.add_argument("--device", default="cuda",
@@ -126,7 +134,7 @@ def main(argv=None) -> int:
     unknown = [n for n in chosen if n not in suites]
     if unknown:
         ap.error(f"unknown suite(s) {unknown}; choose from "
-                 + ",".join(SUITE_NAMES + list(UNPORTED)))
+                 + ",".join(SUITE_NAMES + DRYRUN_SUITES))
 
     args.out.mkdir(parents=True, exist_ok=True)
     rows: list[str] = []

@@ -5,7 +5,8 @@ internlm2-20b, in the reference's order).
 ``get_config(name)`` / ``--arch <id>`` resolve through here; each module
 also provides ``reduced()``, the same family at smoke-test scale.
 """
-from .base import SHAPES, ModelConfig, ShapeConfig, get_config, register
+from .base import (SHAPES, ModelConfig, ShapeConfig, applicable_shapes,
+                   get_config, register)
 from . import granite_34b, internlm2_20b, llama3_2_1b, qwen3_32b
 
 ALL_ARCHS = ("qwen3-32b", "granite-34b", "llama3.2-1b", "internlm2-20b")
@@ -18,4 +19,4 @@ REDUCED = {
 }
 
 __all__ = ["ALL_ARCHS", "REDUCED", "SHAPES", "ModelConfig", "ShapeConfig",
-           "get_config", "register"]
+           "applicable_shapes", "get_config", "register"]

@@ -10,12 +10,12 @@ llama3.2-1b and internlm2-20b); the other six come with their families
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
 __all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "register",
-           "get_config"]
+           "get_config", "applicable_shapes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,3 +109,11 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown architecture {name!r}; the port registers "
                        f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def applicable_shapes(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The assignment's skip rules: long_500k only for sub-quadratic archs."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        names.append("long_500k")
+    return tuple(names)

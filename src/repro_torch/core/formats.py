@@ -45,6 +45,7 @@ __all__ = [
     "DevicePanels", "DeviceLoops", "csr_from_coo", "csr_from_dense",
     "csr_to_dense", "csr_slice_rows", "bcsr_from_csr_rows", "panelize_csr",
     "panelize_bcsr", "loops_from_csr", "loops_format_from_arrays",
+    "permute_rows", "loops_from_csr_sorted",
     "TransposedLoops", "loops_from_csr_mapped", "transposed_values",
     "SUBLANE_ROWS", "HALF_PACKED_ROWS", "DEFAULT_PANEL_G",
 ]
@@ -267,6 +268,12 @@ class DevicePanels:
     @property
     def ngroups(self) -> int:
         return int(self.ptr.shape[0] - 1)
+
+    @property
+    def live(self) -> int:
+        """The unmasked lanes (the part's items): the kernels' flop
+        count."""
+        return int(self.slot.shape[0])
 
     @functools.cached_property
     def sdd_blocks(self) -> "SddBlockTable":
@@ -633,6 +640,37 @@ def loops_from_csr(csr: CSR, r_boundary: int, br: int,
                        r_boundary=r_boundary, shape=csr.shape,
                        panel_g=panel_g, macro_m=macro_m,
                        pipeline_depth=pipeline_depth)
+
+
+def permute_rows(csr: CSR, order: np.ndarray) -> CSR:
+    """New CSR whose row i is ``csr`` row ``order[i]`` (O(nnz)); array-equal
+    to the reference's, with the gather index built without a Python loop
+    over rows."""
+    counts = np.diff(csr.row_ptr)[order]
+    new_ptr = np.zeros(csr.nrows + 1, np.int32)
+    np.cumsum(counts, out=new_ptr[1:])
+    if csr.nnz:
+        starts = csr.row_ptr[order].astype(np.int64)
+        idx = (np.arange(int(counts.sum()), dtype=np.int64)
+               + np.repeat(starts - new_ptr[:-1].astype(np.int64), counts))
+    else:
+        idx = np.zeros(0, np.int64)
+    return _csr_from_arrays(new_ptr, csr.col_idx[idx], csr.vals[idx],
+                            csr.shape)
+
+
+def loops_from_csr_sorted(csr: CSR, r_boundary: int, br: int,
+                          panel_g: int = DEFAULT_PANEL_G, *,
+                          macro_m: int = 1, pipeline_depth: int = 1
+                          ) -> Tuple[LoopsFormat, np.ndarray]:
+    """The reference's row-sorted variant: rows by nnz descending (stable)
+    before the positional split, so scattered hub rows land in the CSR
+    part and the BCSR part has no monster block-rows.  Returns (format,
+    order) with ``C_permuted[i] == C[order[i]]``."""
+    order = np.argsort(-np.diff(csr.row_ptr), kind="stable").astype(np.int64)
+    return loops_from_csr(permute_rows(csr, order), r_boundary, br,
+                          panel_g=panel_g, macro_m=macro_m,
+                          pipeline_depth=pipeline_depth), order
 
 
 def loops_format_from_arrays(arrays: dict) -> LoopsFormat:

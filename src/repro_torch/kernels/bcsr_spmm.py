@@ -16,6 +16,8 @@ Like B1, the kernel walks the block-rows' bounded work units
 (:func:`~repro_torch.kernels.csr_spmm.unit_table_of`), with a second pass
 over split block-rows.  ``bcsr_panels_spmm.launches`` counts calls that
 launch the kernel, one per call whether or not the second pass runs.
+The launch is the operator ``torch.ops.repro_torch.bcsr_panels_spmm``
+(``kernels/_ops.py``), as B1's is.
 """
 from __future__ import annotations
 
@@ -23,10 +25,12 @@ import ctypes
 
 import torch
 
-from . import _build
-from .csr_spmm import (_PLAIN_CHUNK, UnitTable, _as3, _check, _launch,
-                       _target, _units_for, _workspace)
-from .engine import register_kernel, resolve_dtypes
+from . import _build, _ops
+from .csr_spmm import (_PLAIN_CHUNK, UnitTable, _as3, _check,
+                       _check_device, _lanes, _launch, _no_launch,
+                       _panel_bytes, _panel_flops, _target, _units_for,
+                       _workspace)
+from .engine import acc_dtype_for, register_kernel, resolve_dtypes
 
 __all__ = ["bcsr_panels_spmm", "bcsr_panels_spmm_plain", "KERNEL_BRS",
            "UNIT_PANELS"]
@@ -83,8 +87,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 10
 def bcsr_panels_spmm(panel_rows, panel_cols, panel_vals, panel_mask, b, *,
                      nblocks: int, panel_ptr: torch.Tensor | None = None,
                      units: UnitTable | None = None, row_offset: int = 0,
-                     out_dtype=None,
-                     out: torch.Tensor | None = None) -> torch.Tensor:
+                     out_dtype=None, out: torch.Tensor | None = None,
+                     live: int | None = None) -> torch.Tensor:
     """B2 on ``b``'s device.
 
     Args:
@@ -103,21 +107,22 @@ def bcsr_panels_spmm(panel_rows, panel_cols, panel_vals, panel_mask, b, *,
       row_offset: first output row written (needs ``out``).
       out:        optional (batch, R, N) buffer with
                   R >= row_offset + nblocks*Br; other rows are left alone.
+      live:       the unmasked lanes (tiles), for the operator's flop
+                  count (default: every lane, P x G).
     Returns ``out``, or a new (..., nblocks*Br, N) tensor in the output
     dtype (the accumulation dtype unless ``out_dtype`` is given).  Split
     block-rows need a ``(slots, batch, Br, N)`` workspace in the
-    accumulation dtype, allocated here; an allocation that fails raises.
+    accumulation dtype, allocated by the operator; an allocation that
+    fails raises.
     """
     if b.device.type == "cpu":
         return bcsr_panels_spmm_plain(panel_rows, panel_cols, panel_vals,
                                       panel_mask, b, nblocks=nblocks,
                                       row_offset=row_offset,
                                       out_dtype=out_dtype, out=out)
-    if b.device.type != "cuda":
-        raise ValueError(f"bcsr_panels_spmm runs on cuda or cpu tensors, not "
-                         f"{b.device}")
+    _check_device("bcsr_panels_spmm", b, panel_cols)
     b3 = _as3(b)
-    acc, out_dt = resolve_dtypes(panel_vals.dtype, out_dtype)
+    _, out_dt = resolve_dtypes(panel_vals.dtype, out_dtype)
     br = int(panel_vals.shape[1]) if panel_vals.ndim == 3 else -1
     if br not in KERNEL_BRS:
         raise ValueError(f"panel_vals must be (P, Br, G) with Br in "
@@ -129,21 +134,40 @@ def bcsr_panels_spmm(panel_rows, panel_cols, panel_vals, panel_mask, b, *,
     o3 = _target(out, b3, row_offset + nblocks * br, out_dt)
     if not o3.is_contiguous():
         raise ValueError("out must be contiguous")
-    ws = _workspace(units, b3, br, acc)
-    _launch("bcsr_spmm", "bcsr_panels_spmm", _ARGTYPES, b3.device,
-            units.units.data_ptr(), units.splits.data_ptr(),
-            panel_cols.data_ptr(), panel_vals.data_ptr(),
-            panel_mask.data_ptr(), b3.data_ptr(), o3.data_ptr(),
-            ws.data_ptr() if ws is not None else None, units.nunits,
-            units.nsplit, units.max_slots, br, panel_cols.shape[1],
-            b3.shape[1], b3.shape[2], b3.shape[0], o3.shape[1], row_offset,
-            _build.DTYPE_CODES[panel_vals.dtype], _build.DTYPE_CODES[out_dt])
-    bcsr_panels_spmm.launches += 1
+    _ops.dispatch(_OP, _launch_b2, b3, units.units, units.splits, panel_cols,
+                  panel_vals, panel_mask, b3, o3, units.nslots,
+                  units.max_slots, row_offset, nblocks * br,
+                  _lanes(live, panel_cols))
     if out is not None:
         return out
-    return o3 if b.ndim == 3 else o3[0]
+    return o3 if b.ndim == 3 else o3.squeeze(0)
 
 
 bcsr_panels_spmm.launches = 0
+
+
+def _launch_b2(units, splits, cols, vals, mask, b3, o3, nslots: int,
+               max_slots: int, row_offset: int, nrows: int,
+               live: int) -> None:
+    """The CUDA kernel of ``repro_torch::bcsr_panels_spmm``: B2's launch
+    into rows ``row_offset`` on of ``o3``."""
+    br = int(vals.shape[1])
+    ws = _workspace(nslots, b3, br, acc_dtype_for(vals.dtype))
+    _launch("bcsr_spmm", "bcsr_panels_spmm", _ARGTYPES, b3.device,
+            units.data_ptr(), splits.data_ptr(), cols.data_ptr(),
+            vals.data_ptr(), mask.data_ptr(), b3.data_ptr(), o3.data_ptr(),
+            ws.data_ptr() if ws is not None else None, units.shape[0],
+            splits.shape[0], max_slots, br, cols.shape[1], b3.shape[1],
+            b3.shape[2], b3.shape[0], o3.shape[1], row_offset,
+            _build.DTYPE_CODES[vals.dtype], _build.DTYPE_CODES[o3.dtype])
+    bcsr_panels_spmm.launches += 1
+
+
+_OP = _ops.define(
+    "bcsr_panels_spmm",
+    "(Tensor units, Tensor splits, Tensor cols, Tensor vals, Tensor mask, "
+    "Tensor b, Tensor(a!) out, int nslots, int max_slots, int row_offset, "
+    "int nrows, int live) -> ()",
+    _launch_b2, _no_launch, _panel_flops, _panel_bytes)
 
 register_kernel("bcsr", "spmm", "panels", bcsr_panels_spmm)

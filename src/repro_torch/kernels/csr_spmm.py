@@ -18,6 +18,14 @@ several units whose partial sums a second pass adds in a fixed order (see
 the source's note).  ``csr_panels_spmm.launches`` counts calls that launch
 the kernel, one per call whether or not the second pass runs (never the
 plain version's calls).
+
+The launch is the operator ``torch.ops.repro_torch.csr_panels_spmm``
+(``kernels/_ops.py``, which says when the wrapper calls its CUDA kernel
+without the dispatcher): its tables, the unit table and the panels, are
+tensor inputs and its output buffer a mutated argument, so on ``meta`` or
+fake tensors (a ``FakeTensorMode`` trace) the wrapper runs its checks and
+the operator's shape function and launches nothing.  The unit table is
+then the caller's: it is built on the host from index data.
 """
 from __future__ import annotations
 
@@ -27,8 +35,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import _build
-from .engine import register_kernel, resolve_dtypes
+from . import _build, _ops
+from .engine import acc_dtype_for, register_kernel, resolve_dtypes
 
 __all__ = ["csr_panels_spmm", "csr_panels_spmm_plain", "panel_ptr_of",
            "unit_table_of", "UnitTable", "UNIT_PANELS"]
@@ -126,7 +134,7 @@ def _as3(b: torch.Tensor) -> torch.Tensor:
     if b.ndim not in (2, 3):
         raise ValueError(f"b must be (K, N) or (batch, K, N); got rank "
                          f"{b.ndim}")
-    return b if b.ndim == 3 else b[None]
+    return b if b.ndim == 3 else b.unsqueeze(0)
 
 
 def _target(out, b3, rows_needed: int, dtype) -> torch.Tensor:
@@ -135,7 +143,7 @@ def _target(out, b3, rows_needed: int, dtype) -> torch.Tensor:
     shape = (b3.shape[0], rows_needed, b3.shape[-1])
     if out is None:
         return torch.empty(shape, dtype=dtype, device=b3.device)
-    o3 = out if out.ndim == 3 else out[None]
+    o3 = out if out.ndim == 3 else out.unsqueeze(0)
     if (o3.shape[0] != shape[0] or o3.shape[2] != shape[2]
             or o3.shape[1] < rows_needed or o3.dtype != dtype
             or o3.device != b3.device):
@@ -180,7 +188,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 8
 def csr_panels_spmm(panel_rows, panel_cols, panel_vals, panel_mask, b, *,
                     nrows: int, panel_ptr: torch.Tensor | None = None,
                     units: UnitTable | None = None, out_dtype=None,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
+                    out: torch.Tensor | None = None,
+                    live: int | None = None) -> torch.Tensor:
     """B1 on ``b``'s device.
 
     Args:
@@ -196,41 +205,95 @@ def csr_panels_spmm(panel_rows, panel_cols, panel_vals, panel_mask, b, *,
                   from ``panel_ptr`` with :data:`UNIT_PANELS` when not given.
       out:        optional (batch, R, N) buffer with R >= nrows; rows
                   ``[0, nrows)`` are written, the others are left alone.
+      live:       the unmasked lanes, for the operator's flop count
+                  (default: every lane, P x G); nothing else reads it.
     Returns ``out``, or a new (..., nrows, N) tensor in the output dtype
     (the accumulation dtype unless ``out_dtype`` is given).  Split rows
     need a ``(slots, batch, 1, N)`` workspace in the accumulation dtype,
-    allocated here; an allocation that fails raises.
+    allocated by the operator; an allocation that fails raises.
     """
     if b.device.type == "cpu":
         return csr_panels_spmm_plain(panel_rows, panel_cols, panel_vals,
                                      panel_mask, b, nrows=nrows,
                                      out_dtype=out_dtype, out=out)
-    if b.device.type != "cuda":
-        raise ValueError(f"csr_panels_spmm runs on cuda or cpu tensors, not "
-                         f"{b.device}")
+    _check_device("csr_panels_spmm", b, panel_cols)
     b3 = _as3(b)
-    acc, out_dt = resolve_dtypes(panel_vals.dtype, out_dtype)
+    _, out_dt = resolve_dtypes(panel_vals.dtype, out_dtype)
     units = _units_for(panel_rows, panel_ptr, units, nrows, UNIT_PANELS)
     _check(units, panel_cols, panel_vals, panel_mask, b3, nrows)
     o3 = _target(out, b3, nrows, out_dt)
     if not o3.is_contiguous():
         raise ValueError("out must be contiguous")
-    ws = _workspace(units, b3, 1, acc)
-    _launch("csr_spmm", "csr_panels_spmm", _ARGTYPES, b3.device,
-            units.units.data_ptr(), units.splits.data_ptr(),
-            panel_cols.data_ptr(), panel_vals.data_ptr(),
-            panel_mask.data_ptr(), b3.data_ptr(), o3.data_ptr(),
-            ws.data_ptr() if ws is not None else None, units.nunits,
-            units.nsplit, units.max_slots, panel_cols.shape[1], b3.shape[1],
-            b3.shape[2], b3.shape[0], o3.shape[1],
-            _build.DTYPE_CODES[panel_vals.dtype], _build.DTYPE_CODES[out_dt])
-    csr_panels_spmm.launches += 1
+    _ops.dispatch(_OP, _launch_b1, b3, units.units, units.splits, panel_cols,
+                  panel_vals, panel_mask, b3, o3, units.nslots,
+                  units.max_slots, nrows, _lanes(live, panel_cols))
     if out is not None:
         return out
-    return o3 if b.ndim == 3 else o3[0]
+    return o3 if b.ndim == 3 else o3.squeeze(0)
 
 
 csr_panels_spmm.launches = 0
+
+
+def _check_device(name: str, b, cols) -> None:
+    """A wrapper's kernel path runs on CUDA tensors, or on ``meta`` ones
+    (shapes only) when the panels are on ``meta`` too."""
+    if b.device.type == "cuda" or (b.device.type == "meta"
+                                   and cols.device.type == "meta"):
+        return
+    raise ValueError(f"{name} runs on cuda or cpu tensors (or on meta "
+                     f"ones, with every input there), not b on {b.device} "
+                     f"and the panels on {cols.device}")
+
+
+def _lanes(live: int | None, cols) -> int:
+    """The operators' ``live``: the unmasked lanes, else every lane."""
+    return int(cols.shape[0] * cols.shape[1]) if live is None else int(live)
+
+
+def _launch_b1(units, splits, cols, vals, mask, b3, o3, nslots: int,
+               max_slots: int, nrows: int, live: int) -> None:
+    """The CUDA kernel of ``repro_torch::csr_panels_spmm``: B1's launch
+    into ``o3``, with the second pass's workspace."""
+    acc = acc_dtype_for(vals.dtype)
+    ws = _workspace(nslots, b3, 1, acc)
+    _launch("csr_spmm", "csr_panels_spmm", _ARGTYPES, b3.device,
+            units.data_ptr(), splits.data_ptr(), cols.data_ptr(),
+            vals.data_ptr(), mask.data_ptr(), b3.data_ptr(), o3.data_ptr(),
+            ws.data_ptr() if ws is not None else None, units.shape[0],
+            splits.shape[0], max_slots, cols.shape[1], b3.shape[1],
+            b3.shape[2], b3.shape[0], o3.shape[1],
+            _build.DTYPE_CODES[vals.dtype], _build.DTYPE_CODES[o3.dtype])
+    csr_panels_spmm.launches += 1
+
+
+def _no_launch(*args) -> None:
+    """The shape function of B1 and B2: they write into ``out``."""
+
+
+def _panel_flops(units, splits, cols, vals, mask, b3, o3, *ints,
+                 out_shape=None, **kwargs) -> int:
+    """B1 / B2: 2 flops a column for each unmasked value, ``live`` lanes
+    of Br values (Br 1 for B1)."""
+    br = vals[1] if len(vals) == 3 else 1
+    return 2 * ints[-1] * br * b3[0] * b3[2]
+
+
+def _panel_bytes(units, splits, cols, vals, mask, b3, o3, *ints,
+                 out=None) -> int:
+    """B1 / B2: the tables, panels and ``b`` once, and the rows written
+    (``nrows``, the next-to-last integer) of ``o3``."""
+    ins = sum(_ops.nbytes(t) for t in (units, splits, cols, vals, mask, b3))
+    return ins + ints[-2] * int(o3.shape[0]) * int(o3.shape[2]) \
+        * int(o3.itemsize)
+
+
+_OP = _ops.define(
+    "csr_panels_spmm",
+    "(Tensor units, Tensor splits, Tensor cols, Tensor vals, Tensor mask, "
+    "Tensor b, Tensor(a!) out, int nslots, int max_slots, int nrows, "
+    "int live) -> ()",
+    _launch_b1, _no_launch, _panel_flops, _panel_bytes)
 
 
 def _launch(source: str, symbol: str, argtypes, device, *args) -> None:
@@ -261,13 +324,13 @@ def _units_for(panel_rows, panel_ptr, units, ngroups: int,
     return unit_table_of(panel_ptr, unit_panels)
 
 
-def _workspace(units: UnitTable, b3, br: int, acc) -> torch.Tensor | None:
+def _workspace(nslots: int, b3, br: int, acc) -> torch.Tensor | None:
     """The second pass's ``(slots, batch, br, N)`` partial sums, or None
     when no group is split (the second pass does not run)."""
-    if not units.nslots:
+    if not nslots:
         return None
-    return torch.empty((units.nslots, b3.shape[0], br, b3.shape[2]),
-                       dtype=acc, device=b3.device)
+    return torch.empty((nslots, b3.shape[0], br, b3.shape[2]), dtype=acc,
+                       device=b3.device)
 
 
 def _check(units: UnitTable, cols, vals, mask, b3, ngroups: int) -> None:

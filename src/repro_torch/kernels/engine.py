@@ -94,18 +94,33 @@ def resolve_dtypes(value_dtype, out_dtype) -> Tuple[torch.dtype, torch.dtype]:
 
 def resolve_device(device) -> torch.device:
     """``None`` -> the current CUDA device.  Raises when CUDA is asked for
-    and absent: the port never moves work to the CPU on its own."""
+    and absent: the port never moves work to the CPU on its own.
+
+    ``meta`` is accepted (shapes only), and so is a ``cuda`` device that
+    the process lacks while a ``FakeTensorMode`` is active: a fake trace
+    (``launch/dryrun.py``) launches nothing, so it needs no card."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; expected cuda, cpu or "
+                         "meta")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
+            if _fake_mode_active():
+                return torch.device("cuda", dev.index or 0)
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch versions on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _fake_mode_active() -> bool:
+    """Whether a ``FakeTensorMode`` is on the dispatch mode stack."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    return any(isinstance(m, FakeTensorMode)
+               for m in _get_current_dispatch_mode_stack())
 
 
 def resolve_backend(backend: str | None) -> str:
@@ -333,7 +348,8 @@ def csr_spmm(csr, b: torch.Tensor, *, backend: str | None = None,
                                    b_dtype=b.dtype, value_dtype=pvals.dtype))
         y = get_kernel("csr", "spmm", "panels")(
             panels.rows, panels.cols, pvals, panels.mask, b3,
-            nrows=csr.nrows, units=panels.units, out_dtype=out)
+            nrows=csr.nrows, units=panels.units, out_dtype=out,
+            live=panels.live)
         return unflatten_batch(y, batch)
 
     return _fallback.run_chain("csr", "spmm", backend, attempt)
@@ -380,7 +396,8 @@ def bcsr_spmm(bcsr, b: torch.Tensor, *, backend: str | None = None,
                                    value_dtype=pvals.dtype))
         y = get_kernel("bcsr", "spmm", "panels")(
             panels.rows, panels.cols, pvals, panels.mask, b3,
-            nblocks=bcsr.nblocks, units=panels.units, out_dtype=out)
+            nblocks=bcsr.nblocks, units=panels.units, out_dtype=out,
+            live=panels.live)
         return unflatten_batch(y[:, :bcsr.nrows], batch)
 
     return _fallback.run_chain("bcsr", "spmm", backend, attempt)
@@ -464,12 +481,13 @@ def _fused_kernels(fmt, b, out, vdt, csr_vals, bcsr_vals) -> torch.Tensor:
     if has_csr:
         get_kernel("csr", "spmm", "panels")(
             dev.csr.rows, dev.csr.cols, cvals, dev.csr.mask, b3,
-            nrows=r_b, units=dev.csr.units, out_dtype=out, out=y)
+            nrows=r_b, units=dev.csr.units, out_dtype=out, out=y,
+            live=dev.csr.live)
     if has_bcsr:
         get_kernel("bcsr", "spmm", "panels")(
             dev.bcsr.rows, dev.bcsr.cols, bvals, dev.bcsr.mask, b3,
             nblocks=fmt.bcsr_part.nblocks, units=dev.bcsr.units,
-            row_offset=r_b, out_dtype=out, out=y)
+            row_offset=r_b, out_dtype=out, out=y, live=dev.bcsr.live)
     return unflatten_batch(y[:, :fmt.nrows], batch)
 
 
@@ -558,12 +576,13 @@ def _sdd_kernels(fmt, dy, b, d_csr, d_bcsr):
         # B3 walks the part's block table (built once, kept on the part).
         d_csr = dev.csr.gather_values(get_kernel("csr", "sdd", "panels")(
             dev.csr.rows, dev.csr.cols, dev.csr.mask, dy3, b3,
-            blocks=dev.csr.sdd_blocks))
+            blocks=dev.csr.sdd_blocks, live=dev.csr.live))
     if has_bcsr:
         # B4 reads the BCSR rows of dY in place (row offset r_boundary,
         # rows past nrows read as zero): no padded copy of the cotangent;
         # it walks the forward's B2 unit table, one CTA a unit.
         d_bcsr = dev.bcsr.gather_values(get_kernel("bcsr", "sdd", "panels")(
             dev.bcsr.rows, dev.bcsr.cols, dev.bcsr.mask, dy3, b3, br=bc.br,
-            row_offset=fmt.r_boundary, nrows=bc.nrows, units=dev.bcsr.units))
+            row_offset=fmt.r_boundary, nrows=bc.nrows, units=dev.bcsr.units,
+            live=dev.bcsr.live))
     return d_csr, d_bcsr

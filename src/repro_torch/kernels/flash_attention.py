@@ -23,7 +23,10 @@ the reference kernel takes: Sq == Sk (no prefix offset), no sliding window,
 hd in {16, 32, 64, 128}, fp32 / bf16 / f16.
 
 ``flash_attention.launches`` counts kernel launches (never the plain
-version's calls).
+version's calls).  The launch is the operator
+``torch.ops.repro_torch.flash_attention`` (``kernels/_ops.py``), so a
+``meta`` or fake (``FakeTensorMode``) trace passes through B5 and its
+flops count the S(S+1)/2 kept pairs of a causal call.
 
 Training.  The reference has no backward kernel for B5: its train path
 differentiates a jnp attention with XLA.  Here ``return_lse=True`` makes
@@ -44,7 +47,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _ops
 
 __all__ = ["flash_attention", "flash_attention_plain", "check_inputs",
            "flash_attention_train", "flash_attention_bwd", "HEAD_DIMS",
@@ -167,9 +170,9 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      return_lse=return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not "
-                         f"{q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors (or "
+                         f"meta ones), not {q.device}")
     bsz, seq, heads, hd = q.shape
     if bsz * heads > 65535:
         raise ValueError(f"batch*heads {bsz * heads} exceeds the grid's y "
@@ -177,14 +180,29 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
     if seq > 64 * 65535:
         raise ValueError(f"S={seq} exceeds the grid's {64 * 65535} query "
                          "rows")
+    out, lse = _ops.dispatch(_OP, _launch_b5, q, q, k, v, causal,
+                             return_lse)
+    return (out, lse) if return_lse else out
+
+
+def _outputs(q, return_lse: bool):
+    """B5's output and its lse, ``(0,)`` when not asked for."""
+    bsz, seq, heads, _ = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((bsz, heads, seq) if return_lse else (0,), dtype=_F32,
+                      device=q.device)
+    return out, lse
+
+
+def _launch_b5(q, k, v, causal: bool, return_lse: bool):
+    """The CUDA kernel of ``repro_torch::flash_attention``."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse = (torch.empty((bsz, heads, seq), dtype=_F32, device=q.device)
-           if return_lse else None)
+    out, lse = _outputs(q, return_lse)
     if out.numel() == 0:
-        return (out, lse) if return_lse else out
+        return out, lse
+    bsz, seq, heads, hd = q.shape
     fn = _build.kernel_fn("flash_attention", "flash_attention_fwd",
                           _ARGTYPES)
     with torch.cuda.device(q.device):
@@ -192,10 +210,31 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
                 bsz, seq, heads, k.shape[2], hd, 1.0 / math.sqrt(hd),
                 int(causal), _build.DTYPE_CODES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream,
-                None if lse is None else lse.data_ptr())
+                lse.data_ptr() if return_lse else None)
     _build.check_launch("flash_attention", rc)
     flash_attention.launches += 1
-    return (out, lse) if return_lse else out
+    return out, lse
+
+
+def _flops_b5(q, k, v, causal: bool, return_lse: bool, *,
+              out_shape=None, **kwargs) -> int:
+    """QKᵀ and P·V, 2 flops a multiply-add each, over the (query, key)
+    pairs the mask keeps: S(S+1)/2 causal, S² full, per batch and q-head."""
+    bsz, seq, heads, hd = q
+    pairs = seq * (seq + 1) // 2 if causal else seq * seq
+    return 4 * bsz * heads * hd * pairs
+
+
+def _fake_b5(q, k, v, causal: bool, return_lse: bool):
+    """The shape function of ``repro_torch::flash_attention``."""
+    return _outputs(q, return_lse)
+
+
+_OP = _ops.define(
+    "flash_attention",
+    "(Tensor q, Tensor k, Tensor v, bool causal, bool return_lse) "
+    "-> (Tensor, Tensor)",
+    _launch_b5, _fake_b5, _flops_b5, _ops.io_bytes)
 
 
 flash_attention.launches = 0

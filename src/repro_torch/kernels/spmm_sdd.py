@@ -36,7 +36,11 @@ training backward, the accumulation dtype.
 On a CUDA tensor the wrappers launch the kernel or raise; on a CPU tensor
 they run :func:`csr_sdd_panels_plain` / :func:`bcsr_sdd_panels_plain`, the
 same panel functions in plain PyTorch.  ``.launches`` counts kernel
-launches only.
+launches only.  Each launch is an operator,
+``torch.ops.repro_torch.csr_sdd_panels`` / ``bcsr_sdd_panels``
+(``kernels/_ops.py``), whose tables are tensor inputs: on ``meta`` or
+fake tensors the wrappers run their checks and the operators' shape
+functions, and the tables are the caller's (they are built on the host).
 """
 from __future__ import annotations
 
@@ -46,9 +50,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _ops
 from .bcsr_spmm import UNIT_PANELS
-from .csr_spmm import _PLAIN_CHUNK, UnitTable, _units_for
+from .csr_spmm import (_PLAIN_CHUNK, UnitTable, _check_device, _lanes,
+                       _units_for)
 from .engine import acc_dtype_for, register_kernel
 
 __all__ = ["csr_sdd_panels", "bcsr_sdd_panels", "csr_sdd_panels_plain",
@@ -84,7 +89,8 @@ def _pair(dy: torch.Tensor, b: torch.Tensor):
     if dy.shape[-1] != b.shape[-1] or dy.shape[:-2] != b.shape[:-2]:
         raise ValueError(f"dy {tuple(dy.shape)} and b {tuple(b.shape)} "
                          "disagree in batch or N")
-    return (dy[None], b[None]) if b.ndim == 2 else (dy, b)
+    return ((dy.unsqueeze(0), b.unsqueeze(0)) if b.ndim == 2
+            else (dy, b))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,7 +338,8 @@ _CSR_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 9
 
 
 def csr_sdd_panels(panel_rows, panel_cols, panel_mask, dy, b, *,
-                   blocks: SddBlockTable | None = None) -> torch.Tensor:
+                   blocks: SddBlockTable | None = None,
+                   live: int | None = None) -> torch.Tensor:
     """B3 on ``b``'s device.
 
     Args:
@@ -345,15 +352,15 @@ def csr_sdd_panels(panel_rows, panel_cols, panel_mask, dy, b, *,
                   CTA a block; ``DevicePanels.sdd_blocks`` keeps one per
                   part), built by :func:`sdd_block_table` when not given.
                   The plain version does not read it.
+      live:       the unmasked lanes, for the operator's flop count
+                  (default: every lane, P x G).
     Returns (P, G) gradients in the accumulation dtype, summed over the
     batch, 0 at masked lanes.
     """
     if b.device.type == "cpu":
         return csr_sdd_panels_plain(panel_rows, panel_cols, panel_mask, dy,
                                     b)
-    if b.device.type != "cuda":
-        raise ValueError(f"csr_sdd_panels runs on cuda or cpu tensors, not "
-                         f"{b.device}")
+    _check_device("csr_sdd_panels", b, panel_cols)
     dy3, b3 = _pair(dy, b)
     _check(panel_rows, panel_cols, panel_mask, dy3, b3)
     npanels, g = panel_cols.shape
@@ -367,23 +374,56 @@ def csr_sdd_panels(panel_rows, panel_cols, panel_mask, dy, b, *,
     if any(t.device != b3.device or not t.is_contiguous() for t in tabs):
         raise ValueError(f"the block table must be contiguous on "
                          f"{b3.device}")
-    out = torch.empty((npanels, g), dtype=acc_dtype_for(b3.dtype),
+    return _ops.dispatch(_B3, _launch_b3, b3, *tabs, panel_rows, panel_cols,
+                         panel_mask, dy3, b3, blocks.nstaged,
+                         blocks.max_rows, blocks.max_cols,
+                         _lanes(live, panel_cols))
+
+
+csr_sdd_panels.launches = 0
+
+
+def _launch_b3(blocks, outs, info, tcols, rows, cols, mask, dy3, b3,
+               nstaged: int, max_rows: int, max_cols: int,
+               live: int) -> torch.Tensor:
+    """The CUDA kernel of ``repro_torch::csr_sdd_panels``."""
+    out = torch.empty(cols.shape, dtype=acc_dtype_for(b3.dtype),
                       device=b3.device)
     fn = _build.kernel_fn("csr_sdd", "csr_sdd_panels", _CSR_ARGTYPES)
     with torch.cuda.device(b3.device):
-        rc = fn(*(t.data_ptr() for t in tabs), panel_rows.data_ptr(),
-                panel_cols.data_ptr(), panel_mask.data_ptr(), dy3.data_ptr(),
-                b3.data_ptr(), out.data_ptr(), blocks.nblocks,
-                blocks.nstaged, blocks.max_rows, blocks.max_cols, g,
-                dy3.shape[1], b3.shape[1], b3.shape[2], b3.shape[0],
-                _build.DTYPE_CODES[dy3.dtype], _build.DTYPE_CODES[b3.dtype],
+        rc = fn(blocks.data_ptr(), outs.data_ptr(), info.data_ptr(),
+                tcols.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+                mask.data_ptr(), dy3.data_ptr(), b3.data_ptr(),
+                out.data_ptr(), blocks.shape[0], nstaged, max_rows,
+                max_cols, cols.shape[1], dy3.shape[1], b3.shape[1],
+                b3.shape[2], b3.shape[0], _build.DTYPE_CODES[dy3.dtype],
+                _build.DTYPE_CODES[b3.dtype],
                 torch.cuda.current_stream(b3.device).cuda_stream)
     _build.check_launch("csr_sdd_panels", rc)
     csr_sdd_panels.launches += 1
     return out
 
 
-csr_sdd_panels.launches = 0
+def _shape_b3(blocks, outs, info, tcols, rows, cols, mask, dy3, b3, *ints):
+    return torch.empty(cols.shape, dtype=acc_dtype_for(b3.dtype),
+                       device=b3.device)
+
+
+def _sdd_flops(*args, out_shape=None, **kwargs) -> int:
+    """B3 / B4: 2 flops a column and batch slice for each unmasked value
+    (``live`` lanes, the last integer, of Br values: the output's middle
+    dim for B4, 1 for B3)."""
+    b3 = args[-5] if len(out_shape) == 2 else args[4]
+    br = out_shape[1] if len(out_shape) == 3 else 1
+    return 2 * args[-1] * br * b3[0] * b3[2]
+
+
+_B3 = _ops.define(
+    "csr_sdd_panels",
+    "(Tensor blocks, Tensor outs, Tensor info, Tensor tcols, Tensor rows, "
+    "Tensor cols, Tensor mask, Tensor dy, Tensor b, int nstaged, "
+    "int max_rows, int max_cols, int live) -> Tensor",
+    _launch_b3, _shape_b3, _sdd_flops, _ops.io_bytes)
 
 _BCSR_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 9
                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -408,7 +448,8 @@ def sdd_unit_table(panel_rows: torch.Tensor, nblocks: int,
 
 def bcsr_sdd_panels(panel_rows, panel_cols, panel_mask, dy, b, *, br: int,
                     row_offset: int = 0, nrows: int | None = None,
-                    units: UnitTable | None = None) -> torch.Tensor:
+                    units: UnitTable | None = None,
+                    live: int | None = None) -> torch.Tensor:
     """B4 on ``b``'s device.
 
     Args:
@@ -425,6 +466,8 @@ def bcsr_sdd_panels(panel_rows, panel_cols, panel_mask, dy, b, *, br: int,
                   block-rows on ``b``'s device (one CTA a unit); built by
                   :func:`sdd_unit_table` when not given.  The plain version
                   does not read it.
+      live:       the unmasked lanes (tiles), for the operator's flop
+                  count (default: every lane, P x G).
     Returns (P, Br, G) gradients in the accumulation dtype, summed over the
     batch, 0 at masked lanes.
     """
@@ -432,9 +475,7 @@ def bcsr_sdd_panels(panel_rows, panel_cols, panel_mask, dy, b, *, br: int,
         return bcsr_sdd_panels_plain(panel_rows, panel_cols, panel_mask, dy,
                                      b, br=br, row_offset=row_offset,
                                      nrows=nrows)
-    if b.device.type != "cuda":
-        raise ValueError(f"bcsr_sdd_panels runs on cuda or cpu tensors, not "
-                         f"{b.device}")
+    _check_device("bcsr_sdd_panels", b, panel_cols)
     dy3, b3 = _pair(dy, b)
     _check(panel_rows, panel_cols, panel_mask, dy3, b3)
     if br not in KERNEL_BRS:
@@ -444,18 +485,29 @@ def bcsr_sdd_panels(panel_rows, panel_cols, panel_mask, dy, b, *, br: int,
     if row_offset < 0 or nrows < 0 or row_offset + nrows > dy3.shape[1]:
         raise ValueError(f"rows [{row_offset}, {row_offset + nrows}) are not "
                          f"inside dy's {dy3.shape[1]} rows")
-    npanels, g = panel_cols.shape
     units = sdd_unit_table(panel_rows, max(-(-nrows // br), 1), units)
     if units.units.device != b3.device or not units.units.is_contiguous():
         raise ValueError(f"units must be contiguous on {b3.device}, not "
                          f"{units.units.device}")
+    return _ops.dispatch(_B4, _launch_b4, b3, units.units, panel_cols,
+                         panel_mask, dy3, b3, br, row_offset, nrows,
+                         _lanes(live, panel_cols))
+
+
+bcsr_sdd_panels.launches = 0
+
+
+def _launch_b4(units, cols, mask, dy3, b3, br: int, row_offset: int,
+               nrows: int, live: int) -> torch.Tensor:
+    """The CUDA kernel of ``repro_torch::bcsr_sdd_panels``."""
+    npanels, g = cols.shape
     out = torch.empty((npanels, br, g), dtype=acc_dtype_for(b3.dtype),
                       device=b3.device)
     fn = _build.kernel_fn("bcsr_sdd", "bcsr_sdd_panels", _BCSR_ARGTYPES)
     with torch.cuda.device(b3.device):
-        rc = fn(units.units.data_ptr(), panel_cols.data_ptr(),
-                panel_mask.data_ptr(), dy3.data_ptr(), b3.data_ptr(),
-                out.data_ptr(), units.nunits, br, g, dy3.shape[1], b3.shape[1],
+        rc = fn(units.data_ptr(), cols.data_ptr(), mask.data_ptr(),
+                dy3.data_ptr(), b3.data_ptr(), out.data_ptr(),
+                units.shape[0], br, g, dy3.shape[1], b3.shape[1],
                 b3.shape[2], b3.shape[0], row_offset, nrows,
                 _build.DTYPE_CODES[dy3.dtype], _build.DTYPE_CODES[b3.dtype],
                 torch.cuda.current_stream(b3.device).cuda_stream)
@@ -464,7 +516,16 @@ def bcsr_sdd_panels(panel_rows, panel_cols, panel_mask, dy, b, *, br: int,
     return out
 
 
-bcsr_sdd_panels.launches = 0
+def _shape_b4(units, cols, mask, dy3, b3, br, *ints):
+    return torch.empty((cols.shape[0], br, cols.shape[1]),
+                       dtype=acc_dtype_for(b3.dtype), device=b3.device)
+
+
+_B4 = _ops.define(
+    "bcsr_sdd_panels",
+    "(Tensor units, Tensor cols, Tensor mask, Tensor dy, Tensor b, int br, "
+    "int row_offset, int nrows, int live) -> Tensor",
+    _launch_b4, _shape_b4, _sdd_flops, _ops.io_bytes)
 
 register_kernel("csr", "sdd", "panels", csr_sdd_panels)
 register_kernel("bcsr", "sdd", "panels", bcsr_sdd_panels)

@@ -16,8 +16,11 @@ process per rank.  Its backend is the launcher's choice, made with
     through host memory: the case of several ranks sharing one card.
 
 A 1 x 1 mesh needs no launcher: :func:`make_test_mesh` then initialises a
-single-rank group on a ``HashStore``.  ``make_production_mesh`` comes with
-the dry-run (ROADMAP A.13's item on ``launch/dryrun.py``).
+single-rank group on a ``HashStore``.  :func:`make_production_mesh` is the
+dry-run's (``launch/dryrun.py``): the reference's 16 x 16 and 2 x 16 x 16
+shapes on ``torch.distributed``'s ``fake`` process group, which one
+process joins as the rank it traces; its collectives move nothing, so it
+serves only a fake-tensor trace, and :func:`backend_for` never names it.
 
 :class:`P` is the port's ``PartitionSpec`` and :func:`abstract_mesh` its
 ``AbstractMesh``: the sharding rules of :mod:`repro_torch.dist.sharding`
@@ -35,8 +38,12 @@ from torch.distributed.device_mesh import DeviceMesh
 from ..kernels.engine import resolve_device
 
 __all__ = ["P", "AbstractMesh", "abstract_mesh", "axis_sizes",
-           "backend_for", "make_test_mesh", "dp_axes", "flat_axes",
-           "all_gather_cat"]
+           "backend_for", "make_production_mesh", "make_test_mesh",
+           "dp_axes", "flat_axes", "all_gather_cat", "PRODUCTION_SHAPES"]
+
+# The reference's production meshes: (shape, axis names) by multi_pod.
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
 class P(tuple):
@@ -85,6 +92,34 @@ def backend_for(device, world_size: int) -> str:
     if dev.type == "cuda" and torch.cuda.device_count() >= world_size:
         return "nccl"
     return "gloo"
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0,
+                         device_type: str = "cpu") -> DeviceMesh:
+    """The reference's production mesh, (16, 16) over ``("data",
+    "model")`` or with ``multi_pod`` (2, 16, 16) over ``("pod", "data",
+    "model")``, as seen by rank ``rank`` of a ``fake`` process group of
+    256 / 512 ranks, which this initialises (an initialised fake group of
+    that size and rank is reused; any other group raises).  Its
+    collectives move nothing: the mesh serves a fake-tensor trace
+    (``launch/dryrun.py``), never a run.  ``device_type`` is the mesh's
+    (the device the traced tensors claim)."""
+    import math
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape, axes = PRODUCTION_SHAPES[bool(multi_pod)]
+    world = math.prod(shape)
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                world_size=world)
+    elif (dist.get_backend() != "fake" or dist.get_world_size() != world
+          or dist.get_rank() != rank):
+        raise RuntimeError(
+            f"a production mesh needs a fake process group of {world} "
+            f"ranks joined as rank {rank}; this process is rank "
+            f"{dist.get_rank()} of {dist.get_world_size()} on "
+            f"{dist.get_backend()}")
+    return DeviceMesh(device_type, torch.arange(world).view(shape),
+                      mesh_dim_names=axes)
 
 
 def make_test_mesh(data: int = 2, model: int = 2, *,

@@ -11,8 +11,11 @@ training: B5's log-sum-exp and gradients against its plain version, the
 serving launch unchanged by the lse, a reduced llama train step on the
 card against the same step on the CPU, the opt-in fallback chain on CUDA
 tensors (raising by default, degrading once opted in, re-raising during a
-graph capture) and NVML's energy counter around a timed loop.
-Every test here needs a CUDA device and skips without one.
+graph capture) and NVML's energy counter around a timed loop, and B1-B5
+through their ``torch.ops.repro_torch`` operators (bits and launches
+against a direct operator call and the plain version; a fake trace on CUDA
+tensors launching nothing).  Every test here needs a CUDA device and skips
+without one.
 
 This file imports neither JAX nor the reference package, so it runs on the
 GPU machine as it is:
@@ -1050,3 +1053,142 @@ def test_cuda_dense_family_serving_matches_cpu(cuda, arch):
     for w, g in zip(outs[0][0], outs[1][0]):
         scale = max(1.0, float(w.abs().max()))
         assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale
+
+
+# -- B1-B5 as operators (kernels/_ops.py) ----------------------------------
+
+def _op_case(cuda):
+    """Each kernel's wrapper call, its operator's direct call (same
+    tensors, the wrapper's own output buffer for B1/B2), and its plain
+    version, at a mid size in fp32 (B5 in bf16, causal)."""
+    rng = np.random.default_rng(11)
+    a = (rng.random((300, 257)) < 0.1) * rng.standard_normal((300, 257))
+    fmt = tf.loops_from_csr(tf.csr_from_dense(a.astype(np.float32)), 152, 8,
+                            panel_g=8)
+    dev = fmt.on(cuda)
+    cp, bp = dev.csr, dev.bcsr
+    b = torch.as_tensor(rng.standard_normal((1, 257, 32)).astype(
+        np.float32), device=cuda)
+    dy = torch.as_tensor(rng.standard_normal((1, 300, 32)).astype(
+        np.float32), device=cuda)
+    q = torch.randn((2, 256, 8, 64), device=cuda).to(torch.bfloat16)
+    k = torch.randn((2, 256, 2, 64), device=cuda).to(torch.bfloat16)
+    v = torch.randn((2, 256, 2, 64), device=cuda).to(torch.bfloat16)
+    nb = fmt.bcsr_part.nblocks
+    ops = torch.ops.repro_torch
+
+    def b1_direct():
+        out = torch.empty((1, 152, 32), device=cuda)
+        ops.csr_panels_spmm(cp.units.units, cp.units.splits, cp.cols,
+                            cp.vals, cp.mask, b, out, cp.units.nslots,
+                            cp.units.max_slots, 152, cp.live)
+        return out[0]
+
+    def b2_direct():
+        out = torch.empty((1, nb * 8, 32), device=cuda)
+        ops.bcsr_panels_spmm(bp.units.units, bp.units.splits, bp.cols,
+                             bp.vals, bp.mask, b, out, bp.units.nslots,
+                             bp.units.max_slots, 0, nb * 8, bp.live)
+        return out[0]
+
+    blocks = cp.sdd_blocks
+    return {
+        "csr_panels_spmm": (
+            lambda: csr_spmm.csr_panels_spmm(cp.rows, cp.cols, cp.vals,
+                                             cp.mask, b[0], nrows=152,
+                                             units=cp.units, live=cp.live),
+            b1_direct,
+            lambda: csr_spmm.csr_panels_spmm_plain(
+                cp.rows, cp.cols, cp.vals, cp.mask, b[0], nrows=152)),
+        "bcsr_panels_spmm": (
+            lambda: bcsr_spmm.bcsr_panels_spmm(bp.rows, bp.cols, bp.vals,
+                                               bp.mask, b[0], nblocks=nb,
+                                               units=bp.units,
+                                               live=bp.live),
+            b2_direct,
+            lambda: bcsr_spmm.bcsr_panels_spmm_plain(
+                bp.rows, bp.cols, bp.vals, bp.mask, b[0], nblocks=nb)),
+        "csr_sdd_panels": (
+            lambda: spmm_sdd.csr_sdd_panels(cp.rows, cp.cols, cp.mask, dy,
+                                            b, blocks=blocks, live=cp.live),
+            lambda: ops.csr_sdd_panels(
+                blocks.blocks, blocks.outs, blocks.info, blocks.cols,
+                cp.rows, cp.cols, cp.mask, dy, b, blocks.nstaged,
+                blocks.max_rows, blocks.max_cols, cp.live),
+            lambda: spmm_sdd.csr_sdd_panels_plain(cp.rows, cp.cols, cp.mask,
+                                                  dy, b)),
+        "bcsr_sdd_panels": (
+            lambda: spmm_sdd.bcsr_sdd_panels(bp.rows, bp.cols, bp.mask, dy,
+                                             b, br=8, row_offset=152,
+                                             nrows=148, units=bp.units,
+                                             live=bp.live),
+            lambda: ops.bcsr_sdd_panels(bp.units.units, bp.cols, bp.mask,
+                                        dy, b, 8, 152, 148, bp.live),
+            lambda: spmm_sdd.bcsr_sdd_panels_plain(
+                bp.rows, bp.cols, bp.mask, dy, b, br=8, row_offset=152,
+                nrows=148)),
+        "flash_attention": (
+            lambda: b5.flash_attention(q, k, v, causal=True),
+            lambda: ops.flash_attention(q, k, v, True, False)[0],
+            lambda: b5.flash_attention_plain(q, k, v, causal=True)),
+    }
+
+
+_OP_NAMES = ["csr_panels_spmm", "bcsr_panels_spmm", "csr_sdd_panels",
+             "bcsr_sdd_panels", "flash_attention"]
+
+
+def _launch_counter(name):
+    return {"csr_panels_spmm": csr_spmm.csr_panels_spmm,
+            "bcsr_panels_spmm": bcsr_spmm.bcsr_panels_spmm,
+            "csr_sdd_panels": spmm_sdd.csr_sdd_panels,
+            "bcsr_sdd_panels": spmm_sdd.bcsr_sdd_panels,
+            "flash_attention": b5.flash_attention}[name]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", _OP_NAMES)
+def test_cuda_operator_bits_and_launches(cuda, name):
+    """Each kernel through its ``torch.ops.repro_torch`` operator: two
+    wrapper calls bitwise equal, the operator called directly equal to
+    them and launching once as the wrapper does, and the result within
+    the dtype's tolerance of the plain version (fp32 1e-5, bf16 1e-2 of
+    max(1, max |plain|))."""
+    wrapper, direct, plain = _op_case(cuda)[name]
+    fn = _launch_counter(name)
+    before = fn.launches
+    first = wrapper()
+    second = wrapper()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(first, second)
+    got = direct()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 3
+    assert torch.equal(got, first)
+    want = plain()
+    tol = 1e-2 if first.dtype == torch.bfloat16 else 1e-5
+    scale = max(1.0, float(want.abs().max()))
+    assert float((first.float() - want.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+def test_cuda_fake_trace_launches_nothing(cuda):
+    """Under ``FakeTensorMode`` a wrapper given CUDA tensors returns the
+    launch's shapes, dtypes and strides, launches nothing, and its flops
+    under ``FlopCounterMode`` are its operator's closed form."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    cases = _op_case(cuda)
+    for name in _OP_NAMES:
+        wrapper = cases[name][0]
+        real = wrapper()
+        fn = _launch_counter(name)
+        before = fn.launches
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            with FlopCounterMode(display=False) as counter:
+                fake = wrapper()
+        assert fn.launches == before
+        assert (fake.shape, fake.dtype, fake.stride()) == (
+            real.shape, real.dtype, real.stride())
+        assert counter.get_total_flops() > 0

@@ -185,7 +185,12 @@ def test_shape_and_dtype_errors(rng):
         tspmm.loops_spmm(fp, torch.zeros((9, 3), device="meta"),
                          device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
-        tspmm.loops_spmm(fp, np.zeros((9, 3), np.float32), device="meta")
+        tspmm.loops_spmm(fp, np.zeros((9, 3), np.float32), device="xpu")
+    # meta is a device of its own now (shapes only, through the kernels'
+    # operators): the product's shape and dtype, no values
+    out = tspmm.loops_spmm(fp, np.zeros((9, 3), np.float32), device="meta")
+    assert out.device.type == "meta" and tuple(out.shape) == (11, 3)
+    assert out.dtype == torch.float32
 
 
 def test_autograd_raises_instead_of_cutting_the_graph(rng):

@@ -213,11 +213,11 @@ def test_wrapper_helpers(rng):
     with pytest.raises(ValueError, match="panel_ptr"):
         csr_spmm._units_for(p.rows, p.ptr.int(), None, 4, 3)
     b3 = torch.zeros((3, 200, 40))
-    ws = csr_spmm._workspace(t, b3, 8, torch.float32)
+    ws = csr_spmm._workspace(t.nslots, b3, 8, torch.float32)
     assert ws.shape == (t.nslots, 3, 8, 40) and ws.dtype == torch.float32
     unsplit = csr_spmm.unit_table_of(p.ptr, 10_000)
     assert unsplit.nslots == 0
-    assert csr_spmm._workspace(unsplit, b3, 1, torch.float32) is None
+    assert csr_spmm._workspace(unsplit.nslots, b3, 1, torch.float32) is None
 
 
 @pytest.mark.parametrize("br", [4, 8, 16])
