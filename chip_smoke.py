@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU: the LOOPS
 SpMM paths, its autotuner, the dense LMs' server (llama3.2-1b, on one
-device and on a mesh, and qwen3-32b, granite-34b and internlm2-20b) and
-the llama3.2-1b trainer.
+device and on a mesh, and qwen3-32b, granite-34b and internlm2-20b), the
+MoE LMs' server (qwen3-moe-30b-a3b and qwen2-moe-a2.7b) and the
+llama3.2-1b trainer.
 
 Run from the repository root, on a machine with an NVIDIA H100:
 
@@ -27,10 +28,12 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  and B5 (flash attention) at the reference test's three
                  shapes, a ragged S of 1000 (hd 64 and 128), the mesh
                  ranks' shapes, the dense family's hd-128 head layouts
-                 (phase 18's, and theirs on a (1, 2) mesh) and the serving
-                 shape (4, 2048, 32 heads, 8 kv heads, hd 64), causal and
-                 not, fp32 / bf16 / f16; and each of B1-B5 through its
-                 ``torch.ops.repro_torch`` operator (``kernels/_ops.py``):
+                 (phase 18's, and theirs on a (1, 2) mesh), the moe
+                 family's 32 / 4 and 16 / 16 at phase 20's S of 2048, and
+                 the serving shape (4, 2048, 32 heads, 8 kv heads, hd 64),
+                 causal and not, fp32 / bf16 / f16; and each of B1-B5
+                 through its ``torch.ops.repro_torch`` operator
+                 (``kernels/_ops.py``):
                  one operator call and one launch a wrapper call, two
                  calls bitwise equal;
   3. main     -- ``plan_and_convert`` -> ``loops_spmm`` at the published
@@ -266,11 +269,26 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  config at 2 layers in fp32, one 2048-token prompt and 4
                  decode steps, its logits through B5 against the plain
                  attention path at ``LM_TOL``.
+ 20. serve_moe -- the moe family served as phase 18 serves (it runs
+                 before phase 19): qwen3-moe-30b-a3b at full width and
+                 depth (48 layers, d 2048, 32 heads on 4 kv heads, hd 128,
+                 qk-norm, 128 experts top 8 of d_ff 768, vocab 151,936
+                 untied; 30.5B parameters, 61.1 GB), below 80 GB, and
+                 qwen2-moe-a2.7b at full width (16 heads on 16 kv, 60
+                 experts padded to 64 plus 4 shared, top 4), 4 of its 24
+                 layers; then both configs at 2 layers in fp32, one
+                 2048-token prompt and 4 decode steps through B5 and
+                 through the plain attention path, the plain run taking
+                 the B5 run's routes: every call's logits are held to
+                 ``LM_TOL``, and at most ``MOE_FLIP_LIMIT`` of the routed
+                 rows (layer x token) may be ones where the plain path's
+                 own top-k picks other experts.
  19. dryrun   -- the production-mesh dry-run (``repro_torch.launch.dryrun``)
                  on fake CUDA tensors over a fake process group, in three
                  processes at once: llama3.2-1b's ``train_4k``,
                  ``prefill_32k`` and ``decode_32k`` cells on (16, 16) and
-                 qwen3-32b's ``decode_32k`` on (2, 16, 16), each ``ok``
+                 qwen3-32b's and qwen3-moe-30b-a3b's ``decode_32k`` on (2,
+                 16, 16), each ``ok``
                  with its per-device flops, HBM bytes, collective bytes by
                  kind, memory record, three roofline terms (an H100's
                  published peaks) and trace s; ``benchmarks/spmm_dryrun``
@@ -279,11 +297,12 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  ``benchmarks/compress_bytes`` (int8 >= 3x and bf16 2x fewer
                  bytes than fp32).  Nothing launches.
 
-Each kernel's launch count is set to 0 just before phases 3-18 drive their
-path and read just after; a kernel of a path that did not launch fails the
-run, and so does a launch of a kernel that is not on the path (B5 in
-phases 3-7, 13-16, B1-B4 in phases 8, 10 and 18 and in the LM runs of
-phases 12 and 17, B3/B4 in phases 9, 14, 15 and 16, B3-B5 in phase 11).
+Each kernel's launch count is set to 0 just before phases 3-18 and 20
+drive their path and read just after; a kernel of a path that did not
+launch fails the run, and so does a launch of a kernel that is not on the
+path (B5 in phases 3-7, 13-16, B1-B4 in phases 8, 10, 18 and 20 and in the
+LM runs of phases 12 and 17, B3/B4 in phases 9, 14, 15 and 16, B3-B5 in
+phase 11).
 In phase 16 each rank counts its own launches, the forward apart from the backward: in the
 forward a CSR-group rank launches B1 alone and a BCSR-group rank B2 alone,
 once a call; in the backward each launches B1 / B2 once a call for each
@@ -424,13 +443,28 @@ DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 4, 2048, 32
 DENSE_CHECK_LAYERS, DENSE_CHECK_STEPS, DENSE_CUT_LAYERS = 2, 4, 4
 DENSE_REDUCED = False
 
+# Phase serve_moe: qwen3-moe-30b-a3b at full width and depth (48 layers, d
+# 2048, 32 heads on 4 kv, hd 128, qk-norm, 128 experts top 8, expert
+# d_ff 768, vocab 151,936 untied; 30.5B parameters, 61.1 GB in bf16) and
+# qwen2-moe-a2.7b at full width (16 heads on 16 kv, 60 experts padded to
+# 64 plus 4 shared, top 4), MOE_CUT_LAYERS of its 24 layers, served as
+# phase 18 serves; both at MOE_CHECK_LAYERS layers in fp32 through B5
+# against the plain attention path, which takes B5's routes so that every
+# call's logits are held, with each layer's own routes compared: at most
+# MOE_FLIP_LIMIT of the routed rows may flip.  The sizes are phase
+# 18's (DENSE_BATCH, DENSE_PROMPT, DENSE_GEN, DENSE_CHECK_STEPS).
+MOE_ARCH, MOE_CUT = "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"
+MOE_CUT_LAYERS, MOE_CHECK_LAYERS, MOE_FLIP_LIMIT = 4, 2, 0.01
+
 # B5 in phase 2: (B, S, H, KV, hd); the reference test's three shapes, a
 # ragged S, a (2, 2) mesh rank's training shape and a (1, 2) rank's
 # prefill in phase 17 (llama3.2-1b's 32 / 8 heads over model 2); the dense
 # family's hd-128 layouts of phase 18 -- qwen3-32b 64 / 8, internlm2-20b
 # 48 / 8, granite-34b 48 / 1 (rep 48) -- and on a (1, 2) mesh 32 / 4, 24 /
 # 4 and granite's 24 / 24 (its whole kv head taken once a q head), with 24
-# / 8 and 24 / 1; and the serving shape (last: phase 4 reads its heads).
+# / 8 and 24 / 1; the moe family's layouts of phase 20 at the S it
+# serves, qwen3-moe-30b-a3b's 32 / 4 and qwen2-moe-a2.7b's 16 / 16; and
+# the serving shape (last: phase 4 reads its heads).
 FLASH_SHAPES = ((1, 64, 1, 1, 16), (2, 128, 4, 2, 32), (1, 64, 6, 2, 16),
                 (2, 1000, 8, 2, 64), (1, 1000, 4, 1, 128),
                 (MESH_BATCH // MESH_SHAPE[0], MESH_SEQ, 32 // MESH_SHAPE[1],
@@ -440,6 +474,7 @@ FLASH_SHAPES = ((1, 64, 1, 1, 16), (2, 128, 4, 2, 32), (1, 64, 6, 2, 16),
                 (2, 2048, 48, 1, 128), (2, 1024, 32, 4, 128),
                 (2, 1024, 24, 4, 128), (2, 1024, 24, 24, 128),
                 (2, 1024, 24, 8, 128), (2, 1024, 24, 1, 128),
+                (2, 2048, 32, 4, 128), (2, 2048, 16, 16, 128),
                 (LM_BATCH, LM_PROMPT, 32, 8, 64))
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 1e-2, "float16": 1e-2}
 # B5 also against each output row's own size (``row_err``).  A long row's
@@ -4706,14 +4741,17 @@ def _dense_cfg(arch: str, layers: int | None = None, dtype=None):
     return dataclasses.replace(cfg, **kw) if kw else cfg
 
 
-def _serve_dense_one(cfg, launches: dict) -> dict:
+def _serve_dense_one(cfg, launches: dict, what: str = "serve_dense",
+                     profile: bool = False) -> dict:
     """``cfg`` served at ``DENSE_BATCH`` x (``DENSE_PROMPT`` +
     ``DENSE_GEN``), greedy, through ``ServeQueue`` and its graphed pool
     (the bucket warmed before traffic): init s, prefill ms, TTFT, decode ms
     a step, tokens/s and peak GB; B5 once a layer per prefill replay; then,
     the pool freed, the served stream against the eager path's
     (``api.prefill`` / ``api.decode_step`` into a cache of the bucket's
-    length, teacher-forced with the served tokens): equal."""
+    length, teacher-forced with the served tokens): equal.  ``profile``:
+    then one eager decode step and one eager prefill under
+    :func:`profile_step` (their kernels by device time)."""
     import numpy as np
     import torch
     from repro_torch.models import api
@@ -4749,12 +4787,12 @@ def _serve_dense_one(cfg, launches: dict) -> dict:
     serve_s = time.perf_counter() - t0
     counts = _read_counts()
     n_prefill = queue.sched.counters["prefill_batches"]
-    _check_lm_launches(f"serve_dense {cfg.name}", counts,
+    _check_lm_launches(f"{what} {cfg.name}", counts,
                        cfg.num_layers * n_prefill, launches)
     served = np.array([r.tokens for r in reqs])
     check(n_prefill == 1 and served.shape == (DENSE_BATCH, DENSE_GEN)
           and 0 <= served.min() and served.max() < cfg.vocab_size,
-          f"serve_dense {cfg.name}: {n_prefill} prefill calls, tokens "
+          f"{what} {cfg.name}: {n_prefill} prefill calls, tokens "
           f"{served.shape}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decode_ms = [t * 1e3 for t in queue.engine_s["decode"]]
@@ -4787,12 +4825,20 @@ def _serve_dense_one(cfg, launches: dict) -> dict:
     agree = torch.stack(same, 1)
     torch.cuda.synchronize()
     rec["eager_agreement"] = float(agree.float().mean())
-    check(bool(agree.all()), f"serve_dense {cfg.name}: the served stream "
+    check(bool(agree.all()), f"{what} {cfg.name}: the served stream "
           f"differs from the eager path's (agreement "
           f"{rec['eager_agreement']:.4f})")
+    if profile:   # where an eager step's device time goes
+        rec["profile"] = {
+            "decode": profile_step(lambda: api.decode_step(
+                cfg, params, cache, toks[:, :1], DENSE_PROMPT)),
+            "prefill": profile_step(lambda: api.prefill(
+                cfg, params, {"tokens": torch.as_tensor(prompts,
+                                                        device=DEVICE)},
+                cache=cache))}
     del params, cache, logits
     _release()
-    print(f"serve_dense {cfg.name} ({cfg.num_layers} layers, "
+    print(f"{what} {cfg.name} ({cfg.num_layers} layers, "
           f"{n_params / 1e9:.2f}B parameters): prefill "
           f"{rec['prefill_ms'][0]:.1f} ms, decode "
           f"{rec['decode_ms_median']:.2f} ms a step, "
@@ -4873,6 +4919,126 @@ def phase_serve_dense(launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 20: the moe family, served
+# ---------------------------------------------------------------------------
+
+def _moe_fp32_check(cfg) -> dict:
+    """``cfg`` (fp32) on one ``DENSE_PROMPT`` prompt and
+    ``DENSE_CHECK_STEPS`` teacher-forced decode steps, through B5 and
+    through the plain attention path.  The plain run routes every call as
+    the B5 run did (its own softmax weights at B5's expert ids), so a
+    near-tie that attention's rounding flips changes no later token and
+    every call's logits are held to ``LM_TOL``; the rows (layer x token)
+    where the plain path's own top-k picks other experts are counted, at
+    most ``MOE_FLIP_LIMIT`` of all."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    from repro_torch.models import moe as moe_lib
+    _release()
+    params = api.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(LM_SEED),
+        device=DEVICE)
+    rng = np.random.default_rng(LM_SEED + 2)
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (1, DENSE_PROMPT + DENSE_CHECK_STEPS)),
+        device=DEVICE)
+    real = moe_lib._route
+
+    def run(backend, forced=None):
+        """Each call's logits, and each routing's ``(own ids, ids used)``;
+        ``forced``: the ids to route by, one a routing, in order."""
+        routes = []
+
+        def spy(router_w, x2d, num_experts, top_k):
+            weights, idx = real(router_w, x2d, num_experts, top_k)
+            own = idx
+            if forced is not None:   # _route's softmax, at B5's ids
+                idx = forced[len(routes)]
+                logits = x2d.to(torch.float32) @ router_w.to(torch.float32)
+                logits[:, num_experts:] = -1e30
+                weights = torch.softmax(logits, -1).gather(-1, idx)
+                weights = weights / weights.sum(-1, keepdim=True
+                                                ).clamp_min(1e-9)
+            routes.append((own, idx))
+            return weights, idx
+        moe_lib._route = spy
+        try:
+            cache = api.init_cache(cfg, 1, toks.shape[1], device=DEVICE)
+            _, logits = api.prefill(cfg, params,
+                                    {"tokens": toks[:, :DENSE_PROMPT]},
+                                    backend=backend, cache=cache)
+            outs = [logits]
+            for i in range(DENSE_CHECK_STEPS):
+                _, logits = api.decode_step(
+                    cfg, params, cache,
+                    toks[:, DENSE_PROMPT + i:DENSE_PROMPT + i + 1],
+                    DENSE_PROMPT + i)
+                outs.append(logits)
+        finally:
+            moe_lib._route = real
+        return outs, routes
+    n0 = _kernel_fns()["flash_attention"].launches
+    kernel, k_routes = run(None)
+    check(_kernel_fns()["flash_attention"].launches == n0 + cfg.num_layers,
+          f"serve_moe fp32 {cfg.name}: B5 did not launch once a layer")
+    plain, p_routes = run("torch", [used for _, used in k_routes])
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    check(len(k_routes) == len(p_routes) == L * (1 + DENSE_CHECK_STEPS),
+          f"serve_moe fp32 {cfg.name}: {len(k_routes)} / {len(p_routes)} "
+          f"routings")
+    flips = [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+             for (a, _), (b, _) in zip(k_routes, p_routes)]
+    rows = sum(int(a.shape[0]) for a, _ in k_routes)
+    errs = [_lm_logits_err(f"serve_moe fp32 {cfg.name} logits step {i}",
+                           g, w) for i, (g, w) in enumerate(zip(kernel,
+                                                                plain))]
+    check(sum(flips) <= MOE_FLIP_LIMIT * rows,
+          f"serve_moe fp32 {cfg.name}: {sum(flips)} of {rows} routed rows "
+          f"flipped between B5 and the plain path")
+    print(f"serve_moe fp32 {cfg.name}: {sum(flips)} of {rows} routed rows "
+          f"flipped; logits errors {['%.3g' % e for e in errs]}",
+          flush=True)
+    del params, kernel, plain
+    _release()
+    return {"arch": cfg.name, "layers": L, "dtype": "float32",
+            "prompt_len": DENSE_PROMPT, "decode_steps": DENSE_CHECK_STEPS,
+            "routed_rows": rows, "flipped_rows": sum(flips),
+            "flips_per_call": flips, "logits_err_rel": errs}
+
+
+def phase_serve_moe(launches: dict) -> dict:
+    """Phase 20 (the module docstring): qwen3-moe-30b-a3b at full width
+    and depth served in bf16 (below 80 GB), qwen2-moe-a2.7b at full width
+    and ``MOE_CUT_LAYERS`` layers, each as phase 18 serves (B5 once a
+    layer per prefill replay, the served stream equal to the eager
+    path's); then both at ``MOE_CHECK_LAYERS`` layers in fp32, B5 against
+    the plain path with the routes compared."""
+    import torch
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    n0 = launches["flash_attention"]
+    full = _serve_dense_one(_dense_cfg(MOE_ARCH), launches, "serve_moe",
+                            profile=True)
+    check(full["peak_mem_gb"] < 80, f"serve_moe {MOE_ARCH}: peak "
+          f"{full['peak_mem_gb']:.1f} GB")
+    cut = _serve_dense_one(_dense_cfg(MOE_CUT, MOE_CUT_LAYERS), launches,
+                           "serve_moe")
+    fp32 = [_moe_fp32_check(_dense_cfg(arch, MOE_CHECK_LAYERS,
+                                       torch.float32))
+            for arch in (MOE_ARCH, MOE_CUT)]
+    rec = {"phase": "serve_moe",
+           "nvidia_smi": RECORD["phases"][0].get("nvidia_smi"),
+           "requests": DENSE_BATCH, "prompt_len": DENSE_PROMPT,
+           "gen_len": DENSE_GEN, "served": [full, cut], "fp32_check": fp32,
+           "b5_launches": launches["flash_attention"] - n0,
+           "seconds": time.perf_counter() - t0}
+    phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 19: the production-mesh dry-run
 # ---------------------------------------------------------------------------
 
@@ -4880,7 +5046,8 @@ def phase_serve_dense(launches: dict) -> dict:
 DRYRUN_CELLS = (("llama3.2-1b", "train_4k", "single"),
                 ("llama3.2-1b", "prefill_32k", "single"),
                 ("llama3.2-1b", "decode_32k", "single"),
-                ("qwen3-32b", "decode_32k", "multi"))
+                ("qwen3-32b", "decode_32k", "multi"),
+                ("qwen3-moe-30b-a3b", "decode_32k", "multi"))
 DRYRUN_LIMIT_S = 400
 
 # One job of the dry-run, in a process of its own (the fake process group
@@ -5070,6 +5237,7 @@ def main(argv=None) -> int:
         phase_distributed(launches, work)
         phase_train_mesh(launches, work)
         phase_serve_dense(launches)
+        phase_serve_moe(launches)
         phase_dryrun(work)
     for k, v in launches.items():
         check(v > 0, f"{k} never launched on the port's paths")

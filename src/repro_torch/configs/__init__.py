@@ -1,17 +1,22 @@
 """Architecture registry of the port: the architectures whose family the
-port runs (the dense family: qwen3-32b, granite-34b, llama3.2-1b and
-internlm2-20b, in the reference's order).
+port runs (the moe family: qwen3-moe-30b-a3b and qwen2-moe-a2.7b; the
+dense family: qwen3-32b, granite-34b, llama3.2-1b and internlm2-20b), in
+the reference's order.
 
 ``get_config(name)`` / ``--arch <id>`` resolve through here; each module
 also provides ``reduced()``, the same family at smoke-test scale.
 """
 from .base import (SHAPES, ModelConfig, ShapeConfig, applicable_shapes,
                    get_config, register)
-from . import granite_34b, internlm2_20b, llama3_2_1b, qwen3_32b
+from . import (granite_34b, internlm2_20b, llama3_2_1b, qwen2_moe_a2_7b,
+               qwen3_32b, qwen3_moe_30b)
 
-ALL_ARCHS = ("qwen3-32b", "granite-34b", "llama3.2-1b", "internlm2-20b")
+ALL_ARCHS = ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "qwen3-32b",
+             "granite-34b", "llama3.2-1b", "internlm2-20b")
 
 REDUCED = {
+    "qwen3-moe-30b-a3b": qwen3_moe_30b.reduced,
+    "qwen2-moe-a2.7b": qwen2_moe_a2_7b.reduced,
     "qwen3-32b": qwen3_32b.reduced,
     "granite-34b": granite_34b.reduced,
     "llama3.2-1b": llama3_2_1b.reduced,

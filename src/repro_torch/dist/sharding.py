@@ -16,6 +16,9 @@ Model half:
   port's own structure: per-layer ``(d_in, d_out)`` leaves named
   ``layers.<i>.attn.wq`` and so on, where the reference's stacked leaves
   carry a leading ``L`` (its spec is this one with ``None`` in front).
+  MoE layers are expert-parallel: the ``(E, d_in, d_out)`` expert stacks
+  split on ``E`` over ``model``, the shared MLP column/row as the dense
+  MLP, the router and the shared gate whole.
 * **batches** (:func:`train_batch_specs`, :func:`prefill_batch_specs`):
   the batch dim over the data axes (``('pod', 'data')`` on multi-pod
   meshes).
@@ -108,14 +111,17 @@ def _nones(k: int) -> tuple:
 # ---------------------------------------------------------------------------
 
 def param_specs(params, mesh, cfg: ModelConfig) -> dict:
-    """``{name: P}`` for a dense LM's parameters (an ``nn.Module`` or a
+    """``{name: P}`` for an LM's parameters (an ``nn.Module`` or a
     mapping of names to tensors or shapes, at their full shapes).
 
     Rules key off the leaf's name (``wq``/``wk``/``wv``/``wo``, ``wi``/
     ``wg``, ``embed``/``unembed``) and rank: a layer's projections are 2-D
-    ``(d_in, d_out)``.  Anything unmatched (norm scales) is replicated.
-    The reference's MoE and ``patch_proj`` rules come with their families
-    (ROADMAP A.13, item 7)."""
+    ``(d_in, d_out)``, a MoE layer's expert stacks 3-D ``(E, d_in,
+    d_out)``: ``P(m, None, None)`` when ``model`` divides ``E``, its
+    shared MLP as the dense MLP, its ``router`` and ``shared_gate``
+    replicated.  Anything unmatched (norm scales) is replicated.  The
+    reference's ``patch_proj`` rule comes with its family (ROADMAP A.13,
+    item 7f)."""
     shapes = _shapes(params)
     m = model_axis(mesh)
     if m is None:
@@ -141,6 +147,14 @@ def param_specs(params, mesh, cfg: ModelConfig) -> dict:
             if leaf == "wo" and nd == 2:
                 return P(m, None) if heads_ok else P()
             return P()
+        if "moe" in names:
+            if nd == 3 and leaf in ("wi", "wg", "wo"):
+                return P(m, None, None) if div(shape[0]) else P()
+            if nd == 2 and leaf in ("wi", "wg"):    # the shared MLP
+                return P(None, m) if div(shape[1]) else P()
+            if nd == 2 and leaf == "wo":
+                return P(m, None) if div(shape[0]) else P()
+            return P()   # router, shared_gate
         if leaf in ("wi", "wg") and nd == 2:
             return P(None, m) if div(shape[1]) else P()
         if leaf == "wo" and nd == 2:
@@ -346,10 +360,11 @@ def constrain(tree: Mapping, mesh, spec_tree: Mapping,
 
 
 def model_layout(mesh, cfg: ModelConfig, specs: Mapping, shapes: Mapping):
-    """The :class:`repro_torch.models.layers.MeshLayout` of a dense LM
-    whose parameters (global ``shapes``) are sharded by ``specs``
+    """The :class:`repro_torch.models.layers.MeshLayout` of an LM whose
+    parameters (global ``shapes``) are sharded by ``specs``
     (:func:`param_specs`) on ``mesh``: the model and data groups and this
-    rank's heads, kv heads, FFN and vocabulary slices.  A split that would
+    rank's heads, kv heads, FFN (a MoE layer's: its shared MLP's),
+    experts and vocabulary slices.  A split that would
     cut a head (``tp_rule="naive"`` on a count that ``model`` does not
     divide) raises ``NotImplementedError``: the eager layers compute whole
     heads on each rank."""
@@ -382,6 +397,15 @@ def model_layout(mesh, cfg: ModelConfig, specs: Mapping, shapes: Mapping):
         else:   # each local q head reads its own kv head (GQA h // rep)
             rep = cfg.num_heads // cfg.num_kv_heads
             kv_take = tuple(h // rep for h in range(*heads))
+    experts = None
+    if "layers.0.moe.wi" in specs:
+        if split("layers.0.moe.wi", 0):
+            per = shapes["layers.0.moe.wi"][0] // msize
+            experts = (mrank * per, (mrank + 1) * per)
+        ff = ("layers.0.moe.shared.wi" in specs
+              and split("layers.0.moe.shared.wi", 1))
+    else:
+        ff = split("layers.0.mlp.wi", 1)
     vocab = None
     if split("embed", 0):
         per = shapes["embed"][0] // msize
@@ -390,7 +414,7 @@ def model_layout(mesh, cfg: ModelConfig, specs: Mapping, shapes: Mapping):
         mesh=mesh, specs=dict(specs), shapes=dict(shapes),
         model_group=mesh.get_group(m) if msize > 1 else None,
         model_rank=mrank, heads=heads, kv_take=kv_take,
-        ff=split("layers.0.mlp.wi", 1), vocab=vocab,
+        ff=ff, vocab=vocab, experts=experts,
         data_group=(worker_mesh(mesh, dp).get_group()
                     if dp and dp_size(mesh) > 1 else None))
 

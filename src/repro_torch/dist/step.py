@@ -64,8 +64,10 @@ rows, the cache holds the rank's shard of :func:`sharding.cache_specs`
 vocabulary and over the data ranks, the whole batch's on every rank (the
 reference's one controller holds the global array of
 :func:`sharding.logits_spec`).  A batch that the data ranks do not divide
-is zero-padded to a multiple of them, ``ceil(B / D)`` rows a rank, and
-the pad rows' logits are dropped; the reference's jit raises for it
+is zero-padded to a multiple of them, ``ceil(B / D)`` rows a rank, the
+pad rows take no place in a MoE layer's experts (the steps pass the real
+row count as ``rows``), and their logits are dropped; the reference's
+jit raises for it
 (``in_shardings`` must divide), so its serving queue fails on a group of
 3 at ``data = 2`` where the port's serves it.
 """
@@ -393,7 +395,7 @@ def build_prefill(cfg, params, batch_shape: Tuple[int, int], *,
             tokens = _data_rows(torch.as_tensor(batch["tokens"]), mesh)
             out, logits = api.prefill(cfg, params,
                                       {"tokens": tokens.to(dev)},
-                                      cache=cache)
+                                      cache=cache, rows=bsz)
             return out, _all_rows(logits, params, bsz)
         return _maybe_record(prefill, recorder, "prefill", obs)
     if cache is None:
@@ -439,7 +441,8 @@ def build_serve_step(cfg, params, cache: Dict[str, torch.Tensor], *,
             step_tokens = torch.as_tensor(step_tokens)
             tokens = _data_rows(step_tokens, mesh)
             out, logits = api.decode_step(cfg, params, cache,
-                                          tokens.to(dev), length)
+                                          tokens.to(dev), length,
+                                          rows=step_tokens.shape[0])
             return out, _all_rows(logits, params, step_tokens.shape[0])
         return _maybe_record(decode, recorder, "decode", obs)
     tokens = torch.zeros((bsz, 1), dtype=torch.long, device=dev)

@@ -98,8 +98,10 @@ def warm_spmm_plan_cache(cfg, params, obs, *, sparsity: float = 0.9,
 
     Port of the reference's warm-up, on the ``"cuda"`` backend: each
     layer's FFN up-projection ``wi`` (``(d_model, d_ff)``, brought to host
-    fp32 and transposed to ``(d_ff, d_model)`` as the reference does) is
-    magnitude-pruned, its plan tuned or fetched through the persistent
+    fp32 and transposed to ``(d_ff, d_model)`` as the reference does; a
+    model without a dense FFN, the moe family, warms one synthetic
+    ``(4 d_model, d_model)`` standard-normal matrix from seed 0, as the
+    reference's other branch) is magnitude-pruned, its plan tuned or fetched through the persistent
     cache (``$REPRO_TUNE_CACHE``), and one SpMM per layer through the
     kernels B1/B2 validates the plan on ``device`` (default: the
     parameters' device).  Same-shaped layers fingerprint alike, so layer 0
@@ -133,8 +135,13 @@ def warm_spmm_plan_cache(cfg, params, obs, *, sparsity: float = 0.9,
     cache.stats.reset()
     obs.watch_cache(cache, name="serve-warm")
     budget = SearchBudget(top_k=2, repeats=1, warmup=0)
-    weights = [blk.mlp.wi.detach().float().cpu().numpy().T
-               for blk in params.layers]
+    if hasattr(params.layers[0], "mlp"):
+        weights = [blk.mlp.wi.detach().float().cpu().numpy().T
+                   for blk in params.layers]
+    else:   # no dense FFN (the moe family): one synthetic (4d, d) matrix
+        rng = np.random.default_rng(0)
+        d = cfg.d_model
+        weights = [rng.standard_normal((4 * d, d)).astype(np.float32)]
 
     keys = []
     for i, w in enumerate(weights):

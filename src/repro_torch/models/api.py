@@ -13,8 +13,9 @@ Every architecture exposes the same entry points regardless of family:
 
 ``batch`` for ``train_loss``: ``{tokens (B, S), labels (B, S)}`` integer
 tensors (or arrays) with -1 = masked label; ``aux`` is ``{"tokens":
-n_unmasked}``.  The port runs the dense family (:mod:`.transformer`);
-every other family raises ``NotImplementedError`` (ROADMAP A.13).
+n_unmasked}``.  The port runs the dense and moe families
+(:mod:`.transformer`, :mod:`.moe`); every other family raises
+``NotImplementedError`` (ROADMAP A.13).
 """
 from __future__ import annotations
 
@@ -38,13 +39,16 @@ def train_loss(cfg: ModelConfig, params, batch, *, backend=None):
     return _mod(cfg).train_loss(cfg, params, batch, backend=backend)
 
 
-def prefill(cfg: ModelConfig, params, batch, *, backend=None, cache=None):
+def prefill(cfg: ModelConfig, params, batch, *, backend=None, cache=None,
+            rows=None):
     return _mod(cfg).prefill(cfg, params, batch, backend=backend,
-                             cache=cache)
+                             cache=cache, rows=rows)
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens, length):
-    return _mod(cfg).decode_step(cfg, params, cache, tokens, length)
+def decode_step(cfg: ModelConfig, params, cache, tokens, length, *,
+                rows=None):
+    return _mod(cfg).decode_step(cfg, params, cache, tokens, length,
+                                 rows=rows)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,

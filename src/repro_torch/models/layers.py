@@ -1,7 +1,7 @@
-"""Shared neural-net layers of the dense LM path.
+"""Shared neural-net layers of the LM path (the dense and moe families).
 
-Port of the parts of ``repro/models/layers.py`` that the dense family
-uses.  Conventions kept from the reference:
+Port of the parts of ``repro/models/layers.py`` that those families use.
+Conventions kept from the reference:
 
 * weights keep the reference's ``(d_in, d_out)`` layout (``x @ w``), so
   the reference's parameters carry over without a transpose;
@@ -69,10 +69,13 @@ class MeshLayout:
     rank's ``[first, end)`` q heads when ``wq``/``wo`` are split over
     ``model`` (None: whole attention); ``kv_take``: the kv head each of
     them reads when ``wk``/``wv`` stay whole (None: split alike);
-    ``ff``: the MLP's ``d_ff`` is split; ``vocab``: this rank's rows of
-    the embedding table (None: whole).  ``data_group``: the data-parallel
-    axes' group (None for one data rank), over which the loss's token
-    count is summed (the loss is the global batch's mean)."""
+    ``ff``: the MLP's ``d_ff`` is split (a MoE layer's: its shared
+    MLP's); ``experts``: this rank's ``[first, end)`` experts when a MoE
+    layer's expert stacks are split over ``model`` (None: all of them);
+    ``vocab``: this rank's rows of the embedding table (None: whole).
+    ``data_group``: the data-parallel axes' group (None for one data
+    rank), over which the loss's token count is summed (the loss is the
+    global batch's mean) and a MoE layer gathers its tokens."""
 
     mesh: Any
     specs: Mapping
@@ -84,6 +87,7 @@ class MeshLayout:
     ff: bool
     vocab: Optional[Tuple[int, int]]
     data_group: Any
+    experts: Optional[Tuple[int, int]] = None
 
 
 def _all_reduce_f32(x: torch.Tensor, group) -> torch.Tensor:
@@ -141,6 +145,22 @@ def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
         return torch.mm(x, w, out_dtype=F32)
     return torch.mm(x.to(F32), w.to(F32))
+
+
+def _bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` batched (``(E, C, d) @ (E, d, f)``) written out in fp32,
+    as :func:`_mm_f32`: a half-precision batched GEMM on the card hands
+    over its fp32 accumulator (the reference's ``astype(F32)`` einsum:
+    each product of two half values is exact in fp32 and the sums run in
+    fp32), without widening the weights first.  Elsewhere, and where a
+    gradient is to be recorded (``bmm.dtype`` has no derivative), the
+    operands are upcast, as the reference's text does (this CPU build has
+    no ``bmm.dtype`` kernel either)."""
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) \
+            and w.dtype == x.dtype and not grad:
+        return torch.bmm(x, w, out_dtype=F32)
+    return torch.bmm(x.to(F32), w.to(F32))
 
 
 class _PartialF32(torch.autograd.Function):
@@ -377,14 +397,19 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
     return p
 
 
-def mlp_apply(p: MLP, x: torch.Tensor,
-              layout: MeshLayout | None = None) -> torch.Tensor:
-    """swiglu: ``(silu(x wg) * (x wi)) wo``, silu in fp32.  With a
-    ``layout`` whose ``ff`` is split, ``wi``/``wg`` are column shards and
-    ``wo`` a row shard (:func:`row_parallel`)."""
+def mlp_apply(p: MLP, x: torch.Tensor, layout: MeshLayout | None = None,
+              act: str = "swiglu") -> torch.Tensor:
+    """swiglu: ``(silu(x wg) * (x wi)) wo``, silu in fp32; ``act="gelu"``
+    (a MoE layer's shared MLP under a gelu config): ``gelu(x wi) wo``,
+    tanh-approximated gelu in fp32 (the reference's ``jax.nn.gelu``).
+    With a ``layout`` whose ``ff`` is split, ``wi``/``wg`` are column
+    shards and ``wo`` a row shard (:func:`row_parallel`)."""
     split = layout is not None and layout.ff
     if split:
         x = copy_to_model(x, layout)
-    h = F.silu(matmul(x, p.wg).to(F32)).to(x.dtype)
-    h = h * matmul(x, p.wi)
+    if act == "swiglu":
+        h = F.silu(matmul(x, p.wg).to(F32)).to(x.dtype)
+        h = h * matmul(x, p.wi)
+    else:
+        h = F.gelu(matmul(x, p.wi).to(F32), approximate="tanh").to(x.dtype)
     return row_parallel(h, p.wo, layout) if split else matmul(h, p.wo)

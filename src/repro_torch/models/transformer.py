@@ -1,7 +1,8 @@
-"""Decoder-only LM, dense family: parameters, training loss, prefill and
-decode.
+"""Decoder-only LM, dense and moe families: parameters, training loss,
+prefill and decode.
 
-Port of the dense-family parts of ``repro/models/transformer.py``.  Where
+Port of the dense- and moe-family parts of
+``repro/models/transformer.py``.  Where
 the reference scans one stacked-parameter layer body, the port keeps an
 ``nn.Module`` stack: :class:`LM` holds ``embed``, a ``ModuleList`` of
 :class:`Block` s and ``final_norm`` (and ``unembed`` when the embeddings
@@ -41,12 +42,18 @@ PyTorch runs eagerly, so the layer loop is a Python loop.
   logits are gathered along the vocabulary.  The loss is the mean over the
   global batch: the token count is summed over the data axes.
 
-* qk-norm (qwen3-32b): ``q_norm``/``k_norm`` rmsnorm scales over the
-  head dim, applied after the projections and before rope, as the
-  reference's; on a mesh they stay whole on every rank, and where the
-  heads are split over ``model`` their gradients are summed over it.
+* qk-norm (qwen3-32b, qwen3-moe-30b-a3b): ``q_norm``/``k_norm`` rmsnorm
+  scales over the head dim, applied after the projections and before
+  rope, as the reference's; on a mesh they stay whole on every rank, and
+  where the heads are split over ``model`` their gradients are summed
+  over it.
+* The moe family: a block holds ``moe`` (:mod:`.moe`, its experts padded
+  to a multiple of 16 as the reference's ``_layer_init`` pads them) in
+  place of ``mlp``; its router stays fp32 in every constructor here.  On a
+  mesh the experts split over ``model`` (expert parallelism, see
+  :mod:`.moe`).
 
-Families other than dense, and within it sliding-window attention,
+The ssm, hybrid, audio and vlm families, and sliding-window attention,
 activations other than swiglu and frontends, raise
 ``NotImplementedError``: they come with ROADMAP A.13.
 """
@@ -65,7 +72,7 @@ import torch.distributed as dist
 from ..configs.base import ModelConfig
 from ..kernels.engine import resolve_device
 from ..launch.mesh import all_gather_cat
-from . import layers
+from . import layers, moe as moe_lib
 from .layers import F32, MeshLayout
 
 __all__ = ["LM", "Block", "init_params", "train_loss", "chunked_ce",
@@ -78,12 +85,13 @@ LOGIT_CHUNK_ELEMS = 1 << 24
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
-            "port runs the dense family (ROADMAP A.13)")
+            "port runs the dense and moe families (ROADMAP A.13)")
+    acts = ("swiglu", "gelu") if cfg.family == "moe" else ("swiglu",)
     unported = {"sliding_window": bool(cfg.sliding_window),
-                "act": cfg.act != "swiglu",
+                "act": cfg.act not in acts,
                 "frontend": cfg.frontend != "none"}
     for field, hit in unported.items():
         if hit:
@@ -96,8 +104,13 @@ def check_supported(cfg: ModelConfig) -> None:
 # parameters
 # ---------------------------------------------------------------------------
 
+def _experts_padded(cfg: ModelConfig) -> int:
+    return moe_lib.pad_experts(cfg.num_experts, 16)
+
+
 class Block(nn.Module):
-    """One dense layer: ``norm1``, ``attn``, ``norm2``, ``mlp``."""
+    """One layer: ``norm1``, ``attn``, ``norm2``, and ``mlp`` (dense) or
+    ``moe`` (moe)."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -108,7 +121,13 @@ class Block(nn.Module):
         self.attn = layers.Attention(cfg.d_model, cfg.num_heads,
                                      cfg.num_kv_heads, cfg.resolved_head_dim,
                                      cfg.dtype, device, cfg.qk_norm)
-        self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, cfg.dtype, device)
+        if cfg.family == "moe":
+            self.moe = moe_lib.MoE(
+                cfg.d_model, cfg.moe_d_ff, _experts_padded(cfg), cfg.dtype,
+                device, cfg.num_shared_experts,
+                cfg.num_shared_experts * cfg.moe_d_ff)
+        else:
+            self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, cfg.dtype, device)
 
 
 class LM(nn.Module):
@@ -154,8 +173,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
             blk.attn = layers.attention_init(
                 generator, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                 cfg.resolved_head_dim, cfg.dtype, dev, cfg.qk_norm)
-            blk.mlp = layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
-                                      cfg.dtype, dev)
+            if cfg.family == "moe":
+                blk.moe = moe_lib.moe_init(
+                    generator, cfg.d_model, cfg.moe_d_ff, cfg.num_experts,
+                    _experts_padded(cfg), cfg.top_k, cfg.dtype, dev,
+                    cfg.num_shared_experts,
+                    cfg.num_shared_experts * cfg.moe_d_ff)
+            else:
+                blk.mlp = layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                          cfg.dtype, dev)
         shape = (cfg.vocab_padded(), cfg.d_model)
         lm.embed = nn.Parameter(layers.embed_init(generator, *shape,
                                                   cfg.dtype, dev))
@@ -201,7 +227,8 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], *,
     api.init_params(...))``) as the port's :class:`LM`: the stacked
     ``layers`` arrays are split per block; every weight keeps its
     ``(d_in, d_out)`` layout; values are copied (never shared with the
-    caller's arrays) in ``cfg.dtype``."""
+    caller's arrays) in each parameter's own dtype (``cfg.dtype``; a MoE
+    router's fp32)."""
     dev = resolve_device(device)
     lm = LM(cfg, dev)
     with torch.no_grad():
@@ -210,7 +237,7 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], *,
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: reference shape {arr.shape} vs "
                                  f"port shape {tuple(p.shape)}")
-            p.copy_(torch.tensor(arr, dtype=cfg.dtype))
+            p.copy_(torch.tensor(arr, dtype=p.dtype))
     return lm
 
 
@@ -218,13 +245,15 @@ def shard_params(cfg: ModelConfig, full, mesh, *, device=None) -> LM:
     """This rank's :class:`LM` on ``mesh``: its shard of every parameter
     of the full tree ``full`` (the port's own one-device :class:`LM`, on
     any device, or the reference's numpy pytree) by
-    ``dist/sharding.py::param_specs``, copied in ``cfg.dtype`` onto
-    ``device``, and the :class:`MeshLayout` the entry points run it by.  The
+    ``dist/sharding.py::param_specs``, copied in its own dtype
+    (``cfg.dtype``; a MoE router's fp32) onto ``device``, and the
+    :class:`MeshLayout` the entry points run it by.  The
     same full tree gives the same model at every mesh shape."""
     from ..dist import sharding as shr
     dev = resolve_device(device)
     lm = LM(cfg, torch.device("meta"))
     shapes = {name: tuple(p.shape) for name, p in lm.named_parameters()}
+    dtypes = {name: p.dtype for name, p in lm.named_parameters()}
     specs = shr.param_specs(shapes, mesh, cfg)
     shardings = shr.spec_to_sharding(specs, mesh)
     source = (dict(full.named_parameters()) if isinstance(full, nn.Module)
@@ -236,7 +265,8 @@ def shard_params(cfg: ModelConfig, full, mesh, *, device=None) -> LM:
             if tuple(t.shape) != shape:
                 raise ValueError(f"{name}: full shape {tuple(t.shape)} vs "
                                  f"{shape}")
-            local = shardings[name].local(t).to(dev, cfg.dtype, copy=True)
+            local = shardings[name].local(t).to(dev, dtypes[name],
+                                                copy=True)
             module, _, leaf = name.rpartition(".")
             setattr(lm.get_submodule(module) if module else lm, leaf,
                     nn.Parameter(local.contiguous()))
@@ -299,15 +329,25 @@ def _attn_block(cfg: ModelConfig, lp: Block, x, positions, *, mode,
 
 
 def _layer_apply(cfg: ModelConfig, lp: Block, x, positions, *, mode,
-                 cache=None, length=None, backend=None, layout=None):
-    """One block.  Returns (x, (k, v))."""
+                 cache=None, length=None, backend=None, layout=None,
+                 rows=None):
+    """One block.  Returns (x, (k, v)).  ``rows``: as for
+    :func:`prefill`."""
     h = layers.norm_apply(cfg.norm, lp.norm1, x)
     attn_out, kv = _attn_block(cfg, lp, h, positions, mode=mode,
                                cache=cache, length=length, backend=backend,
                                layout=layout)
     x = x + attn_out
     h2 = layers.norm_apply(cfg.norm, lp.norm2, x)
-    x = x + layers.mlp_apply(lp.mlp, h2, layout)
+    if cfg.family == "moe":
+        ffn = moe_lib.moe_apply(lp.moe, h2, num_experts=cfg.num_experts,
+                                top_k=cfg.top_k, act=cfg.act,
+                                capacity_factor=cfg.capacity_factor,
+                                dispatch=cfg.moe_dispatch, layout=layout,
+                                rows=rows)
+    else:
+        ffn = layers.mlp_apply(lp.mlp, h2, layout)
+    x = x + ffn
     return x, kv
 
 
@@ -512,14 +552,17 @@ def train_loss(cfg: ModelConfig, params: LM, batch: Dict[str, Any], *,
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: LM, batch: Dict[str, Any], *,
-            backend: str | None = None, cache=None):
+            backend: str | None = None, cache=None, rows=None):
     """Build the serving cache.  ``batch["tokens"]``: (B, S) token ids.
     Returns (cache, last_token_logits (B, vocab_padded) fp32).
     ``backend="torch"`` runs attention's plain version instead of B5.
     ``cache`` (optional): a cache of :func:`init_cache`'s layout with
     ``max_len >= S`` on the model's device, whose first S positions take
     the k/v (in place) and which is returned in place of a new S-long one;
-    the serving pool's static caches take the prefill this way."""
+    the serving pool's static caches take the prefill this way.
+    ``rows`` (a mesh whose data ranks hold zero pad rows past the global
+    batch's): the global batch's real rows, which alone take places in a
+    MoE layer's experts (None: every row is real)."""
     check_supported(cfg)
     tokens = _tokens(params, batch["tokens"])
     x = _embed_inputs(cfg, params, tokens)
@@ -543,7 +586,8 @@ def prefill(cfg: ModelConfig, params: LM, batch: Dict[str, Any], *,
                     f"x {shape[3:]} {x.dtype} on {x.device}")
     for i, lp in enumerate(params.layers):
         x, (k, v) = _layer_apply(cfg, lp, x, positions, mode="prefill",
-                                 backend=backend, layout=params.layout)
+                                 backend=backend, layout=params.layout,
+                                 rows=rows)
         cache["k"][i, :, :seq] = k
         cache["v"][i, :, :seq] = v
     x = layers.norm_apply(cfg.norm, params.final_norm, x)
@@ -570,7 +614,8 @@ def _position(length, cache, device) -> torch.Tensor:
 
 
 @torch.no_grad()
-def decode_step(cfg: ModelConfig, params: LM, cache, tokens, length):
+def decode_step(cfg: ModelConfig, params: LM, cache, tokens, length, *,
+                rows=None):
     """One serving step: tokens (B, 1) + cache + current length -> logits.
 
     ``length`` is the number of tokens already in the cache: an ``int``
@@ -578,7 +623,8 @@ def decode_step(cfg: ModelConfig, params: LM, cache, tokens, length):
     device (the reference's traced ``int32``; never read on the host, so a
     captured CUDA graph serves every position).  The new token's k/v are
     written at slot ``length`` of ``cache`` in place.  Both forms run the
-    same operations.  Returns (cache, logits (B, vocab_padded) fp32)."""
+    same operations.  ``rows``: as for :func:`prefill`.  Returns (cache,
+    logits (B, vocab_padded) fp32)."""
     check_supported(cfg)
     tokens = _tokens(params, tokens)
     pos = _position(length, cache, tokens.device)
@@ -587,7 +633,7 @@ def decode_step(cfg: ModelConfig, params: LM, cache, tokens, length):
     for i, lp in enumerate(params.layers):
         x, _ = _layer_apply(cfg, lp, x, positions, mode="decode",
                             cache=(cache["k"][i], cache["v"][i]),
-                            length=pos, layout=params.layout)
+                            length=pos, layout=params.layout, rows=rows)
     x = layers.norm_apply(cfg.norm, params.final_norm, x)
     return cache, _logits(cfg, params, x[:, 0])
 

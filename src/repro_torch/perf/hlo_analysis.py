@@ -10,7 +10,8 @@ shapes and dtypes.  :func:`analyze_ops` counts the records, per device
 (:class:`HloStats`):
 
   * ``flops``: ``torch.utils.flop_counter``'s registry (matrix products,
-    convolutions, attention) plus the flop formulas of B1-B5's operators
+    their fp32-out ``out_dtype`` overloads among them, convolutions,
+    attention) plus the flop formulas of B1-B5's operators
     (``kernels/_ops.py``: the flops the data needs, unmasked lanes and a
     causal call's kept pairs), as the reference counts its dots;
   * ``hbm_bytes``: the eager analogue of the reference's post-fusion
@@ -229,8 +230,14 @@ def op_stats(rec: Dict[str, Any]) -> HloStats:
         packet = op._overloadpacket
         if packet in flop_registry:
             shapes = lambda x: _spec_tree(x, lambda s, d: torch.Size(s))
+            fargs, fkw = list(args), dict(kwargs)
+            names = [a.name for a in op._schema.arguments]
+            if "out_dtype" in names:   # mm / bmm's fp32-out overloads
+                fkw.pop("out_dtype", None)
+                i = names.index("out_dtype")
+                fargs = fargs[:i] + fargs[i + 1:]
             st.flops = float(flop_registry[packet](
-                *shapes(args), **{k: shapes(v) for k, v in kwargs.items()},
+                *shapes(fargs), **{k: shapes(v) for k, v in fkw.items()},
                 out_val=shapes(out)))
         if ns == "repro_torch":
             from ..kernels import _ops

@@ -61,7 +61,8 @@ Changes from the reference:
   * Sampling reads only the first ``cfg.vocab_size`` logits of a row, so
     a padded vocabulary id is never returned (llama3.2-1b's vocabulary
     needs no padding, so its streams equal the reference's).
-  * No frontend prefix or stub inputs: the port runs the dense family.
+  * No frontend prefix or stub inputs: the port runs the dense and moe
+    families.
   * **On a mesh, one process a rank.**  The reference is one controller
     over every device; here each rank runs its own process, and ranks
     that scheduled on their own wall clocks (``clock``, ``max_wait_s``)

@@ -14,8 +14,10 @@ tensors (raising by default, degrading once opted in, re-raising during a
 graph capture) and NVML's energy counter around a timed loop, and B1-B5
 through their ``torch.ops.repro_torch`` operators (bits and launches
 against a direct operator call and the plain version; a fake trace on CUDA
-tensors launching nothing).  Every test here needs a CUDA device and skips
-without one.
+tensors launching nothing), and the MoE layer: ``moe_apply`` on the card
+against the CPU, a graphed MoE decode step bit for bit equal to the eager
+one, and ``layers._bmm_f32``'s fp32-out half ``bmm`` against the upcast
+product.  Every test here needs a CUDA device and skips without one.
 
 This file imports neither JAX nor the reference package, so it runs on the
 GPU machine as it is:
@@ -1192,3 +1194,83 @@ def test_cuda_fake_trace_launches_nothing(cuda):
         assert (fake.shape, fake.dtype, fake.stride()) == (
             real.shape, real.dtype, real.stride())
         assert counter.get_total_flops() > 0
+
+
+# -- the moe family (models/moe.py) -----------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dispatch", ["gather", "scatter"])
+def test_cuda_moe_apply_matches_cpu(cuda, dispatch):
+    """``moe_apply`` in fp32 on the card against the same weights and
+    tokens on the CPU (12 experts padded to 16, top 2, 2 shared experts,
+    a capacity that drops assignments): within 1e-5 of max(1, max |cpu|),
+    and the routes equal."""
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = moe.moe_init(torch.Generator().manual_seed(0), 64, 32, 12, 16, 2,
+                       torch.float32, "cpu", 2, 64)
+    card = moe.MoE(64, 32, 16, torch.float32, cuda, 2, 64)
+    with torch.no_grad():
+        card.load_state_dict(cpu.state_dict())
+    x = torch.randn((3, 37, 64), generator=torch.Generator().manual_seed(1))
+    kw = dict(num_experts=12, top_k=2, capacity_factor=0.75,
+              dispatch=dispatch)
+    with torch.no_grad():
+        want = moe.moe_apply(cpu, x, **kw)
+        got = moe.moe_apply(card, x.to(cuda), **kw)
+        _, idx_cpu = moe._route(cpu.router, x.reshape(-1, 64), 12, 2)
+        _, idx_card = moe._route(card.router, x.to(cuda).reshape(-1, 64),
+                                 12, 2)
+    assert torch.equal(idx_card.sort(-1).values.cpu(),
+                       idx_cpu.sort(-1).values)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_cuda_graphed_moe_decode_equals_eager(cuda):
+    """The reduced qwen3-moe config in bf16 on the card: a decode step
+    captured by ``build_serve_step`` (a CUDA graph over its cache) against
+    ``api.decode_step`` on a copy of the same cache after the same
+    prefill: logits and the written cache bit for bit equal, 3 steps."""
+    from repro_torch.configs import REDUCED
+    from repro_torch.dist.step import build_serve_step
+    cfg = REDUCED["qwen3-moe-30b-a3b"]()
+    params = api.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (4, 19)), device=cuda)
+    graphed = api.init_cache(cfg, 4, 24, device=cuda)
+    step = build_serve_step(cfg, params, graphed)     # captured first
+    eager = api.init_cache(cfg, 4, 24, device=cuda)
+    for cache in (graphed, eager):
+        api.prefill(cfg, params, {"tokens": toks[:, :16]}, cache=cache)
+    for i in range(3):
+        _, lg = step(toks[:, 16 + i:17 + i], 16 + i)
+        lg = lg.clone()
+        _, want = api.decode_step(cfg, params, eager, toks[:, 16 + i:17 + i],
+                                  16 + i)
+        torch.cuda.synchronize()
+        assert torch.equal(lg, want), i
+    for name in ("k", "v"):
+        assert torch.equal(graphed[name], eager[name])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname", ["bfloat16", "float16"])
+def test_cuda_bmm_f32_out_dtype_matches_upcast(cuda, dname):
+    """``layers._bmm_f32`` on half operands (``bmm`` with
+    ``out_dtype=float32``) against the fp32 product of the upcast
+    operands: each element within 2 d 2^-24 of |a|·|w| (both sum exact
+    products in fp32, in other orders)."""
+    from repro_torch.models.layers import _bmm_f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dname)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn((16, 40, 512), generator=gen, device=cuda).to(dt)
+    w = torch.randn((16, 512, 96), generator=gen, device=cuda).to(dt)
+    got = _bmm_f32(a, w)
+    want = torch.bmm(a.float(), w.float())
+    bound = torch.bmm(a.float().abs(), w.float().abs())
+    assert got.dtype == torch.float32
+    assert bool(((got - want).abs() <= 2 * 512 * 2.0 ** -24 * bound).all())

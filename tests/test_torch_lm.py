@@ -164,9 +164,9 @@ def test_vocab_padding_never_predicted():
         assert len(r.tokens) == 4 and max(r.tokens) < 250
 
 
-# (qk-norm is ported, so its case became another unported family's; the
-# case ids stay as they were)
-@pytest.mark.parametrize("change", [{"family": "moe"},
+# (qk-norm and the moe family are ported, so their cases became other
+# unported families'; the case ids stay as they were)
+@pytest.mark.parametrize("change", [{"family": "hybrid"},
                                     {"sliding_window": 8},
                                     {"family": "ssm"}, {"act": "gelu"},
                                     {"frontend": "vision_stub"}])
