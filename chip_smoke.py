@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU: the LOOPS
 SpMM paths, its autotuner, the dense LMs' server (llama3.2-1b, on one
 device and on a mesh, and qwen3-32b, granite-34b and internlm2-20b), the
-MoE LMs' server (qwen3-moe-30b-a3b and qwen2-moe-a2.7b) and the
-llama3.2-1b trainer.
+MoE LMs' server (qwen3-moe-30b-a3b and qwen2-moe-a2.7b), the ssm LM's
+server (rwkv6-3b) and the llama3.2-1b trainer.
 
 Run from the repository root, on a machine with an NVIDIA H100:
 
@@ -31,9 +31,12 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  (phase 18's, and theirs on a (1, 2) mesh), the moe
                  family's 32 / 4 and 16 / 16 at phase 20's S of 2048, and
                  the serving shape (4, 2048, 32 heads, 8 kv heads, hd 64),
-                 causal and not, fp32 / bf16 / f16; and each of B1-B5
-                 through its ``torch.ops.repro_torch`` operator
-                 (``kernels/_ops.py``):
+                 causal and not, fp32 / bf16 / f16; wkv6 (the RWKV-6
+                 recurrence) at head size 64 at the serving prefill (4 x
+                 2048, 40 heads, zero start), one decode step from a
+                 state, an odd T and 16 CTAs, its state written in place;
+                 and each of B1-B5 and wkv6 through its
+                 ``torch.ops.repro_torch`` operator (``kernels/_ops.py``):
                  one operator call and one launch a wrapper call, two
                  calls bitwise equal;
   3. main     -- ``plan_and_convert`` -> ``loops_spmm`` at the published
@@ -222,7 +225,10 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  card: the times are the operator's overhead there, not
                  multi-GPU scaling.  A rank that fails, or a phase past
                  ``DIST_TIMEOUT_S``, fails the run.
- 17. train_mesh -- llama3.2-1b trained across a (data 2, model 2) mesh:
+ 17. train_mesh -- llama3.2-1b at full width and its first
+                 ``MESH_LAYERS`` = 4 of 16 layers (the launchers'
+                 ``--layers``; cut in PR 28 for the script's time limit),
+                 trained across a (data 2, model 2) mesh:
                  first the single-device ``build_train_step`` in this
                  process, one step on the global batch (4 x 2048 tokens,
                  bf16, the launcher's seed, data and schedule); then
@@ -238,7 +244,8 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  from the single-device one; the resumed step's loss and
                  gradient norm bit-equal to the uninterrupted run's on every
                  rank; B5 launched on every rank at 16 local heads, 2 x 16 a
-                 step.  Then serving through ``launch/serve.py`` and its
+                 step at that depth.  Then serving through
+                 ``launch/serve.py`` (the same ``--layers``) and its
                  ``ServeQueue``, on one device here (the graphed pool) and
                  with ``--mesh-data`` / ``--mesh-model`` (spawned ranks,
                  rank 0 scheduling, eager steps): at (1, 2) in fp32, 2
@@ -283,26 +290,43 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  ``LM_TOL``, and at most ``MOE_FLIP_LIMIT`` of the routed
                  rows (layer x token) may be ones where the plain path's
                  own top-k picks other experts.
+ 21. serve_ssm -- the ssm family served as phase 18 serves (it runs
+                 before phase 19): rwkv6-3b at full width and depth (32
+                 layers, d 2560, 40 heads of 64, d_ff 8960, vocab 65,536
+                 untied; 3.10B parameters, 6.20 GB), 4 x (2048 + 32)
+                 greedy in bf16 through the graphed pool: init s, prefill
+                 ms, TTFT, decode ms a step against its floor (every
+                 weight and the state read once, the state written once,
+                 at 3.35 TB/s), tokens/s, peak GB, wkv6 once a layer per
+                 prefill replay and per decode step and B1-B5 never, the
+                 streams equal to the eager path's, an eager decode step
+                 and prefill profiled; wkv6 alone at the serving prefill's
+                 shape (its plain loop, its bound; no library call computes
+                 it) and at a decode step's; then its 2 layers in fp32, one
+                 2048-token prompt and 4 decode steps through wkv6 and
+                 through the recurrence's plain loop (``backend="torch"``):
+                 every call's logits at ``LM_TOL``.
  19. dryrun   -- the production-mesh dry-run (``repro_torch.launch.dryrun``)
                  on fake CUDA tensors over a fake process group, in three
                  processes at once: llama3.2-1b's ``train_4k``,
                  ``prefill_32k`` and ``decode_32k`` cells on (16, 16) and
-                 qwen3-32b's and qwen3-moe-30b-a3b's ``decode_32k`` on (2,
-                 16, 16), each ``ok``
+                 qwen3-32b's, qwen3-moe-30b-a3b's and rwkv6-3b's
+                 ``decode_32k`` on (2, 16, 16), each ``ok``
                  with its per-device flops, HBM bytes, collective bytes by
                  kind, memory record, three roofline terms (an H100's
                  published peaks) and trace s; ``benchmarks/spmm_dryrun``
                  at full size (1.4M rows over 256 ranks; the traced CSR and
                  BCSR ranks' flops equal 2 x their lanes x N); and
                  ``benchmarks/compress_bytes`` (int8 >= 3x and bf16 2x fewer
-                 bytes than fp32).  Nothing launches.
+                 bytes than fp32).  Nothing launches (B1-B5 and wkv6
+                 counted).
 
-Each kernel's launch count is set to 0 just before phases 3-18 and 20
+Each kernel's launch count is set to 0 just before phases 3-18, 20 and 21
 drive their path and read just after; a kernel of a path that did not
 launch fails the run, and so does a launch of a kernel that is not on the
-path (B5 in phases 3-7, 13-16, B1-B4 in phases 8, 10, 18 and 20 and in the
-LM runs of phases 12 and 17, B3/B4 in phases 9, 14, 15 and 16, B3-B5 in
-phase 11).
+path (B5 in phases 3-7, 13-16 and 21, B1-B4 in phases 8, 10, 18, 20 and 21
+and in the LM runs of phases 12 and 17, B3/B4 in phases 9, 14, 15 and 16,
+B3-B5 in phase 11, wkv6 in every phase but 21).
 In phase 16 each rank counts its own launches, the forward apart from the backward: in the
 forward a CSR-group rank launches B1 alone and a BCSR-group rank B2 alone,
 once a call; in the backward each launches B1 / B2 once a call for each
@@ -357,8 +381,12 @@ check, max |g_loops - g_dense| <= 1e-4.  Phase 16: the forward against
 the single-device ``loops_spmm`` at the dtype's tolerance of |A|·|B|, dB
 against the flat path's at that of |A|ᵀ·|dY|, as phase 3.  Phase 15: ``loops_spmm`` in fp16
 against the flat path, 1e-3 of max(1, max |flat|) (both accumulate exact
-products in fp32).  TF32 is off, and so are cuBLAS's reduced-precision
-bf16 reductions.
+products in fp32).  wkv6 against its plain loop (phases 2 and 21): each
+element of y and of the final state within ``WKV6_TOL`` = 1e-5 of the same
+recurrence run on magnitudes (|r|, |k|, |v|, w, |u|, |s0|), which bounds
+the fp32 sums' size at every step; the two differ in the order of those
+sums (the kernel adds the bonus term as one scalar a step).
+TF32 is off, and so are cuBLAS's reduced-precision bf16 reductions.
 """
 from __future__ import annotations
 
@@ -410,7 +438,9 @@ LM_ARCH, LM_SEED = "llama3.2-1b", 0
 LM_BATCH, LM_PROMPT, LM_GEN, LM_CHECK_STEPS = 4, 2048, 32, 8
 LM_TOL = 1e-4
 
-# Phase train_mesh: the launcher's arguments (its config), the mesh, the
+# Phase train_mesh: the launcher's arguments (its config at full width,
+# cut to MESH_LAYERS of its 16 layers for the script's time limit since
+# PR 28), the mesh, the
 # global batch, steps and the checkpoint (after step 0: ckpt_1), the
 # tolerances against the single-device step (bf16 activations rounded apart
 # in another order, the tensor-parallel sums in fp32): phase 12's for the
@@ -418,7 +448,8 @@ LM_TOL = 1e-4
 # run measured 2.2e-5, 7.8e-5 and 1.9e-3; the (1, 2) serving check's
 # shapes, and the phase's wall-clock limit (runs took 224-268 s: gloo's
 # host-staged collectives ran up to 3x slower on one machine than another).
-MESH_CLI = ["--arch", LM_ARCH]
+MESH_LAYERS = 4
+MESH_CLI = ["--arch", LM_ARCH, "--layers", str(MESH_LAYERS)]
 MESH_SHAPE, MESH_SEQ, MESH_BATCH = (2, 2), 2048, 4
 MESH_STEPS, MESH_CKPT_AT = 2, 1
 MESH_LOSS_TOL, MESH_GNORM_TOL, MESH_LEAF_TOL = 1e-4, 1e-3, 1e-2
@@ -455,6 +486,21 @@ DENSE_REDUCED = False
 # 18's (DENSE_BATCH, DENSE_PROMPT, DENSE_GEN, DENSE_CHECK_STEPS).
 MOE_ARCH, MOE_CUT = "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"
 MOE_CUT_LAYERS, MOE_CHECK_LAYERS, MOE_FLIP_LIMIT = 4, 2, 0.01
+
+# Phase serve_ssm: rwkv6-3b at full width and depth (32 layers, d 2560, 40
+# heads of 64, d_ff 8960, vocab 65,536 untied; 3.10B parameters, 6.20 GB in
+# bf16), served as phase 18 serves (DENSE_BATCH x (DENSE_PROMPT +
+# DENSE_GEN), greedy, the graphed pool); its SSM_CHECK_LAYERS layers in
+# fp32 (1 x DENSE_PROMPT + DENSE_CHECK_STEPS) through wkv6 against the
+# recurrence's plain loop at LM_TOL.
+SSM_ARCH, SSM_CHECK_LAYERS = "rwkv6-3b", 2
+# wkv6 in phase 2: (B, T, H, non-zero s0) at head size 64, the GPU tests'
+# shapes: the serving prefill (4 x 2048, 40 heads; the kernels line's),
+# one decode step from a state, an odd T, and 16 CTAs on 132 SMs; each
+# element within WKV6_TOL of the same recurrence run on magnitudes.
+WKV6_SHAPES = ((4, 2048, 40, False), (4, 1, 40, True), (2, 37, 40, True),
+               (1, 300, 8, True))
+WKV6_TOL = 1e-5
 
 # B5 in phase 2: (B, S, H, KV, hd); the reference test's three shapes, a
 # ragged S, a (2, 2) mesh rank's training shape and a (1, 2) rank's
@@ -990,6 +1036,7 @@ def phase_kernels() -> dict:
         units=bp.units))
     worst_row = {k: 0.0 for k in FLASH_ROW_TOL}
     ncheck += _flash_checks(worst, worst_row)
+    ncheck += _wkv6_checks(worst)
     ops = _op_checks(fmt, cp, bp, b, dy)
     rec = {"phase": "kernels_vs_plain", "checks": ncheck,
            "most_units_in_one_group": most_units,
@@ -1004,16 +1051,17 @@ def phase_kernels() -> dict:
 
 
 def _op_checks(fmt, cp, bp, b, dy) -> dict:
-    """B1-B5 through their operators (``kernels/_ops.py``), at the timing
-    case (fp32, N 32) and B5 at (2, 256, 8 heads, 2 kv, hd 64) causal in
-    bf16: a wrapper call is one ``torch.ops.repro_torch`` call and one
-    launch, and two calls are bitwise equal.  (Fake calls, which launch
+    """B1-B5 and wkv6 through their operators (``kernels/_ops.py``), at
+    the timing case (fp32, N 32), B5 at (2, 256, 8 heads, 2 kv, hd 64)
+    causal in bf16 and wkv6 at (2, 37, 40 heads, 64) from a state: a
+    wrapper call is one ``torch.ops.repro_torch`` call and one launch, and
+    two calls are bitwise equal.  (Fake calls, which launch
     nothing, and the operators' flop counts are phase 19's and
     ``tests/test_torch_gpu.py``'s.)"""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.kernels import (bcsr_spmm, csr_spmm, flash_attention,
-                                     spmm_sdd)
+                                     spmm_sdd, wkv6)
 
     class Ops(TorchDispatchMode):
         def __init__(self):
@@ -1046,7 +1094,9 @@ def _op_checks(fmt, cp, bp, b, dy) -> dict:
             units=bp.units, live=bp.live),
         "flash_attention": lambda: flash_attention.flash_attention(
             q, k, v, causal=True),
+        "wkv6": lambda: wkv6.wkv6(*rkvw)[0],
     }
+    rkvw = _wkv6_inputs(2, 37, 40, True, seed=8)
     fns = _kernel_fns()
     rec = {}
     for name, call in calls.items():
@@ -1104,6 +1154,60 @@ def _flash_checks(worst, worst_row) -> int:
     return checks
 
 
+def _wkv6_inputs(bsz: int, seq: int, heads: int, nonzero_s0: bool, *,
+                 seed: int = 9):
+    """wkv6's inputs on the card at head size 64: r, k, v ~ N(0, 1), the
+    model's decay w = exp(-exp(N(-2, 1))) (w0 = -2), u ~ N(0, 0.1²), s0 ~
+    N(0, 1) or zeros."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+    r, k, v = (rnd(bsz, seq, heads, 64) for _ in range(3))
+    w = torch.exp(-torch.exp(rnd(bsz, seq, heads, 64) - 2.0))
+    u = 0.1 * rnd(heads, 64)
+    s0 = (rnd(bsz, heads, 64, 64) if nonzero_s0
+          else torch.zeros((bsz, heads, 64, 64), device=DEVICE))
+    return r, k, v, w, u, s0
+
+
+def _wkv6_err(got, want, mag) -> float:
+    """The largest |got - want| over the magnitude recurrence's value."""
+    return float(((got - want).abs() / mag.clamp_min(1e-30)).max())
+
+
+def _wkv6_checks(worst) -> int:
+    """wkv6 against its plain loop at ``WKV6_SHAPES``: y and the final
+    state, each element within ``WKV6_TOL`` of the same recurrence run on
+    magnitudes (|r|, |k|, |v|, w, |u|, |s0|); the state written in place
+    into ``s0`` itself; the zero-state launch (``s0=None``) equal to one
+    from a zero buffer."""
+    import torch
+    from repro_torch.kernels import wkv6
+    checks = 0
+    for bsz, seq, heads, nonzero in WKV6_SHAPES:
+        r, k, v, w, u, s0 = _wkv6_inputs(bsz, seq, heads, nonzero)
+        want_y, want_s = wkv6.wkv6_plain(r, k, v, w, u, s0)
+        mag_y, mag_s = wkv6.wkv6_plain(r.abs(), k.abs(), v.abs(), w,
+                                       u.abs(), s0.abs())
+        state = s0.clone()
+        y, out = wkv6.wkv6(r, k, v, w, u, state, state=state)
+        y0, out0 = wkv6.wkv6(r, k, v, w, u, s0 if nonzero else None)
+        torch.cuda.synchronize()
+        err = max(_wkv6_err(y, want_y, mag_y), _wkv6_err(out, want_s,
+                                                          mag_s))
+        check(out is state and err <= WKV6_TOL and torch.equal(y, y0)
+              and torch.equal(out, out0),
+              f"wkv6 {(bsz, seq, heads, 64)} s0={nonzero}: err {err:.3g} "
+              f"of the magnitude recurrence (limit {WKV6_TOL:g}), repeat "
+              f"equal {torch.equal(y, y0) and torch.equal(out, out0)}")
+        worst["wkv6"] = max(worst["wkv6"], err)
+        checks += 1
+        del r, k, v, w, u, s0, want_y, want_s, mag_y, mag_s, y, y0
+    return checks
+
+
 def _sdd_checks(fmt, cp, bp, b, dt, tol, worst, rng) -> int:
     """B3 and B4 against their plain versions for one operand ``b``: dY in
     b's dtype and, for half b, in fp32 (the training backward's pair); B4
@@ -1155,17 +1259,18 @@ def _sdd_checks(fmt, cp, bp, b, dt, tol, worst, rng) -> int:
 # The kernels of the port's paths: B1 and B2 (product), B3 and B4 (value
 # gradient), B5 (the LM's prefill attention).
 KERNELS = ("csr_panels_spmm", "bcsr_panels_spmm", "csr_sdd_panels",
-           "bcsr_sdd_panels", "flash_attention")
+           "bcsr_sdd_panels", "flash_attention", "wkv6")
 
 
 def _kernel_fns() -> dict:
     from repro_torch.kernels import (bcsr_spmm, csr_spmm, flash_attention,
-                                     spmm_sdd)
+                                     spmm_sdd, wkv6)
     return {"csr_panels_spmm": csr_spmm.csr_panels_spmm,
             "bcsr_panels_spmm": bcsr_spmm.bcsr_panels_spmm,
             "csr_sdd_panels": spmm_sdd.csr_sdd_panels,
             "bcsr_sdd_panels": spmm_sdd.bcsr_sdd_panels,
-            "flash_attention": flash_attention.flash_attention}
+            "flash_attention": flash_attention.flash_attention,
+            "wkv6": wkv6.wkv6}
 
 
 def _reset_counts():
@@ -1212,7 +1317,7 @@ def phase_main(launches: dict) -> list:
             has = {"csr_panels_spmm": plan.r_boundary > 0,
                    "bcsr_panels_spmm": plan.r_boundary < csr.nrows,
                    "csr_sdd_panels": False, "bcsr_sdd_panels": False,
-                   "flash_attention": False}
+                   "flash_attention": False, "wkv6": False}
             for k, v in counts.items():
                 check(v == int(has[k]), f"{mid} {dname}: {k} launched {v} "
                       f"times in one loops_spmm (expected {int(has[k])})")
@@ -1927,7 +2032,8 @@ def phase_train_gcn(launches: dict) -> dict:
     fwd, bwd = _has_parts(fmt), _has_parts(tl.fmt)
     want = {"csr_panels_spmm": 2 * (fwd[0] + bwd[0]) * GCN_TRAIN_STEPS,
             "bcsr_panels_spmm": 2 * (fwd[1] + bwd[1]) * GCN_TRAIN_STEPS,
-            "csr_sdd_panels": 0, "bcsr_sdd_panels": 0, "flash_attention": 0}
+            "csr_sdd_panels": 0, "bcsr_sdd_panels": 0, "flash_attention": 0,
+            "wkv6": 0}
     for k, v in counts.items():
         launches[k] += v
         check(v == want[k], f"train_gcn: {k} launched {v} times in "
@@ -2113,7 +2219,7 @@ def phase_train_ffn(launches: dict) -> list:
                   "bcsr_panels_spmm": (fw[1] + bw[1]) * FFN_STEPS,
                   "csr_sdd_panels": fw[0] * FFN_STEPS,
                   "bcsr_sdd_panels": fw[1] * FFN_STEPS,
-                  "flash_attention": 0}
+                  "flash_attention": 0, "wkv6": 0}
         for k, v in counts.items():
             launches[k] += v
             check(v == want_n[k], f"train_ffn {dname}: {k} launched {v} "
@@ -3161,10 +3267,10 @@ def _release() -> None:
 
 
 def _check_lm_launches(what: str, counts: dict, b5_want: int,
-                       launches: dict) -> None:
+                       launches: dict, wkv6_want: int = 0) -> None:
     for k, v in counts.items():
         launches[k] += v
-        want = b5_want if k == "flash_attention" else 0
+        want = {"flash_attention": b5_want, "wkv6": wkv6_want}.get(k, 0)
         check(v == want, f"{what}: {k} launched {v} times (expected {want})")
 
 
@@ -3562,7 +3668,8 @@ def _example_ffn_width(ex, launches: dict) -> dict:
     counts = _read_counts()
     for k, v in counts.items():
         launches[k] += v
-        check(v > 0, f"train_lm ffn-width: {k} never launched ({counts})")
+        check(v == 0 if k == "wkv6" else v > 0, f"train_lm ffn-width: {k} "
+              f"launched {v} times ({counts})")
     check(all(np.isfinite(losses)), f"train_lm ffn-width: losses {losses}")
     rec = {"config": a, "plan_s": plan_s, "transpose_s": transpose_s,
            "value_grad_checks": checks, "losses": losses,
@@ -3802,7 +3909,7 @@ def phase_fallback(launches: dict) -> dict:
     counts = _read_counts()
     for k, v in counts.items():
         launches[k] += v
-        check(v > 0 if k != "flash_attention" else v == 0,
+        check(v == 0 if k in ("flash_attention", "wkv6") else v > 0,
               f"fallback: {k} launched {v} times")
     rec.update(launches=counts, seconds=time.perf_counter() - t0)
     _release()
@@ -4350,11 +4457,15 @@ def phase_distributed(launches: dict, work_dir) -> dict:
 # ---------------------------------------------------------------------------
 
 def _mesh_cfg(dtype=None):
+    """The launcher's config under ``MESH_CLI``: its first
+    ``MESH_LAYERS`` layers."""
     import dataclasses
 
     from repro_torch.configs import REDUCED, get_config
     cfg = (REDUCED[LM_ARCH]() if "--reduced" in MESH_CLI
            else get_config(LM_ARCH))
+    cfg = dataclasses.replace(cfg, num_layers=min(MESH_LAYERS,
+                                                  cfg.num_layers))
     return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
 
 
@@ -4547,9 +4658,11 @@ def _mesh_serve(work, deadline: float) -> dict:
                   f"train_mesh serving {tag}: rank {r['rank']} launched B5 "
                   f"{r['launches']['flash_attention']} times for {n_pre} "
                   "prefill calls")
-            check(r["local_heads"] == cfg.num_heads // mesh[1],
+            check(r["local_heads"] == cfg.num_heads // mesh[1]
+                  and r["launches"]["wkv6"] == 0,
                   f"train_mesh serving {tag}: rank {r['rank']} ran "
-                  f"{r['local_heads']} heads")
+                  f"{r['local_heads']} heads, launched wkv6 "
+                  f"{r['launches']['wkv6']} times")
         check(rec["completed"] == bsz and all(
             len(t) == gen for t in rec["streams"].values()),
             f"train_mesh serving {tag}: {rec['completed']} of {bsz} "
@@ -4746,7 +4859,9 @@ def _serve_dense_one(cfg, launches: dict, what: str = "serve_dense",
     """``cfg`` served at ``DENSE_BATCH`` x (``DENSE_PROMPT`` +
     ``DENSE_GEN``), greedy, through ``ServeQueue`` and its graphed pool
     (the bucket warmed before traffic): init s, prefill ms, TTFT, decode ms
-    a step, tokens/s and peak GB; B5 once a layer per prefill replay; then,
+    a step, tokens/s and peak GB; B5 once a layer per prefill replay (the
+    ssm family: wkv6 once a layer per prefill replay and decode step, B5
+    never); then,
     the pool freed, the served stream against the eager path's
     (``api.prefill`` / ``api.decode_step`` into a cache of the bucket's
     length, teacher-forced with the served tokens): equal.  ``profile``:
@@ -4787,8 +4902,13 @@ def _serve_dense_one(cfg, launches: dict, what: str = "serve_dense",
     serve_s = time.perf_counter() - t0
     counts = _read_counts()
     n_prefill = queue.sched.counters["prefill_batches"]
-    _check_lm_launches(f"{what} {cfg.name}", counts,
-                       cfg.num_layers * n_prefill, launches)
+    n_decode = queue.sched.counters["decode_steps"]
+    if cfg.family == "ssm":
+        _check_lm_launches(f"{what} {cfg.name}", counts, 0, launches,
+                           cfg.num_layers * (n_prefill + n_decode))
+    else:
+        _check_lm_launches(f"{what} {cfg.name}", counts,
+                           cfg.num_layers * n_prefill, launches)
     served = np.array([r.tokens for r in reqs])
     check(n_prefill == 1 and served.shape == (DENSE_BATCH, DENSE_GEN)
           and 0 <= served.min() and served.max() < cfg.vocab_size,
@@ -4806,6 +4926,8 @@ def _serve_dense_one(cfg, launches: dict, what: str = "serve_dense",
            "ttft_ms": [r.wall_ttft_s * 1e3 for r in reqs],
            "decode_ms_median": statistics.median(decode_ms),
            "decode_ms": decode_ms, "tokens_per_s": served.size / serve_s,
+           "decode_steps": n_decode,
+           "decode_floor_ms": _decode_floor_ms(params, pool),
            "peak_mem_gb": peak_gb,
            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
            "launches": counts}
@@ -4847,10 +4969,25 @@ def _serve_dense_one(cfg, launches: dict, what: str = "serve_dense",
     return rec
 
 
+def _decode_floor_ms(params, pool) -> float:
+    """The least time of a decode step of the pool's model at 3.35 TB/s:
+    every parameter read once and the slot's cache read once, and an ssm
+    state (all of it) written once (a KV cache's write, one position, is
+    left out)."""
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    (bundle,) = pool._bundles.values()
+    cache = bundle.slots[0].cache
+    nbytes = sum(t.numel() * t.element_size() for t in cache.values())
+    return (weights + nbytes * (2 if "s" in cache else 1)) \
+        / HBM_BYTES_PER_S * 1e3
+
+
 def _dense_fp32_check(cfg) -> dict:
     """``cfg`` (fp32) on one ``DENSE_PROMPT`` prompt and
     ``DENSE_CHECK_STEPS`` teacher-forced decode steps, through B5 and
-    through the plain attention path: the logits at ``LM_TOL``."""
+    through the plain attention path: the logits at ``LM_TOL``.  The ssm
+    family runs wkv6 (once a layer per call) against the recurrence's
+    plain loop instead."""
     import numpy as np
     import torch
     from repro_torch.models import api
@@ -4873,18 +5010,24 @@ def _dense_fp32_check(cfg) -> dict:
             _, logits = api.decode_step(
                 cfg, params, cache,
                 toks[:, DENSE_PROMPT + i:DENSE_PROMPT + i + 1],
-                DENSE_PROMPT + i)
+                DENSE_PROMPT + i, backend=backend)
             outs.append(logits)
         return outs
-    n0 = _kernel_fns()["flash_attention"].launches
+    ssm = cfg.family == "ssm"
+    what = f"serve_{'ssm' if ssm else 'dense'} fp32 {cfg.name}"
+    fn = _kernel_fns()["wkv6" if ssm else "flash_attention"]
+    per_layer = 1 + DENSE_CHECK_STEPS if ssm else 1
+    n0 = fn.launches
     kernel = run(None)
-    check(_kernel_fns()["flash_attention"].launches == n0 + cfg.num_layers,
-          f"serve_dense fp32 {cfg.name}: B5 did not launch once a layer")
+    check(fn.launches == n0 + cfg.num_layers * per_layer,
+          f"{what}: {fn.__name__} did not launch once a layer per call")
+    before = _read_counts()
     plain = run("torch")
     torch.cuda.synchronize()
-    errs = [_lm_logits_err(f"serve_dense fp32 {cfg.name} logits step {i}",
-                           g, w) for i, (g, w) in enumerate(zip(kernel,
-                                                                plain))]
+    check(_read_counts() == before, f"{what}: the plain path launched a "
+          "kernel")
+    errs = [_lm_logits_err(f"{what} logits step {i}", g, w)
+            for i, (g, w) in enumerate(zip(kernel, plain))]
     del params, kernel, plain
     _release()
     return {"arch": cfg.name, "layers": cfg.num_layers, "dtype": "float32",
@@ -5039,6 +5182,94 @@ def phase_serve_moe(launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 21: the ssm family, served
+# ---------------------------------------------------------------------------
+
+def wkv6_bound(r, *, zero_s0: bool) -> dict:
+    """Least time of one wkv6 call: r, k, v, w and u read once, the state
+    read once (not from a zero start) and written once, y written once;
+    its 5 flops a state element and step and 5 a head row, at the fp32
+    peak."""
+    bsz, seq, heads, n = r.shape
+    elems = bsz * seq * heads * n
+    state = bsz * heads * n * n
+    nbytes = 4 * (5 * elems + heads * n + state * (1 if zero_s0 else 2))
+    flops = bsz * seq * heads * (5 * n * n + 5 * n)
+    return bound(bytes_moved=float(nbytes), flops=float(flops),
+                 dtype="float32")
+
+
+def _wkv6_timed(bsz: int, seq: int, heads: int, nonzero: bool, *,
+                plain: bool = False) -> dict:
+    """wkv6 on :func:`_wkv6_inputs` (a zero start unless ``nonzero``, the
+    state written into a buffer of its own): its time, its plain loop's
+    when ``plain``, its error against the plain loop and its bound.  No
+    single PyTorch call computes the recurrence (``library_ms`` None)."""
+    import torch
+    from repro_torch.kernels import wkv6
+    r, k, v, w, u, s0 = _wkv6_inputs(bsz, seq, heads, nonzero, seed=10)
+    start = s0 if nonzero else None
+    state = torch.empty_like(s0)
+    y, _ = wkv6.wkv6(r, k, v, w, u, start, state=state)
+    want_y, want_s = wkv6.wkv6_plain(r, k, v, w, u, start)
+    torch.cuda.synchronize()
+    err = max(float((y - want_y).abs().max()),
+              float((state - want_s).abs().max()))
+    rec = {"shape": [bsz, seq, heads, 64], "s0": "state" if nonzero
+           else "zero", "dtype": "float32",
+           "ms": time_ms(lambda: wkv6.wkv6(r, k, v, w, u, start,
+                                           state=state)),
+           "plain_ms": time_ms(lambda: wkv6.wkv6_plain(r, k, v, w, u, start),
+                               samples=3, reps=1, warmup=1)
+           if plain else None,
+           "library_ms": None, "library": None,
+           "max_abs_err": err,
+           "max_abs_plain": float(want_y.abs().max()),
+           **wkv6_bound(r, zero_s0=not nonzero)}
+    rec.update(rate(rec))
+    return rec
+
+
+def phase_serve_ssm(launches: dict) -> dict:
+    """Phase 21 (the module docstring): rwkv6-3b at full width and depth
+    served in bf16 as phase 18 serves (wkv6 once a layer per prefill
+    replay and decode step, the served stream equal to the eager path's),
+    its decode step against the bytes floor; wkv6 alone at the serving
+    prefill's shape and at a decode step's; then ``SSM_CHECK_LAYERS``
+    layers in fp32, wkv6 against the recurrence's plain loop."""
+    import torch
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    n0 = launches["wkv6"]
+    full = _serve_dense_one(_dense_cfg(SSM_ARCH), launches, "serve_ssm",
+                            profile=True)
+    check(full["peak_mem_gb"] < 80, f"serve_ssm {SSM_ARCH}: peak "
+          f"{full['peak_mem_gb']:.1f} GB")
+    n_served = launches["wkv6"] - n0
+    _release()
+    alone = _wkv6_timed(DENSE_BATCH, DENSE_PROMPT, full["d_model"] // 64,
+                        False, plain=True)
+    alone["variants"] = [_wkv6_timed(DENSE_BATCH, 1, full["d_model"] // 64,
+                                     True)]
+    fp32 = _dense_fp32_check(_dense_cfg(SSM_ARCH, SSM_CHECK_LAYERS,
+                                        torch.float32))
+    rec = {"phase": "serve_ssm",
+           "nvidia_smi": RECORD["phases"][0].get("nvidia_smi"),
+           "requests": DENSE_BATCH, "prompt_len": DENSE_PROMPT,
+           "gen_len": DENSE_GEN, "served": [full], "fp32_check": fp32,
+           "wkv6_alone": alone, "wkv6_launches": n_served,
+           "seconds": time.perf_counter() - t0}
+    print(f"serve_ssm {SSM_ARCH}: decode {full['decode_ms_median']:.2f} ms "
+          f"a step against a {full['decode_floor_ms']:.2f} ms floor; wkv6 "
+          f"alone {alone['ms']:.4f} ms (plain {alone['plain_ms']:.1f}, "
+          f"bound {alone['bound_ms']:.4f}), a decode step's "
+          f"{alone['variants'][0]['ms']:.4f} ms; fp32 logits errors "
+          f"{['%.3g' % e for e in fp32['logits_err_rel']]}", flush=True)
+    phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 19: the production-mesh dry-run
 # ---------------------------------------------------------------------------
 
@@ -5047,7 +5278,8 @@ DRYRUN_CELLS = (("llama3.2-1b", "train_4k", "single"),
                 ("llama3.2-1b", "prefill_32k", "single"),
                 ("llama3.2-1b", "decode_32k", "single"),
                 ("qwen3-32b", "decode_32k", "multi"),
-                ("qwen3-moe-30b-a3b", "decode_32k", "multi"))
+                ("qwen3-moe-30b-a3b", "decode_32k", "multi"),
+                ("rwkv6-3b", "decode_32k", "multi"))
 DRYRUN_LIMIT_S = 400
 
 # One job of the dry-run, in a process of its own (the fake process group
@@ -5058,7 +5290,8 @@ _DRYRUN_DRIVER = """
 import json, sys, time
 t0 = time.time()
 from repro_torch.benchmarks import compress_bytes, spmm_dryrun
-from repro_torch.kernels import bcsr_spmm, csr_spmm, flash_attention, spmm_sdd
+from repro_torch.kernels import (bcsr_spmm, csr_spmm, flash_attention,
+                                 spmm_sdd, wkv6)
 from repro_torch.launch import dryrun
 out_dir, job = sys.argv[1], json.loads(sys.argv[2])
 res = {"import_s": time.time() - t0, "lines": []}
@@ -5075,7 +5308,7 @@ if job["suites"]:
 res["launches"] = sum(f.launches for f in (
     csr_spmm.csr_panels_spmm, bcsr_spmm.bcsr_panels_spmm,
     spmm_sdd.csr_sdd_panels, spmm_sdd.bcsr_sdd_panels,
-    flash_attention.flash_attention))
+    flash_attention.flash_attention, wkv6.wkv6))
 print(json.dumps(res))
 """
 
@@ -5186,6 +5419,8 @@ SOURCES = {
                         "src/repro/kernels/spmm_sdd.py:336"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:82"),
+    "wkv6": ("src/repro_torch/csrc/wkv6.cu",
+             "src/repro/models/rwkv6.py:90 _wkv_scan"),
 }
 
 
@@ -5238,13 +5473,14 @@ def main(argv=None) -> int:
         phase_train_mesh(launches, work)
         phase_serve_dense(launches)
         phase_serve_moe(launches)
+        ssm_rec = phase_serve_ssm(launches)
         phase_dryrun(work)
     for k, v in launches.items():
         check(v > 0, f"{k} never launched on the port's paths")
 
     # The kernels line reports B1/B2 at the pwtk (m6) fp32 main-path call,
-    # B3/B4 at the fp32 sparse-FFN backward and B5 at the bf16 serving
-    # shape.
+    # B3/B4 at the fp32 sparse-FFN backward, B5 at the bf16 serving shape
+    # and wkv6 at rwkv6-3b's serving prefill.
     rep = next(r for r in main_recs
                if r["matrix"] == "m6" and r["dtype"] == "float32")
     rep_ffn = next(r for r in ffn_recs if r["dtype"] == "float32")
@@ -5252,6 +5488,8 @@ def main(argv=None) -> int:
     for name, (src, replaces) in SOURCES.items():
         if name == "flash_attention":
             k = lm_rec["b5_alone"]
+        elif name == "wkv6":
+            k = ssm_rec["wkv6_alone"]
         else:
             k = (rep if name.endswith("spmm") else rep_ffn)["kernels"][name]
         line.append({"name": name, "route": "cuda", "source": src,

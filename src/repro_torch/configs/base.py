@@ -5,8 +5,8 @@ Port of ``repro/configs/base.py``: the same fields and defaults, with
 (:class:`ShapeConfig`, :data:`SHAPES`).  Only the architectures whose
 family the port runs are registered (the moe family: qwen3-moe-30b-a3b
 and qwen2-moe-a2.7b; the dense family: qwen3-32b, granite-34b,
-llama3.2-1b and internlm2-20b); the other four come with their families
-(ROADMAP A.13).
+llama3.2-1b and internlm2-20b; the ssm family: rwkv6-3b); the other three
+come with their families (ROADMAP A.13).
 """
 from __future__ import annotations
 

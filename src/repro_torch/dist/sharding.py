@@ -119,7 +119,11 @@ def param_specs(params, mesh, cfg: ModelConfig) -> dict:
     ``(d_in, d_out)``, a MoE layer's expert stacks 3-D ``(E, d_in,
     d_out)``: ``P(m, None, None)`` when ``model`` divides ``E``, its
     shared MLP as the dense MLP, its ``router`` and ``shared_gate``
-    replicated.  Anything unmatched (norm scales) is replicated.  The
+    replicated.  An RWKV block's leaves fall under the same name rules,
+    as the reference's do: the time mix's ``wg`` splits its columns and
+    its ``wo`` its rows, and everything else (``wr``/``wk``/``wv``, the
+    channel mix's ``wk``/``wv``/``wr``, the mixing vectors and adapters)
+    is replicated.  Anything unmatched (norm scales) is replicated.  The
     reference's ``patch_proj`` rule comes with its family (ROADMAP A.13,
     item 7f)."""
     shapes = _shapes(params)
@@ -186,7 +190,9 @@ def cache_specs(cache, mesh, cfg: ModelConfig) -> dict:
     """Decode cache ``{"k", "v"}``, each ``(L, B, S, KV, hd)``: the batch
     on the data axes, and the KV heads on ``model`` when the head count is
     aligned (the rule of ``wk``/``wv``, including the naive ablation: a
-    cache is sharded as the projection that writes it)."""
+    cache is sharded as the projection that writes it).  Any other leaf
+    (the ssm family's state ``{"x_tm", "s", "x_cm"}``) has its batch on
+    the data axes and is whole on ``model``."""
     m = model_axis(mesh)
     d = data_axis(mesh)
     kv_ok = (m is not None and cfg.num_kv_heads
@@ -364,7 +370,7 @@ def model_layout(mesh, cfg: ModelConfig, specs: Mapping, shapes: Mapping):
     parameters (global ``shapes``) are sharded by ``specs``
     (:func:`param_specs`) on ``mesh``: the model and data groups and this
     rank's heads, kv heads, FFN (a MoE layer's: its shared MLP's),
-    experts and vocabulary slices.  A split that would
+    experts, RWKV gate columns and vocabulary slices.  A split that would
     cut a head (``tp_rule="naive"`` on a count that ``model`` does not
     divide) raises ``NotImplementedError``: the eager layers compute whole
     heads on each rank."""
@@ -390,20 +396,25 @@ def model_layout(mesh, cfg: ModelConfig, specs: Mapping, shapes: Mapping):
         return (mrank * per, (mrank + 1) * per)
 
     heads = kv_take = None
-    if split("layers.0.attn.wq", 1):
+    if "layers.0.attn.wq" in specs and split("layers.0.attn.wq", 1):
         heads = heads_of(cfg.num_heads, "wq")
         if split("layers.0.attn.wk", 1):
             heads_of(cfg.num_kv_heads, "wk")
         else:   # each local q head reads its own kv head (GQA h // rep)
             rep = cfg.num_heads // cfg.num_kv_heads
             kv_take = tuple(h // rep for h in range(*heads))
-    experts = None
+    experts = gate = None
     if "layers.0.moe.wi" in specs:
         if split("layers.0.moe.wi", 0):
             per = shapes["layers.0.moe.wi"][0] // msize
             experts = (mrank * per, (mrank + 1) * per)
         ff = ("layers.0.moe.shared.wi" in specs
               and split("layers.0.moe.shared.wi", 1))
+    elif "layers.0.time_mix.wg" in specs:     # the ssm family
+        ff = False
+        if split("layers.0.time_mix.wg", 1):
+            per = shapes["layers.0.time_mix.wg"][1] // msize
+            gate = (mrank * per, (mrank + 1) * per)
     else:
         ff = split("layers.0.mlp.wi", 1)
     vocab = None
@@ -414,7 +425,7 @@ def model_layout(mesh, cfg: ModelConfig, specs: Mapping, shapes: Mapping):
         mesh=mesh, specs=dict(specs), shapes=dict(shapes),
         model_group=mesh.get_group(m) if msize > 1 else None,
         model_rank=mrank, heads=heads, kv_take=kv_take,
-        ff=ff, vocab=vocab, experts=experts,
+        ff=ff, vocab=vocab, experts=experts, gate=gate,
         data_group=(worker_mesh(mesh, dp).get_group()
                     if dp and dp_size(mesh) > 1 else None))
 

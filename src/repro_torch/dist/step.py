@@ -272,11 +272,12 @@ def build_train_step(cfg, params, opt: OptConfig, *, mesh=None,
 
 def _launch_counters() -> Tuple[Callable, ...]:
     """The kernel wrappers whose ``launches`` attribute counts launches:
-    B1, B2, B3, B4 and B5."""
-    from ..kernels import bcsr_spmm, csr_spmm, flash_attention, spmm_sdd
+    B1, B2, B3, B4, B5 and wkv6."""
+    from ..kernels import (bcsr_spmm, csr_spmm, flash_attention, spmm_sdd,
+                           wkv6)
     return (csr_spmm.csr_panels_spmm, bcsr_spmm.bcsr_panels_spmm,
             spmm_sdd.csr_sdd_panels, spmm_sdd.bcsr_sdd_panels,
-            flash_attention.flash_attention)
+            flash_attention.flash_attention, wkv6.wkv6)
 
 
 class _Static:
@@ -348,15 +349,17 @@ def local_cache(cfg, mesh, batch: int, max_len: int, *, dtype=None,
                 device=None) -> Dict[str, torch.Tensor]:
     """This rank's zero shard of a ``(L, batch, max_len, KV, hd)`` decode
     cache under :func:`sharding.cache_specs` (its data rows, ``ceil(batch
-    / D)`` of them; its kv heads when they are split over ``model``)."""
+    / D)`` of them; its kv heads when they are split over ``model``); for
+    the ssm family, of the state ``{"x_tm", "s", "x_cm"}`` (its data rows,
+    whole on ``model``; ``s`` fp32, ``max_len`` unused)."""
     dp = shr.dp_size(mesh)
     rows = -(-batch // dp) * dp
-    shapes = {k: (cfg.num_layers, rows, max_len, cfg.num_kv_heads,
-                  cfg.resolved_head_dim) for k in ("k", "v")}
+    whole = api.init_cache(cfg, rows, max_len, dtype=dtype, device="meta")
+    shapes = {k: tuple(v.shape) for k, v in whole.items()}
     shardings = shr.spec_to_sharding(shr.cache_specs(shapes, mesh, cfg),
                                      mesh)
     return {k: torch.zeros(shardings[k].local_shape(shape),
-                           dtype=dtype or cfg.dtype,
+                           dtype=whole[k].dtype,
                            device=resolve_device(device))
             for k, shape in shapes.items()}
 
@@ -421,23 +424,29 @@ def build_serve_step(cfg, params, cache: Dict[str, torch.Tensor], *,
     against the cache's capacity before anything runs (a ``ValueError``
     past it), then written into the static 0-d position that the step
     reads on the device (:func:`repro_torch.models.transformer.decode_step`),
-    so one graph serves every position.  The step writes the new k/v into
-    ``cache`` in place, as the reference's donated cache.  ``graph_pool``,
+    so one graph serves every position.  A state cache (the ssm family)
+    has no capacity and its step reads no position, as the reference's.
+    The step writes the new k/v (or state) into ``cache`` in place, as the
+    reference's donated cache.  ``graph_pool``,
     ``recorder`` and ``obs`` as for :func:`build_prefill`.  Returns ``fn``.
     With a ``mesh``, ``cache`` is the rank's shard (:func:`local_cache`),
     ``tokens`` the global batch's, and ``fn`` runs eagerly as
     :func:`build_prefill`'s does, its logits the global batch's.
     """
     dev = params.embed.device
-    bsz, capacity = cache["k"].shape[1:3]
+    bsz = next(iter(cache.values())).shape[1]
+    capacity = cache["k"].shape[2] if "k" in cache else None
+
+    def check(length: int) -> None:
+        if capacity is not None and not 0 <= length < capacity:
+            raise ValueError(f"position {length} is past the slot's "
+                             f"{capacity} cache positions")
     if mesh is not None:
         _mesh_of(params, mesh)
 
         def decode(step_tokens, length: int):
             length = int(length)
-            if not 0 <= length < capacity:
-                raise ValueError(f"position {length} is past the cache's "
-                                 f"{capacity} positions")
+            check(length)
             step_tokens = torch.as_tensor(step_tokens)
             tokens = _data_rows(step_tokens, mesh)
             out, logits = api.decode_step(cfg, params, cache,
@@ -452,9 +461,7 @@ def build_serve_step(cfg, params, cache: Dict[str, torch.Tensor], *,
 
     def decode(step_tokens, length: int):
         length = int(length)
-        if not 0 <= length < capacity:
-            raise ValueError(f"position {length} is past the slot's "
-                             f"{capacity} cache positions")
+        check(length)
         tokens.copy_(torch.as_tensor(step_tokens))
         pos.fill_(length)
         return step()

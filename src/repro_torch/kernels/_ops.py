@@ -1,4 +1,5 @@
-"""B1-B5's launches as PyTorch operators, ``torch.ops.repro_torch.*``.
+"""B1-B5's and wkv6's launches as PyTorch operators,
+``torch.ops.repro_torch.*``.
 
 A kernel wrapper checks its inputs and allocates its outputs in Python;
 the launch itself is an operator of the ``repro_torch`` namespace (defined
@@ -12,10 +13,13 @@ by :func:`define`) whose ``CUDA`` kernel makes the ctypes call of
     the flops the data needs, by PERF.md §3's rule (unmasked lanes, which
     the wrappers pass as ``live``; for causal B5 the S(S+1)/2 kept pairs),
     so ``FlopCounterMode`` and :mod:`repro_torch.perf.hlo_analysis` count
-    the kernels' work;
+    the kernels' work (wkv6: the recurrence's arithmetic, 5 flops a state
+    element and step);
   * a byte formula (:data:`BYTES`): each input read once and each output
     written once, the §3 bound's rule.  B1 and B2 write into a buffer
-    they share, so theirs counts the rows the call writes.
+    they share, so theirs counts the rows the call writes; wkv6 updates
+    its state in place (``Tensor(a!)``), read unless it starts from
+    zeros and written once.
 
 The operators are defined with ``torch.library.Library`` (a schema and a
 kernel for the ``CUDA`` key) rather than ``torch.library.custom_op``.
@@ -29,7 +33,8 @@ active: ``FakeTensorMode``, ``FlopCounterMode``, the analyser's
 ``meta`` or subclass tensor), and otherwise calls the operator's own CUDA
 kernel function, the one launch path either way.  Neither has an autograd
 formula: the wrappers are called under the autograd Functions of
-``core/spmm.py`` and ``kernels/flash_attention.py``, as before.
+``core/spmm.py`` and ``kernels/flash_attention.py``, as before (wkv6
+serves only: it has no backward yet).
 """
 from __future__ import annotations
 

@@ -70,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import tempfile
 import time
@@ -80,6 +81,7 @@ import torch.distributed as dist
 
 from ..configs import REDUCED, get_config
 from ..kernels import flash_attention as b5
+from ..kernels import wkv6 as _wkv6
 from ..kernels.engine import resolve_device
 from ..models import api
 from ..resilience.inject import fault_point, install_from_env, note_degraded
@@ -99,7 +101,7 @@ def warm_spmm_plan_cache(cfg, params, obs, *, sparsity: float = 0.9,
     Port of the reference's warm-up, on the ``"cuda"`` backend: each
     layer's FFN up-projection ``wi`` (``(d_model, d_ff)``, brought to host
     fp32 and transposed to ``(d_ff, d_model)`` as the reference does; a
-    model without a dense FFN, the moe family, warms one synthetic
+    model without a dense FFN, the moe and ssm families, warms one synthetic
     ``(4 d_model, d_model)`` standard-normal matrix from seed 0, as the
     reference's other branch) is magnitude-pruned, its plan tuned or fetched through the persistent
     cache (``$REPRO_TUNE_CACHE``), and one SpMM per layer through the
@@ -138,7 +140,8 @@ def warm_spmm_plan_cache(cfg, params, obs, *, sparsity: float = 0.9,
     if hasattr(params.layers[0], "mlp"):
         weights = [blk.mlp.wi.detach().float().cpu().numpy().T
                    for blk in params.layers]
-    else:   # no dense FFN (the moe family): one synthetic (4d, d) matrix
+    else:   # no dense FFN (the moe and ssm families): one synthetic
+        # (4d, d) matrix
         rng = np.random.default_rng(0)
         d = cfg.d_model
         weights = [rng.standard_normal((4 * d, d)).astype(np.float32)]
@@ -175,6 +178,9 @@ def build_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="run the config's first N layers only (full "
+                         "width; a shorter smoke run of a deep model)")
     ap.add_argument("--batch", type=int, default=4,
                     help="number of concurrent requests to submit")
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -238,7 +244,7 @@ def main(argv=None, *, timeout_s: float | None = None):
     :class:`~repro_torch.serve.queue.ServeQueue`; on a mesh, rank 0's
     record (``streams``, ``engine_s``, the scheduler's counters, the
     pool's buckets and slots, and ``per_rank``: every rank's streams, B5
-    launches and peak memory).  ``timeout_s`` limits the ranks this call
+    and wkv6 launches and peak memory).  ``timeout_s`` limits the ranks this call
     spawns: past it every rank is killed and the run fails."""
     args = build_args(argv)
     dev = resolve_device(args.device)
@@ -269,8 +275,9 @@ def main(argv=None, *, timeout_s: float | None = None):
             False
         torch.cuda.reset_peak_memory_stats(dev)
     cfg = REDUCED[args.arch]() if args.reduced else get_config(args.arch)
+    if args.layers is not None and args.layers < cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if args.dtype:
-        import dataclasses
         cfg = dataclasses.replace(cfg, dtype=getattr(torch, args.dtype))
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -302,7 +309,7 @@ def main(argv=None, *, timeout_s: float | None = None):
         max_batch=args.max_batch, min_batch=args.min_batch,
         max_wait_s=args.max_wait_ms / 1e3, policy=args.policy)
 
-    launches0 = b5.flash_attention.launches
+    launches0 = (b5.flash_attention.launches, _wkv6.wkv6.launches)
     engine_ctx = obs.attach_engine() if obs else contextlib.nullcontext()
     with engine_ctx:
         if obs is not None and not args.no_warm_spmm_cache:
@@ -337,15 +344,18 @@ def main(argv=None, *, timeout_s: float | None = None):
                 queue.stop()
         t_total = time.perf_counter() - t0
 
-    launched = b5.flash_attention.launches - launches0
+    launched = b5.flash_attention.launches - launches0[0]
+    launched_wkv6 = _wkv6.wkv6.launches - launches0[1]
     n_tokens = sum(r.tokens_generated for r in done)
     tps = n_tokens / max(t_total, 1e-9)
     record = None
     if mesh is not None:
+        blk = params.layers[0]
         mine = {"rank": rank, "streams": queue.streams,
-                "launches": {"flash_attention": launched},
-                "local_heads": (params.layers[0].attn.wq.shape[1]
-                                // cfg.resolved_head_dim),
+                "launches": {"flash_attention": launched,
+                             "wkv6": launched_wkv6},
+                "local_heads": (blk.attn.wq.shape[1] // cfg.resolved_head_dim
+                                if hasattr(blk, "attn") else None),
                 "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                                 if dev.type == "cuda" else None)}
         per_rank = [None] * world
@@ -378,7 +388,7 @@ def main(argv=None, *, timeout_s: float | None = None):
           f"{counters['decode_steps']} decode steps, "
           f"{counters['rejected']} rejected; pool: {len(queue.pool)} "
           f"buckets, {queue.pool.slots} slots; flash-attention kernel "
-          f"launches: {launched}"
+          f"launches: {launched}, wkv6 launches: {launched_wkv6}"
           + ("" if mesh is None else " on rank 0"))
     if done:
         print("generated token ids (first request):",

@@ -89,8 +89,10 @@ def prefill_batch_specs(cfg: ModelConfig, shape: ShapeConfig, *,
 def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
                        device="cpu", mesh=None):
     """(cache, tokens, length) for one serve step against a cache of
-    ``seq_len`` entries: the whole cache (``init_cache``), or with a
-    ``mesh`` the rank's shard of it (``dist/step.py::local_cache``);
+    ``seq_len`` entries (the ssm family's state, whatever ``seq_len``):
+    the whole cache (``init_cache``), or with a ``mesh`` the rank's shard
+    of it (``dist/step.py::local_cache``; a batch the data ranks do not
+    divide, as ``long_500k``'s 1, padded to a row a data rank);
     ``tokens`` (B, 1) int32; ``length`` the positions already in the
     cache, ``seq_len - 1`` (a host int: the port's step reads it on the
     host, where the reference's is a traced int32)."""

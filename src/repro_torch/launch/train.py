@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import time
 
@@ -84,6 +85,9 @@ def build_args(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-test-scale config of the same family")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="run the config's first N layers only (full "
+                         "width; a shorter smoke run of a deep model)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
@@ -164,6 +168,8 @@ def main(argv=None, *, timeout_s: float | None = None) -> dict:
         obs = Obs(source=args.obs)
         set_active(obs)
     cfg = REDUCED[args.arch]() if args.reduced else get_config(args.arch)
+    if args.layers is not None and args.layers < cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     shape = ShapeConfig("cli_train", args.seq_len, args.global_batch, "train")
     opt_cfg = OptConfig(lr=args.lr, total_steps=args.steps,
                         warmup_steps=max(args.steps // 20, 1))

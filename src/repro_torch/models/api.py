@@ -14,7 +14,8 @@ Every architecture exposes the same entry points regardless of family:
 ``batch`` for ``train_loss``: ``{tokens (B, S), labels (B, S)}`` integer
 tensors (or arrays) with -1 = masked label; ``aux`` is ``{"tokens":
 n_unmasked}``.  The port runs the dense and moe families
-(:mod:`.transformer`, :mod:`.moe`); every other family raises
+(:mod:`.transformer`, :mod:`.moe`) and serves the ssm family
+(:mod:`.rwkv6`, whose ``train_loss`` raises); every other family raises
 ``NotImplementedError`` (ROADMAP A.13).
 """
 from __future__ import annotations
@@ -46,9 +47,9 @@ def prefill(cfg: ModelConfig, params, batch, *, backend=None, cache=None,
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, length, *,
-                rows=None):
+                rows=None, backend=None):
     return _mod(cfg).decode_step(cfg, params, cache, tokens, length,
-                                 rows=rows)
+                                 rows=rows, backend=backend)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,

@@ -1,4 +1,5 @@
-"""Shared neural-net layers of the LM path (the dense and moe families).
+"""Shared neural-net layers of the LM path (the dense, moe and ssm
+families).
 
 Port of the parts of ``repro/models/layers.py`` that those families use.
 Conventions kept from the reference:
@@ -72,8 +73,10 @@ class MeshLayout:
     ``ff``: the MLP's ``d_ff`` is split (a MoE layer's: its shared
     MLP's); ``experts``: this rank's ``[first, end)`` experts when a MoE
     layer's expert stacks are split over ``model`` (None: all of them);
-    ``vocab``: this rank's rows of the embedding table (None: whole).
-    ``data_group``: the data-parallel axes' group (None for one data
+    ``vocab``: this rank's rows of the embedding table (None: whole);
+    ``gate``: this rank's ``[first, end)`` columns of an RWKV time mix's
+    ``wg`` (and rows of its ``wo``) when they are split over ``model``
+    (None: whole).  ``data_group``: the data-parallel axes' group (None for one data
     rank), over which the loss's token count is summed (the loss is the
     global batch's mean) and a MoE layer gathers its tokens."""
 
@@ -88,6 +91,7 @@ class MeshLayout:
     vocab: Optional[Tuple[int, int]]
     data_group: Any
     experts: Optional[Tuple[int, int]] = None
+    gate: Optional[Tuple[int, int]] = None
 
 
 def _all_reduce_f32(x: torch.Tensor, group) -> torch.Tensor:

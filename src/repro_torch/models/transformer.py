@@ -1,7 +1,7 @@
-"""Decoder-only LM, dense and moe families: parameters, training loss,
-prefill and decode.
+"""Decoder-only LM, dense, moe and ssm families: parameters, training
+loss, prefill and decode.
 
-Port of the dense- and moe-family parts of
+Port of the dense-, moe- and ssm-family parts of
 ``repro/models/transformer.py``.  Where
 the reference scans one stacked-parameter layer body, the port keeps an
 ``nn.Module`` stack: :class:`LM` holds ``embed``, a ``ModuleList`` of
@@ -52,9 +52,21 @@ PyTorch runs eagerly, so the layer loop is a Python loop.
   place of ``mlp``; its router stays fp32 in every constructor here.  On a
   mesh the experts split over ``model`` (expert parallelism, see
   :mod:`.moe`).
+* The ssm family (rwkv6-3b), served only: a block holds ``norm1``,
+  ``time_mix``, ``norm2`` and ``channel_mix`` (:mod:`.rwkv6`) and no
+  attention or MLP; its cache is a state, ``{"x_tm" (L, B, d), "s" (L, B,
+  H, N, N) fp32, "x_cm" (L, B, d)}``, the reference's.  :func:`prefill`
+  starts every layer from the zero state and overwrites the cache's
+  layer slices (a reused slot's old state is never read); the recurrence
+  (``kernels/wkv6.py``) writes its final state into ``s`` in place, and
+  :func:`decode_step` continues it there.  ``length`` is not read for
+  this family, as in the reference.  :func:`train_loss` raises: training
+  needs a backward of the recurrence (ROADMAP A.13, item 7c-train).  On a
+  mesh the time mix's ``wg`` / ``wo`` split over ``model`` and the state
+  is whole on every model rank.
 
-The ssm, hybrid, audio and vlm families, and sliding-window attention,
-activations other than swiglu and frontends, raise
+The hybrid, audio and vlm families, and sliding-window attention,
+activations other than swiglu (gelu in a MoE) and frontends, raise
 ``NotImplementedError``: they come with ROADMAP A.13.
 """
 from __future__ import annotations
@@ -72,7 +84,7 @@ import torch.distributed as dist
 from ..configs.base import ModelConfig
 from ..kernels.engine import resolve_device
 from ..launch.mesh import all_gather_cat
-from . import layers, moe as moe_lib
+from . import layers, moe as moe_lib, rwkv6
 from .layers import F32, MeshLayout
 
 __all__ = ["LM", "Block", "init_params", "train_loss", "chunked_ce",
@@ -85,13 +97,14 @@ LOGIT_CHUNK_ELEMS = 1 << 24
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
-            "port runs the dense and moe families (ROADMAP A.13)")
+            "port runs the dense, moe and ssm families (ROADMAP A.13)")
     acts = ("swiglu", "gelu") if cfg.family == "moe" else ("swiglu",)
     unported = {"sliding_window": bool(cfg.sliding_window),
-                "act": cfg.act not in acts,
+                # the ssm family's channel mix is relu², whatever cfg.act
+                "act": cfg.family != "ssm" and cfg.act not in acts,
                 "frontend": cfg.frontend != "none"}
     for field, hit in unported.items():
         if hit:
@@ -110,14 +123,22 @@ def _experts_padded(cfg: ModelConfig) -> int:
 
 class Block(nn.Module):
     """One layer: ``norm1``, ``attn``, ``norm2``, and ``mlp`` (dense) or
-    ``moe`` (moe)."""
+    ``moe`` (moe); the ssm family's ``norm1``, ``time_mix``, ``norm2`` and
+    ``channel_mix``."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         self.norm1 = layers.norm_init(cfg.norm, cfg.d_model, cfg.dtype,
                                       device)
+        if cfg.family == "ssm":
+            self.time_mix = rwkv6.TimeMix(cfg.d_model, cfg.rwkv_heads,
+                                          cfg.dtype, device)
         self.norm2 = layers.norm_init(cfg.norm, cfg.d_model, cfg.dtype,
                                       device)
+        if cfg.family == "ssm":
+            self.channel_mix = rwkv6.ChannelMix(cfg.d_model, cfg.d_ff,
+                                                cfg.dtype, device)
+            return
         self.attn = layers.Attention(cfg.d_model, cfg.num_heads,
                                      cfg.num_kv_heads, cfg.resolved_head_dim,
                                      cfg.dtype, device, cfg.qk_norm)
@@ -170,6 +191,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                                          dev)
             blk.norm2 = layers.norm_init(cfg.norm, cfg.d_model, cfg.dtype,
                                          dev)
+            if cfg.family == "ssm":
+                blk.time_mix = rwkv6.rwkv6_init(
+                    generator, cfg.d_model, cfg.rwkv_heads, cfg.dtype, dev)
+                blk.channel_mix = rwkv6.channel_mix_init(
+                    generator, cfg.d_model, cfg.d_ff, cfg.dtype, dev)
+                continue
             blk.attn = layers.attention_init(
                 generator, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                 cfg.resolved_head_dim, cfg.dtype, dev, cfg.qk_norm)
@@ -331,8 +358,13 @@ def _attn_block(cfg: ModelConfig, lp: Block, x, positions, *, mode,
 def _layer_apply(cfg: ModelConfig, lp: Block, x, positions, *, mode,
                  cache=None, length=None, backend=None, layout=None,
                  rows=None):
-    """One block.  Returns (x, (k, v)).  ``rows``: as for
+    """One block.  Returns (x, (k, v)); for the ssm family (x, cache), its
+    state written into ``cache`` (the layer's ``{"x_tm", "s", "x_cm"}``
+    slices, which a prefill does not read).  ``rows``: as for
     :func:`prefill`."""
+    if cfg.family == "ssm":
+        return _ssm_layer_apply(cfg, lp, x, mode=mode, cache=cache,
+                                backend=backend, layout=layout)
     h = layers.norm_apply(cfg.norm, lp.norm1, x)
     attn_out, kv = _attn_block(cfg, lp, h, positions, mode=mode,
                                cache=cache, length=length, backend=backend,
@@ -349,6 +381,26 @@ def _layer_apply(cfg: ModelConfig, lp: Block, x, positions, *, mode,
         ffn = layers.mlp_apply(lp.mlp, h2, layout)
     x = x + ffn
     return x, kv
+
+
+def _ssm_layer_apply(cfg: ModelConfig, lp: Block, x, *, mode, cache,
+                     backend=None, layout=None):
+    """The reference's ssm block: the time mix and the channel mix, each
+    behind its norm, with residuals.  A prefill starts from the zero state
+    and a decode step from ``cache``'s; either way the new state goes into
+    ``cache`` (the recurrence's S in place)."""
+    fresh = mode != "decode"
+    h, (x_tm, _) = rwkv6.rwkv6_forward(
+        lp.time_mix, layers.norm_apply(cfg.norm, lp.norm1, x),
+        cfg.rwkv_heads, None if fresh else (cache["x_tm"], cache["s"]),
+        out_state=cache["s"], backend=backend, layout=layout)
+    x = x + h
+    h, x_cm = rwkv6.channel_mix(
+        lp.channel_mix, layers.norm_apply(cfg.norm, lp.norm2, x),
+        None if fresh else cache["x_cm"])
+    cache["x_tm"].copy_(x_tm)
+    cache["x_cm"].copy_(x_cm)
+    return x + h, cache
 
 
 # ---------------------------------------------------------------------------
@@ -536,6 +588,11 @@ def train_loss(cfg: ModelConfig, params: LM, batch: Dict[str, Any], *,
     {"tokens": n_tokens}).  ``backend="torch"`` runs attention's plain
     version instead of B5 (forward and recompute)."""
     check_supported(cfg)
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: ssm training needs a backward of the wkv6 "
+            "recurrence, which is not ported yet (ROADMAP A.13, item "
+            "7c-train); the port serves this family only")
     tokens = _tokens(params, batch["tokens"])
     labels = _tokens(params, batch["labels"])
     x = _embed_inputs(cfg, params, tokens)
@@ -559,7 +616,10 @@ def prefill(cfg: ModelConfig, params: LM, batch: Dict[str, Any], *,
     ``cache`` (optional): a cache of :func:`init_cache`'s layout with
     ``max_len >= S`` on the model's device, whose first S positions take
     the k/v (in place) and which is returned in place of a new S-long one;
-    the serving pool's static caches take the prefill this way.
+    the serving pool's static caches take the prefill this way.  For the
+    ssm family ``cache`` is a state cache of the batch (:func:`init_cache`'s
+    layout), whose every layer is overwritten from the zero state, and
+    ``backend="torch"`` runs the recurrence's plain loop instead of wkv6.
     ``rows`` (a mesh whose data ranks hold zero pad rows past the global
     batch's): the global batch's real rows, which alone take places in a
     MoE layer's experts (None: every row is real)."""
@@ -567,6 +627,11 @@ def prefill(cfg: ModelConfig, params: LM, batch: Dict[str, Any], *,
     tokens = _tokens(params, batch["tokens"])
     x = _embed_inputs(cfg, params, tokens)
     bsz, seq = tokens.shape
+    if cfg.family == "ssm":
+        cache = _state_cache(cfg, bsz, x, cache)
+        x = _ssm_stack(cfg, params, x, cache, mode="prefill",
+                       backend=backend)
+        return cache, _logits(cfg, params, x[:, -1])
     positions = torch.arange(seq, device=tokens.device)[None, :]
     hd = cfg.resolved_head_dim
     shape = (cfg.num_layers, bsz, seq, params.layers[0].attn.wk.shape[1]
@@ -594,6 +659,46 @@ def prefill(cfg: ModelConfig, params: LM, batch: Dict[str, Any], *,
     return cache, _logits(cfg, params, x[:, -1])
 
 
+def _state_shapes(cfg: ModelConfig, batch: int) -> Dict[str, tuple]:
+    """The ssm family's cache shapes (the reference's ``init_cache``)."""
+    n = cfg.rwkv_head_dim
+    return {"x_tm": (cfg.num_layers, batch, cfg.d_model),
+            "s": (cfg.num_layers, batch, cfg.rwkv_heads, n, n),
+            "x_cm": (cfg.num_layers, batch, cfg.d_model)}
+
+
+def _state_cache(cfg: ModelConfig, bsz: int, x: torch.Tensor, cache):
+    """A prefill's state cache: ``cache`` checked against the batch, or a
+    new one (its contents are never read: the prefill overwrites every
+    layer's state)."""
+    shapes = _state_shapes(cfg, bsz)
+    if cache is None:
+        return {name: torch.empty(shape, dtype=F32 if name == "s"
+                                  else x.dtype, device=x.device)
+                for name, shape in shapes.items()}
+    for name, shape in shapes.items():
+        c = cache[name]
+        dtype = F32 if name == "s" else x.dtype
+        if (tuple(c.shape) != shape or c.dtype != dtype
+                or c.device != x.device or not c.is_contiguous()):
+            raise ValueError(
+                f"cache[{name!r}] is {tuple(c.shape)} {c.dtype} on "
+                f"{c.device}; the prefill needs a contiguous {shape} "
+                f"{dtype} on {x.device}")
+    return cache
+
+
+def _ssm_stack(cfg: ModelConfig, params: LM, x, cache, *, mode,
+               backend=None) -> torch.Tensor:
+    """The ssm family's layer loop over a state cache (each layer's
+    slices, views written in place) and the final norm."""
+    for i, lp in enumerate(params.layers):
+        x, _ = _layer_apply(cfg, lp, x, None, mode=mode,
+                            cache={name: t[i] for name, t in cache.items()},
+                            backend=backend, layout=params.layout)
+    return layers.norm_apply(cfg.norm, params.final_norm, x)
+
+
 def _position(length, cache, device) -> torch.Tensor:
     """``decode_step``'s ``length`` as a 0-d int64 tensor on ``device``.
     An ``int`` is checked against the cache's slots on the host; a 0-d
@@ -615,7 +720,7 @@ def _position(length, cache, device) -> torch.Tensor:
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: LM, cache, tokens, length, *,
-                rows=None):
+                rows=None, backend: str | None = None):
     """One serving step: tokens (B, 1) + cache + current length -> logits.
 
     ``length`` is the number of tokens already in the cache: an ``int``
@@ -623,10 +728,19 @@ def decode_step(cfg: ModelConfig, params: LM, cache, tokens, length, *,
     device (the reference's traced ``int32``; never read on the host, so a
     captured CUDA graph serves every position).  The new token's k/v are
     written at slot ``length`` of ``cache`` in place.  Both forms run the
-    same operations.  ``rows``: as for :func:`prefill`.  Returns (cache,
-    logits (B, vocab_padded) fp32)."""
+    same operations.  ``rows``: as for :func:`prefill`.  The ssm family
+    reads no ``length``: its state (updated in place) carries the
+    position, and ``backend="torch"`` runs its recurrence's plain loop
+    (attention's decode is plain PyTorch in every family).  Returns
+    (cache, logits (B, vocab_padded) fp32)."""
     check_supported(cfg)
     tokens = _tokens(params, tokens)
+    if cfg.family == "ssm":     # the state carries the position
+        x = _embed_inputs(cfg, params, tokens)
+        _state_cache(cfg, tokens.shape[0], x, cache)
+        x = _ssm_stack(cfg, params, x, cache, mode="decode",
+                       backend=backend)
+        return cache, _logits(cfg, params, x[:, 0])
     pos = _position(length, cache, tokens.device)
     x = _embed_inputs(cfg, params, tokens)
     positions = pos.reshape(1, 1)
@@ -641,10 +755,15 @@ def decode_step(cfg: ModelConfig, params: LM, cache, tokens, length, *,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                device=None) -> Dict[str, torch.Tensor]:
     """Allocate the decode cache: ``{"k", "v"}`` each
-    ``(L, batch, max_len, KV, hd)`` zeros."""
+    ``(L, batch, max_len, KV, hd)`` zeros; for the ssm family the state
+    ``{"x_tm", "s", "x_cm"}`` in zeros (``max_len`` unused; ``s`` fp32)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
+    if cfg.family == "ssm":
+        return {name: torch.zeros(shape, dtype=F32 if name == "s" else dtype,
+                                  device=dev)
+                for name, shape in _state_shapes(cfg, batch).items()}
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),

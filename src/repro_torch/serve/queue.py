@@ -41,9 +41,9 @@ Changes from the reference:
   * **Decode slots.**  The reference passes a group's cache to its jitted
     step as an argument; a captured graph bakes in the cache's address.
     With ``max_in_flight=2`` two groups of one bucket can be in flight at
-    once, so a bucket holds slots: one static KV cache at ``max_len``
-    (allocated outside the graph pool) and the prefill and decode graphs
-    captured over it.  A group takes a free slot (or a new one) for its
+    once, so a bucket holds slots: one static cache (KV at ``max_len``, or
+    an ssm state; allocated outside the graph pool) and the prefill and
+    decode graphs captured over it.  A group takes a free slot (or a new one) for its
     prefill and gives it back when it is done.  The slot's cache is the
     group's only cache: the prefill writes its first ``prompt_len``
     positions, so nothing is padded or copied.  (Copying each group's
@@ -61,8 +61,11 @@ Changes from the reference:
   * Sampling reads only the first ``cfg.vocab_size`` logits of a row, so
     a padded vocabulary id is never returned (llama3.2-1b's vocabulary
     needs no padding, so its streams equal the reference's).
-  * No frontend prefix or stub inputs: the port runs the dense and moe
-    families.
+  * No frontend prefix or stub inputs: the port runs the dense, moe and
+    ssm families.  An ssm slot's cache is its state (``{"x_tm", "s",
+    "x_cm"}``, one of the bucket's batch): the prefill overwrites it from
+    the zero state and each decode step continues it in place, so a slot
+    is reused as a KV slot is.
   * **On a mesh, one process a rank.**  The reference is one controller
     over every device; here each rank runs its own process, and ranks
     that scheduled on their own wall clocks (``clock``, ``max_wait_s``)
@@ -129,8 +132,10 @@ DEFAULT_LEN_QUANTUM = 8
 def pad_cache(cfg, cache: Dict[str, torch.Tensor],
               max_len: int) -> Dict[str, torch.Tensor]:
     """Grow the prefill cache's sequence axis to ``max_len`` (headroom for
-    decode) with zeros.  (The reference also caps a sliding-window cache at
-    its window; the port runs no windowed model.)"""
+    decode) with zeros.  State caches (the ssm family's ``{"x_tm", "s",
+    "x_cm"}``) are already final-size and pass as they are.  (The
+    reference also caps a sliding-window cache at its window; the port
+    runs no windowed model.)"""
     out = {}
     for name, x in cache.items():
         if name in ("k", "v") and x.ndim == 5 and x.shape[2] < max_len:

@@ -109,9 +109,9 @@ def carried():
 # ---------------------------------------------------------------------------
 
 def test_registry_holds_the_dense_four_in_the_reference_order():
-    """The dense four, and with them the moe family's two (ported since),
-    in the reference's order."""
-    ported = ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b") + DENSE
+    """The dense four, and with them the moe family's two and the ssm
+    family's rwkv6-3b (ported since), in the reference's order."""
+    ported = ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b") + DENSE + ("rwkv6-3b",)
     assert ALL_ARCHS == tuple(a for a in REF_ARCHS if a in ported) == ported
     assert tuple(a for a in ALL_ARCHS if a in DENSE) == DENSE
     assert set(REDUCED) == set(ported)
@@ -312,7 +312,7 @@ def test_check_supported_takes_qk_norm_and_rejects_other_families():
     lm = api.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert torch.equal(lm.layers[0].attn.q_norm.scale,
                        torch.ones(cfg.resolved_head_dim, dtype=cfg.dtype))
-    for family in ("ssm", "hybrid", "audio", "vlm"):
+    for family in ("hybrid", "audio", "vlm"):     # (ssm is ported)
         with pytest.raises(NotImplementedError, match="A.13"):
             transformer.check_supported(dataclasses.replace(cfg,
                                                             family=family))

@@ -65,8 +65,10 @@ def _subprocess(code: str, devices: int) -> dict:
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_applicable_shapes_match_reference(arch):
-    assert applicable_shapes(get_config(arch)) == ref_applicable(
-        ref_config(arch)) == ("train_4k", "prefill_32k", "decode_32k")
+    want = ref_applicable(ref_config(arch))
+    assert applicable_shapes(get_config(arch)) == want
+    assert want == ("train_4k", "prefill_32k", "decode_32k") + (
+        ("long_500k",) if ref_config(arch).subquadratic else ())
 
 
 def test_production_meshes_match_reference():

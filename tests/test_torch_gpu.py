@@ -17,7 +17,12 @@ against a direct operator call and the plain version; a fake trace on CUDA
 tensors launching nothing), and the MoE layer: ``moe_apply`` on the card
 against the CPU, a graphed MoE decode step bit for bit equal to the eager
 one, and ``layers._bmm_f32``'s fp32-out half ``bmm`` against the upcast
-product.  Every test here needs a CUDA device and skips without one.
+product; and the ssm family: the ``wkv6`` kernel against its plain time
+loop (at the serving shape, at T = 1 from a non-zero state, at an odd T
+and with fewer CTAs than SMs), its refused head sizes, a graphed rwkv
+decode step bit for bit equal to the eager one, and a reused pool slot's
+second group equal to a fresh slot's.  Every test here needs a CUDA
+device and skips without one.
 
 This file imports neither JAX nor the reference package, so it runs on the
 GPU machine as it is:
@@ -37,7 +42,7 @@ from repro_torch.core import formats as tf
 from repro_torch.core import spmm as tspmm
 from repro_torch.core import suite as tsuite
 from repro_torch.configs import get_config
-from repro_torch.kernels import bcsr_spmm, csr_spmm, spmm_sdd
+from repro_torch.kernels import bcsr_spmm, csr_spmm, spmm_sdd, wkv6
 from repro_torch.kernels import flash_attention as b5
 from repro_torch.models import GCN, api, gcn_params_from_numpy
 
@@ -1076,6 +1081,7 @@ def _op_case(cuda):
     q = torch.randn((2, 256, 8, 64), device=cuda).to(torch.bfloat16)
     k = torch.randn((2, 256, 2, 64), device=cuda).to(torch.bfloat16)
     v = torch.randn((2, 256, 2, 64), device=cuda).to(torch.bfloat16)
+    rkvw = _wkv6_inputs(cuda, 2, 37, 6, 64, nonzero_s0=True)
     nb = fmt.bcsr_part.nblocks
     ops = torch.ops.repro_torch
 
@@ -1133,11 +1139,15 @@ def _op_case(cuda):
             lambda: b5.flash_attention(q, k, v, causal=True),
             lambda: ops.flash_attention(q, k, v, True, False)[0],
             lambda: b5.flash_attention_plain(q, k, v, causal=True)),
+        "wkv6": (
+            lambda: wkv6.wkv6(*rkvw)[0],
+            lambda: ops.wkv6(*rkvw[:5], rkvw[5].clone(), False),
+            lambda: wkv6.wkv6_plain(*rkvw)[0]),
     }
 
 
 _OP_NAMES = ["csr_panels_spmm", "bcsr_panels_spmm", "csr_sdd_panels",
-             "bcsr_sdd_panels", "flash_attention"]
+             "bcsr_sdd_panels", "flash_attention", "wkv6"]
 
 
 def _launch_counter(name):
@@ -1145,7 +1155,8 @@ def _launch_counter(name):
             "bcsr_panels_spmm": bcsr_spmm.bcsr_panels_spmm,
             "csr_sdd_panels": spmm_sdd.csr_sdd_panels,
             "bcsr_sdd_panels": spmm_sdd.bcsr_sdd_panels,
-            "flash_attention": b5.flash_attention}[name]
+            "flash_attention": b5.flash_attention,
+            "wkv6": wkv6.wkv6}[name]
 
 
 @pytest.mark.gpu
@@ -1274,3 +1285,130 @@ def test_cuda_bmm_f32_out_dtype_matches_upcast(cuda, dname):
     bound = torch.bmm(a.float().abs(), w.float().abs())
     assert got.dtype == torch.float32
     assert bool(((got - want).abs() <= 2 * 512 * 2.0 ** -24 * bound).all())
+
+
+# -- the ssm family (kernels/wkv6.py, models/rwkv6.py) ----------------------
+
+def _wkv6_inputs(dev, B, T, H, N, *, nonzero_s0, seed=0):
+    """r, k, v ~ N(0, 1); w = exp(-exp(N(-2, 1))) as the model's decay
+    (w0 = -2); u ~ N(0, 0.1²); s0 ~ N(0, 1) or zeros."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    r, k, v = rnd(B, T, H, N), rnd(B, T, H, N), rnd(B, T, H, N)
+    w = torch.exp(-torch.exp(rnd(B, T, H, N) - 2.0))
+    u = 0.1 * rnd(H, N)
+    s0 = rnd(B, H, N, N) if nonzero_s0 else torch.zeros((B, H, N, N),
+                                                           device=dev)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,nonzero_s0", [
+    (4, 2048, 40, False), (4, 1, 40, True), (2, 37, 40, True),
+    (1, 300, 8, True)], ids=["serving", "T1_s0", "odd_T", "few_ctas"])
+def test_cuda_wkv6_matches_plain(cuda, B, T, H, nonzero_s0):
+    """The kernel against ``wkv6_plain`` at head size 64: y and the final
+    state, each element within 1e-5 of the same recurrence run on the
+    magnitudes (|r|, |k|, |v|, w, |u|, |s0|), which bounds the sums' size
+    at every step; the state written in place into ``s0`` itself, one
+    launch a call, two calls bitwise equal.  ``few_ctas`` runs 16 CTAs on
+    132 SMs."""
+    r, k, v, w, u, s0 = _wkv6_inputs(cuda, B, T, H, 64,
+                                     nonzero_s0=nonzero_s0)
+    want_y, want_s = wkv6.wkv6_plain(r, k, v, w, u, s0)
+    mag_y, mag_s = wkv6.wkv6_plain(r.abs(), k.abs(), v.abs(), w, u.abs(),
+                                   s0.abs())
+    before = wkv6.wkv6.launches
+    state = s0.clone()
+    y, out = wkv6.wkv6(r, k, v, w, u, state, state=state)
+    y2, out2 = wkv6.wkv6(r, k, v, w, u, s0 if nonzero_s0 else None)
+    torch.cuda.synchronize()
+    assert wkv6.wkv6.launches == before + 2
+    assert out is state and torch.equal(y, y2) and torch.equal(out, out2)
+    assert bool(((y - want_y).abs() <= 1e-5 * mag_y + 1e-30).all())
+    assert bool(((out - want_s).abs() <= 1e-5 * mag_s + 1e-30).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [16, 32, 128])
+def test_cuda_wkv6_refuses_other_head_sizes(cuda, n):
+    r = torch.zeros((1, 4, 2, n), device=cuda)
+    with pytest.raises(NotImplementedError, match=f"head size {n}"):
+        wkv6.wkv6(r, r, r, r, torch.zeros((2, n), device=cuda))
+
+
+def _rwkv_cfg():
+    """The reduced rwkv6 at the kernel's head size: d 128, 2 heads of 64."""
+    from repro_torch.configs import REDUCED
+    return dataclasses.replace(REDUCED["rwkv6-3b"](), d_model=128,
+                               rwkv_head_dim=64, d_ff=256)
+
+
+@pytest.mark.gpu
+def test_cuda_graphed_rwkv_decode_equals_eager(cuda):
+    """The rwkv6 config above in bf16 on the card: its prefill and decode
+    step captured by ``build_prefill`` / ``build_serve_step`` (CUDA graphs
+    over one state cache) against ``api.prefill`` / ``api.decode_step`` on
+    a second cache: logits and the state bit for bit equal over 3 steps,
+    and wkv6 counted once a layer per replay."""
+    from repro_torch.dist.step import build_prefill, build_serve_step
+    cfg = _rwkv_cfg()
+    params = api.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (4, 19)), device=cuda)
+    graphed = api.init_cache(cfg, 4, 24, device=cuda)
+    prefill = build_prefill(cfg, params, (4, 16), cache=graphed)
+    step = build_serve_step(cfg, params, graphed)
+    eager = api.init_cache(cfg, 4, 24, device=cuda)
+    n0 = wkv6.wkv6.launches
+    _, lg = prefill({"tokens": toks[:, :16]})
+    lg = lg.clone()
+    assert wkv6.wkv6.launches == n0 + cfg.num_layers
+    _, want = api.prefill(cfg, params, {"tokens": toks[:, :16]}, cache=eager)
+    torch.cuda.synchronize()
+    assert torch.equal(lg, want)
+    for i in range(3):
+        _, lg = step(toks[:, 16 + i:17 + i], 16 + i)
+        lg = lg.clone()
+        _, want = api.decode_step(cfg, params, eager, toks[:, 16 + i:17 + i],
+                                  16 + i)
+        torch.cuda.synchronize()
+        assert torch.equal(lg, want), i
+    for name in ("x_tm", "s", "x_cm"):
+        assert torch.equal(graphed[name], eager[name]), name
+
+
+@pytest.mark.gpu
+def test_cuda_reused_slot_equals_a_fresh_slot(cuda):
+    """Two groups of one bucket through the graphed pool, one after the
+    other: the second reuses the first's slot (one slot built), and its
+    logits rows and tokens equal those the same request gets from a fresh
+    pool, bit for bit."""
+    from repro_torch.serve.queue import ServeQueue
+    from repro_torch.serve.scheduler import SchedulerConfig
+    cfg = _rwkv_cfg()
+    params = api.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, 16).tolist()
+               for _ in range(2)]
+    kw = dict(max_in_flight=1, max_batch=1, min_batch=1, max_wait_s=0.0)
+
+    def serve(which):
+        q = ServeQueue(cfg, params, record_logits=True,
+                       config=SchedulerConfig(**kw))
+        reqs = [q.submit(prompts[i], 6, now=0.0, rid=i) for i in which]
+        t = 0.0
+        while q.pending and q.step(now=t):
+            t += 1.0
+        return q, reqs
+    both, reqs = serve([0, 1])
+    assert both.pool.graphed and both.pool.slots == 1
+    assert both.sched.counters["prefill_batches"] == 2
+    fresh, alone = serve([1])
+    assert reqs[1].tokens == alone[0].tokens
+    for a, b in zip(both.logits_log[1], fresh.logits_log[1]):
+        np.testing.assert_array_equal(a, b)

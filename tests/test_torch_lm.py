@@ -164,11 +164,11 @@ def test_vocab_padding_never_predicted():
         assert len(r.tokens) == 4 and max(r.tokens) < 250
 
 
-# (qk-norm and the moe family are ported, so their cases became other
-# unported families'; the case ids stay as they were)
+# (qk-norm and the moe and ssm families are ported, so their cases became
+# other unported families'; the case ids stay as they were)
 @pytest.mark.parametrize("change", [{"family": "hybrid"},
                                     {"sliding_window": 8},
-                                    {"family": "ssm"}, {"act": "gelu"},
+                                    {"family": "audio"}, {"act": "gelu"},
                                     {"frontend": "vision_stub"}])
 def test_unported_variants_raise(change):
     cfg = dataclasses.replace(REDUCED[ARCH](), **change)
