@@ -3,7 +3,7 @@
 SpMM paths, its autotuner, the dense LMs' server (llama3.2-1b, on one
 device and on a mesh, and qwen3-32b, granite-34b and internlm2-20b), the
 MoE LMs' server (qwen3-moe-30b-a3b and qwen2-moe-a2.7b), the ssm LM's
-server (rwkv6-3b) and the llama3.2-1b trainer.
+server and trainer (rwkv6-3b) and the llama3.2-1b trainer.
 
 Run from the repository root, on a machine with an NVIDIA H100:
 
@@ -31,14 +31,25 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  (phase 18's, and theirs on a (1, 2) mesh), the moe
                  family's 32 / 4 and 16 / 16 at phase 20's S of 2048, and
                  the serving shape (4, 2048, 32 heads, 8 kv heads, hd 64),
-                 causal and not, fp32 / bf16 / f16; wkv6 (the RWKV-6
-                 recurrence) at head size 64 at the serving prefill (4 x
-                 2048, 40 heads, zero start), one decode step from a
+                 causal and not, fp32 / bf16 / f16; B5 at the reference
+                 attention's contract (``FLASH_CONTRACT``, bf16 and fp32,
+                 with its lse): hymba-1.5b's 25 heads on 5 at S 4096 with
+                 windows 2048, 16 and 100, a prefix offset (Sq 512 on Sk
+                 2560), whisper-small's non-causal cross-attention (448 on
+                 1500), phi-3-vision's hd 96 and causal Sk < Sq (rows no
+                 key may see), each timed in bf16 beside SDPA where SDPA
+                 computes the same function (an explicit mask for a window
+                 or an offset) and the bound of the kept pairs; wkv6 (the
+                 RWKV-6 recurrence) at head size 64 at the serving prefill
+                 (4 x 2048, 40 heads, zero start), one decode step from a
                  state, an odd T and 16 CTAs, its state written in place;
-                 and each of B1-B5 and wkv6 through its
-                 ``torch.ops.repro_torch`` operator (``kernels/_ops.py``):
-                 one operator call and one launch a wrapper call, two
-                 calls bitwise equal;
+                 wkv6_bwd (its backward) at the training shape (4 x 2048,
+                 40 heads, from zero) and at an odd T from a state with a
+                 final-state cotangent, from the forward kernel's
+                 snapshots, two calls bitwise equal; and each of B1-B5,
+                 wkv6 and wkv6_bwd through its ``torch.ops.repro_torch``
+                 operator (``kernels/_ops.py``): one operator call and one
+                 launch a wrapper call, two calls bitwise equal;
   3. main     -- ``plan_and_convert`` -> ``loops_spmm`` at the published
                  sizes of pwtk (m6, 200k rows) and in-2004 (m4, 1.4M rows),
                  N=32, checked against the flat PyTorch path on the card
@@ -161,7 +172,8 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  bf16, 8 sequences of 2048 tokens in 2 microbatches, 4
                  steps with a checkpoint after step 2, then ``--resume``
                  from that checkpoint for steps 3-4 (bit for bit equal to
-                 the uninterrupted run), step 0's loss and every gradient
+                 the uninterrupted run; no final checkpoint in either
+                 run), step 0's loss and every gradient
                  leaf through B5 against a plain reference (autograd
                  through the plain attention and a full-logit
                  cross-entropy), with two planted faults that must fail
@@ -306,6 +318,29 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  2048-token prompt and 4 decode steps through wkv6 and
                  through the recurrence's plain loop (``backend="torch"``):
                  every call's logits at ``LM_TOL``.
+ 22. train_ssm -- the ssm family trained (it runs before phase 19):
+                 wkv6_bwd alone at the training microbatch (4 x 2048, 40
+                 heads of 64; its time, its plain version's, its bound;
+                 no library call computes it) beside the forward with and
+                 without snapshots; step 0 of rwkv6-3b at full width and 2
+                 layers in fp32 on 1 x 512 tokens through wkv6 / wkv6_bwd
+                 against ``backend="torch"`` (the recurrence's plain loop,
+                 differentiated by autograd): loss, gradient norm and
+                 every leaf within ``SSM_*_TOL``; the witness of the
+                 loss path: the launcher's 3 AdamW steps at those 2 layers
+                 in bf16 on 8 x 256 tokens through wkv6 / wkv6_bwd and
+                 through the plain loop, each step's loss within
+                 ``SSM_WITNESS_TOL``; then
+                 ``repro_torch.launch.train.main`` at full width and 16 of
+                 its 32 layers (``--layers 16``; 1.72B parameters), bf16,
+                 8 sequences of 2048 tokens in 2 microbatches, AdamW, 3
+                 steps with a checkpoint after step 1 and a ``--resume``
+                 from it whose step 2 equals the uninterrupted run's bit
+                 for bit; the median step, tokens/s, model-flops share,
+                 peak GB (below 80), the checkpoint's hand-off / write and
+                 the restore; wkv6 twice (forward and the checkpoint's
+                 recompute) and wkv6_bwd once a layer and microbatch, B1-B5
+                 never.
  19. dryrun   -- the production-mesh dry-run (``repro_torch.launch.dryrun``)
                  on fake CUDA tensors over a fake process group, in three
                  processes at once: llama3.2-1b's ``train_4k``,
@@ -321,12 +356,13 @@ Phases (one JSON line each, ``{"phase": ...}``):
                  bytes than fp32).  Nothing launches (B1-B5 and wkv6
                  counted).
 
-Each kernel's launch count is set to 0 just before phases 3-18, 20 and 21
+Each kernel's launch count is set to 0 just before phases 3-18 and 20-22
 drive their path and read just after; a kernel of a path that did not
 launch fails the run, and so does a launch of a kernel that is not on the
-path (B5 in phases 3-7, 13-16 and 21, B1-B4 in phases 8, 10, 18, 20 and 21
-and in the LM runs of phases 12 and 17, B3/B4 in phases 9, 14, 15 and 16,
-B3-B5 in phase 11, wkv6 in every phase but 21).
+path (B5 in phases 3-7, 13-16, 21 and 22, B1-B4 in phases 8, 10, 18 and
+20-22 and in the LM runs of phases 12 and 17, B3/B4 in phases 9, 14, 15
+and 16, B3-B5 in phase 11, wkv6 in every phase but 21 and 22, wkv6_bwd in
+every phase but 22).
 In phase 16 each rank counts its own launches, the forward apart from the backward: in the
 forward a CSR-group rank launches B1 alone and a BCSR-group rank B2 alone,
 once a call; in the backward each launches B1 / B2 once a call for each
@@ -385,7 +421,14 @@ products in fp32).  wkv6 against its plain loop (phases 2 and 21): each
 element of y and of the final state within ``WKV6_TOL`` = 1e-5 of the same
 recurrence run on magnitudes (|r|, |k|, |v|, w, |u|, |s0|), which bounds
 the fp32 sums' size at every step; the two differ in the order of those
-sums (the kernel adds the bonus term as one scalar a step).
+sums (the kernel adds the bonus term as one scalar a step).  wkv6_bwd
+against its plain reverse loop (phases 2 and 22): each gradient element
+within ``WKV6_TOL`` of the same derivative run on magnitudes.  B5 at the
+contract's cases: ``FLASH_TOL``, ``FLASH_ROW_TOL`` and ``LSE_TOL`` as
+above.  Phase 22's step 0, the two fp32 paths differing only in the
+order of their sums: loss and gradient norm 1e-5 relative, each leaf 1e-4
+of its norm; its witness, 3 bf16 steps through the kernels and the plain
+loop: each step's loss within ``SSM_WITNESS_TOL`` = 2e-2 relative.
 TF32 is off, and so are cuBLAS's reduced-precision bf16 reductions.
 """
 from __future__ import annotations
@@ -501,6 +544,34 @@ SSM_ARCH, SSM_CHECK_LAYERS = "rwkv6-3b", 2
 WKV6_SHAPES = ((4, 2048, 40, False), (4, 1, 40, True), (2, 37, 40, True),
                (1, 300, 8, True))
 WKV6_TOL = 1e-5
+# wkv6_bwd in phase 2: (B, T, H, non-zero s0 and dS_T) at head size 64: the
+# training shape (4 x 2048, 40 heads, from zero; the kernels line's) and an
+# odd T from a state with a final-state cotangent, from the forward
+# kernel's snapshots; each gradient element within WKV6_TOL of the same
+# derivative run on magnitudes, two calls bitwise equal.
+WKV6_BWD_SHAPES = ((4, 2048, 40, False), (2, 37, 40, True))
+
+# Phase train_ssm: rwkv6-3b at full width and SSM_TRAIN_LAYERS of its 32
+# layers (the launchers' --layers: 1.72B parameters, ~41 GB of weights,
+# gradients and AdamW state against ~73 GB at full depth), bf16,
+# TRAIN_BATCH x TRAIN_SEQ tokens a step in 2 microbatches, AdamW,
+# SSM_TRAIN_STEPS steps with a checkpoint after step SSM_CKPT_AT - 1 and a
+# resume from it (no final checkpoint); step 0 at SSM_CHECK_LAYERS layers
+# in fp32 on 1 x SSM_CHECK_SEQ tokens through wkv6 / wkv6_bwd against
+# backend "torch" (the recurrence's plain loop, differentiated by
+# autograd): the loss within SSM_LOSS_TOL relative, the gradient norm
+# within SSM_GNORM_TOL relative and every leaf within SSM_LEAF_TOL of its
+# norm (the same fp32 arithmetic in another order).
+SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS, SSM_CKPT_AT = 16, 3, 2
+SSM_CHECK_SEQ = 512
+SSM_LOSS_TOL, SSM_GNORM_TOL, SSM_LEAF_TOL = 1e-5, 1e-5, 1e-4
+# The witness of the training run's loss path: the launcher's SSM_TRAIN_STEPS
+# AdamW steps (its optimizer settings, data and seed) at SSM_CHECK_LAYERS
+# layers in bf16 on TRAIN_BATCH x SSM_WITNESS_SEQ tokens in 2 microbatches,
+# once through wkv6 / wkv6_bwd and once through backend "torch": every
+# step's loss within SSM_WITNESS_TOL relative (bf16, as the CPU tests hold
+# bf16 losses), so a rise the kernels did not cause shows in both.
+SSM_WITNESS_SEQ, SSM_WITNESS_TOL = 256, 2e-2
 
 # B5 in phase 2: (B, S, H, KV, hd); the reference test's three shapes, a
 # ragged S, a (2, 2) mesh rank's training shape and a (1, 2) rank's
@@ -529,6 +600,23 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 1e-2, "float16": 1e-2}
 # < 1e-3, and a lost or misplaced K / V tile by 0.3 or more at S 1000 and
 # 2049 (tests/test_torch_flash_attention.py models both).
 FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 1.5e-2, "float16": 3e-3}
+# B5 at the reference attention's contract in phase 2 (name, B, Sq, Sk, H,
+# KV, hd, causal, window): hymba-1.5b's 25 heads on 5 (rep 5: one head a
+# CTA) at S 4096 with its window 2048 and windows 16 and 100 (no multiples
+# of the 64-key tile); llama's 32 / 8 at a prefix offset (Sq 512, Sk 2560);
+# whisper-small's cross-attention, 12 on 12, its 448 decoder positions on
+# its encoder_seq 1500, non-causal; phi-3-vision's 32 on 32 at hd 96; and
+# causal Sk < Sq, whose first rows no key may see (checked, not timed).
+# Each against the plain version in bf16 and fp32 (FLASH_TOL,
+# FLASH_ROW_TOL), and timed in bf16 beside SDPA where SDPA computes the same
+# function (with an explicit boolean mask for a window or an offset).
+FLASH_CONTRACT = (("hymba_w2048", 1, 4096, 4096, 25, 5, 64, True, 2048),
+                  ("hymba_w16", 1, 4096, 4096, 25, 5, 64, True, 16),
+                  ("hymba_w100", 1, 4096, 4096, 25, 5, 64, True, 100),
+                  ("offset", 4, 512, 2560, 32, 8, 64, True, 0),
+                  ("whisper_cross", 4, 448, 1500, 12, 12, 64, False, 0),
+                  ("phi3v_hd96", 2, 2048, 2048, 32, 32, 96, True, 0),
+                  ("dead_rows", 2, 700, 300, 8, 2, 96, True, 0))
 # Phase tune: the autotuner at phase main's matrices (fp32, N = MAIN_N):
 # the search's survivors, the replay search's, and the transposed search's.
 TUNE_TOP_K, TUNE_REPLAY_TOP_K, TUNE_T_TOP_K = 4, 2, 2
@@ -642,6 +730,18 @@ def time_ms(fn, *, samples: int = 10, reps: int = 5, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def timed_call(fn):
+    """``fn()`` once between two device synchronisations: its result and
+    the host-clock milliseconds it took (for a plain loop of many small
+    launches, whose one call is long enough to time alone)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def device_ms(fn, *, calls: int = 10, sessions: int = 3) -> float | None:
@@ -1036,11 +1136,15 @@ def phase_kernels() -> dict:
         units=bp.units))
     worst_row = {k: 0.0 for k in FLASH_ROW_TOL}
     ncheck += _flash_checks(worst, worst_row)
+    n_contract, contract = _flash_contract(worst, worst_row)
+    ncheck += n_contract
     ncheck += _wkv6_checks(worst)
+    ncheck += _wkv6_bwd_checks(worst)
     ops = _op_checks(fmt, cp, bp, b, dy)
     rec = {"phase": "kernels_vs_plain", "checks": ncheck,
            "most_units_in_one_group": most_units,
-           "flash_attention_max_row_err": worst_row, "operators": ops,
+           "flash_attention_max_row_err": worst_row,
+           "flash_attention_contract": contract, "operators": ops,
            "kernels": [{"name": k, "launches_in_checks":
                         _kernel_fns()[k].launches,
                         "max_rel_err": worst[k],
@@ -1051,13 +1155,14 @@ def phase_kernels() -> dict:
 
 
 def _op_checks(fmt, cp, bp, b, dy) -> dict:
-    """B1-B5 and wkv6 through their operators (``kernels/_ops.py``), at
-    the timing case (fp32, N 32), B5 at (2, 256, 8 heads, 2 kv, hd 64)
-    causal in bf16 and wkv6 at (2, 37, 40 heads, 64) from a state: a
-    wrapper call is one ``torch.ops.repro_torch`` call and one launch, and
-    two calls are bitwise equal.  (Fake calls, which launch
-    nothing, and the operators' flop counts are phase 19's and
-    ``tests/test_torch_gpu.py``'s.)"""
+    """B1-B5, wkv6 and wkv6_bwd through their operators
+    (``kernels/_ops.py``), at the timing case (fp32, N 32), B5 at (2, 256, 8
+    heads, 2 kv, hd 64) causal in bf16 and wkv6 / wkv6_bwd at (2, 37, 40
+    heads, 64) from a state (the backward on the forward's snapshots, with
+    a final-state cotangent): a wrapper call is one ``torch.ops.repro_torch``
+    call and one launch, and two calls are bitwise equal.  (Fake calls,
+    which launch nothing, and the operators' flop counts are phase 19's
+    and ``tests/test_torch_gpu.py``'s.)"""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.kernels import (bcsr_spmm, csr_spmm, flash_attention,
@@ -1095,8 +1200,12 @@ def _op_checks(fmt, cp, bp, b, dy) -> dict:
         "flash_attention": lambda: flash_attention.flash_attention(
             q, k, v, causal=True),
         "wkv6": lambda: wkv6.wkv6(*rkvw)[0],
+        "wkv6_bwd": lambda: torch.cat([g.reshape(-1) for g in wkv6.wkv6_bwd(
+            *rkvw[:5], wdy, snap, rkvw[5])]),
     }
     rkvw = _wkv6_inputs(2, 37, 40, True, seed=8)
+    wdy = torch.randn(rkvw[0].shape, generator=gen, device=DEVICE)
+    snap = wkv6.wkv6(*rkvw, snapshots=True)[2]
     fns = _kernel_fns()
     rec = {}
     for name, call in calls.items():
@@ -1208,6 +1317,146 @@ def _wkv6_checks(worst) -> int:
     return checks
 
 
+def _wkv6_bwd_case(bsz: int, seq: int, heads: int, nonzero: bool, *,
+                   seed: int):
+    """wkv6_bwd's inputs on the card: :func:`_wkv6_inputs`, dy ~ N(0, 1),
+    dS_T ~ N(0, 1) when ``nonzero`` (else None), and the forward kernel's
+    snapshots; returns ``(args, start, dsT)``, ``args`` the wrapper's
+    positional arguments."""
+    import torch
+    from repro_torch.kernels import wkv6
+    r, k, v, w, u, s0 = _wkv6_inputs(bsz, seq, heads, nonzero, seed=seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    dy = torch.randn(r.shape, generator=gen, device=DEVICE)
+    dsT = (torch.randn(s0.shape, generator=gen, device=DEVICE) if nonzero
+           else None)
+    start = s0 if nonzero else None
+    snap = wkv6.wkv6(r, k, v, w, u, start, snapshots=True)[2]
+    return (r, k, v, w, u, dy, snap, dsT), start, dsT
+
+
+def _wkv6_bwd_checks(worst) -> int:
+    """wkv6_bwd against ``wkv6_bwd_plain`` at ``WKV6_BWD_SHAPES``: every
+    gradient element within ``WKV6_TOL`` of the same derivative run on
+    magnitudes (|r|, |k|, |v|, w, |u|, |dy|, |s0|, |dS_T|); two calls
+    bitwise equal (no atomics: phase 22's resume leans on it)."""
+    import torch
+    from repro_torch.kernels import wkv6
+    checks = 0
+    for bsz, seq, heads, nonzero in WKV6_BWD_SHAPES:
+        args, start, dsT = _wkv6_bwd_case(bsz, seq, heads, nonzero,
+                                          seed=20 + seq)
+        r, k, v, w, u, dy, _, _ = args
+        got = wkv6.wkv6_bwd(*args)
+        again = wkv6.wkv6_bwd(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = wkv6.wkv6_bwd_plain(r, k, v, w, u, dy, start, dsT)
+        mag = wkv6.wkv6_bwd_plain(
+            r.abs(), k.abs(), v.abs(), w, u.abs(), dy.abs(),
+            None if start is None else start.abs(),
+            None if dsT is None else dsT.abs())
+        err = max(_wkv6_err(g, x, m) for g, x, m in zip(got, want, mag))
+        check(same and err <= WKV6_TOL, f"wkv6_bwd {(bsz, seq, heads, 64)} "
+              f"s0={nonzero}: err {err:.3g} of the magnitude derivative "
+              f"(limit {WKV6_TOL:g}), repeat equal {same}")
+        worst["wkv6_bwd"] = max(worst["wkv6_bwd"], err)
+        checks += 1
+        del args, got, want, mag
+    return checks
+
+
+def _sdpa_contract(q, k, v, causal: bool, window: int):
+    """``scaled_dot_product_attention`` computing B5's function on the
+    same tensors, or None: ``is_causal`` only where Sq == Sk and no window
+    (its causal mask is top-left aligned, the reference's bottom-right);
+    an explicit boolean mask for a window or a prefix offset; none where a
+    row may see no key (SDPA gives NaN there)."""
+    import torch
+    import torch.nn.functional as F
+    seq, seq_k = q.shape[1], k.shape[1]
+    off = seq_k - seq
+    if causal and off < 0:
+        return None, None
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if not window and (not causal or off == 0):
+        return (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True),
+            f"scaled_dot_product_attention(is_causal={causal}, "
+            "enable_gqa=True)")
+    qpos = torch.arange(seq, device=q.device)[:, None]
+    kpos = torch.arange(seq_k, device=q.device)[None, :]
+    mask = torch.ones((seq, seq_k), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos + off
+    if window:
+        mask &= kpos > qpos + off - window
+    return (lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True),
+        "scaled_dot_product_attention(attn_mask=the reference's boolean "
+        "mask, enable_gqa=True)")
+
+
+def _flash_contract(worst, worst_row) -> tuple:
+    """B5 at ``FLASH_CONTRACT``: against the plain version in bf16 and
+    fp32 (``FLASH_TOL`` of max(1, max |plain|), ``FLASH_ROW_TOL`` a row),
+    its lse within ``LSE_TOL``; then in bf16 its time, SDPA's where SDPA
+    computes the same function (:func:`_sdpa_contract`) and the bound from
+    the kept pairs.  Returns ``(checks, records)``."""
+    import torch
+    from repro_torch.kernels import flash_attention as b5
+    checks, recs = 0, []
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    for name, bsz, seq, seq_k, heads, kv, hd, causal, window in \
+            FLASH_CONTRACT:
+        for dname, tol in FLASH_TOL.items():
+            if dname == "float16":
+                continue
+            dt = getattr(torch, dname)
+            q = torch.randn((bsz, seq, heads, hd), generator=gen,
+                            device=DEVICE).to(dt)
+            k, v = (torch.randn((bsz, seq_k, kv, hd), generator=gen,
+                                device=DEVICE).to(dt) for _ in range(2))
+            kw = {"causal": causal, "window": window}
+            got, lse = b5.flash_attention(q, k, v, return_lse=True, **kw)
+            want, lse_p = b5.flash_attention_plain(q, k, v, return_lse=True,
+                                                   **kw)
+            torch.cuda.synchronize()
+            err, scale = max_err(got, want)
+            rerr = row_err(got, want)
+            lerr = float(((lse - lse_p).abs()
+                          / lse_p.abs().clamp_min(1.0)).max())
+            check(got.shape == want.shape and err <= tol * scale
+                  and rerr <= FLASH_ROW_TOL[dname] and lerr <= LSE_TOL,
+                  f"flash_attention {name} {dname}: err {err:.3g} (scale "
+                  f"{scale:.3g}), row err {rerr:.3g}, lse err {lerr:.3g}")
+            worst["flash_attention"] = max(worst["flash_attention"],
+                                           err / scale)
+            worst_row[dname] = max(worst_row[dname], rerr)
+            checks += 1
+            if dname != "bfloat16" or name == "dead_rows":
+                continue
+            sdpa, lib_name = _sdpa_contract(q, k, v, causal, window)
+            rec = {"case": name, "dtype": dname, "shape": [bsz, seq, heads,
+                                                          hd],
+                   "seq_k": seq_k, "kv_heads": kv, "causal": causal,
+                   "window": window, "max_err_rel": err / scale,
+                   "max_row_err": rerr,
+                   "ms": time_ms(lambda: b5.flash_attention(q, k, v, **kw)),
+                   "library": lib_name, "library_ms": None,
+                   **flash_bound(q, k, causal=causal, window=window)}
+            if sdpa is not None:
+                lib_out = sdpa().transpose(1, 2)
+                rec["library_ms"] = time_ms(sdpa)
+                rec["library_max_row_err"] = row_err(lib_out, want)
+                del lib_out
+            rec.update(rate(rec))
+            recs.append(rec)
+        del q, k, v, got, want, lse, lse_p
+    return checks, recs
+
+
 def _sdd_checks(fmt, cp, bp, b, dt, tol, worst, rng) -> int:
     """B3 and B4 against their plain versions for one operand ``b``: dY in
     b's dtype and, for half b, in fp32 (the training backward's pair); B4
@@ -1259,7 +1508,7 @@ def _sdd_checks(fmt, cp, bp, b, dt, tol, worst, rng) -> int:
 # The kernels of the port's paths: B1 and B2 (product), B3 and B4 (value
 # gradient), B5 (the LM's prefill attention).
 KERNELS = ("csr_panels_spmm", "bcsr_panels_spmm", "csr_sdd_panels",
-           "bcsr_sdd_panels", "flash_attention", "wkv6")
+           "bcsr_sdd_panels", "flash_attention", "wkv6", "wkv6_bwd")
 
 
 def _kernel_fns() -> dict:
@@ -1270,7 +1519,7 @@ def _kernel_fns() -> dict:
             "csr_sdd_panels": spmm_sdd.csr_sdd_panels,
             "bcsr_sdd_panels": spmm_sdd.bcsr_sdd_panels,
             "flash_attention": flash_attention.flash_attention,
-            "wkv6": wkv6.wkv6}
+            "wkv6": wkv6.wkv6, "wkv6_bwd": wkv6.wkv6_bwd}
 
 
 def _reset_counts():
@@ -1317,7 +1566,8 @@ def phase_main(launches: dict) -> list:
             has = {"csr_panels_spmm": plan.r_boundary > 0,
                    "bcsr_panels_spmm": plan.r_boundary < csr.nrows,
                    "csr_sdd_panels": False, "bcsr_sdd_panels": False,
-                   "flash_attention": False, "wkv6": False}
+                   "flash_attention": False, "wkv6": False,
+                   "wkv6_bwd": False}
             for k, v in counts.items():
                 check(v == int(has[k]), f"{mid} {dname}: {k} launched {v} "
                       f"times in one loops_spmm (expected {int(has[k])})")
@@ -2033,7 +2283,7 @@ def phase_train_gcn(launches: dict) -> dict:
     want = {"csr_panels_spmm": 2 * (fwd[0] + bwd[0]) * GCN_TRAIN_STEPS,
             "bcsr_panels_spmm": 2 * (fwd[1] + bwd[1]) * GCN_TRAIN_STEPS,
             "csr_sdd_panels": 0, "bcsr_sdd_panels": 0, "flash_attention": 0,
-            "wkv6": 0}
+            "wkv6": 0, "wkv6_bwd": 0}
     for k, v in counts.items():
         launches[k] += v
         check(v == want[k], f"train_gcn: {k} launched {v} times in "
@@ -2219,7 +2469,7 @@ def phase_train_ffn(launches: dict) -> list:
                   "bcsr_panels_spmm": (fw[1] + bw[1]) * FFN_STEPS,
                   "csr_sdd_panels": fw[0] * FFN_STEPS,
                   "bcsr_sdd_panels": fw[1] * FFN_STEPS,
-                  "flash_attention": 0, "wkv6": 0}
+                  "flash_attention": 0, "wkv6": 0, "wkv6_bwd": 0}
         for k, v in counts.items():
             launches[k] += v
             check(v == want_n[k], f"train_ffn {dname}: {k} launched {v} "
@@ -2253,12 +2503,15 @@ def phase_train_ffn(launches: dict) -> list:
 # phase 8: serving llama3.2-1b at full width
 # ---------------------------------------------------------------------------
 
-def flash_bound(q, k, *, causal: bool) -> dict:
+def flash_bound(q, k, *, causal: bool, window: int = 0) -> dict:
     """Least time of one B5 call: Q, K, V read once and O written once;
-    the QKᵀ and P·V flops of the (query, key) pairs the mask keeps, S(S+1)/2
-    of S² per head when causal, at the dtype's peak."""
+    the QKᵀ and P·V flops of the (query, key) pairs the mask keeps
+    (``kernels/flash_attention.py::kept_pairs``: S(S+1)/2 of S² per head
+    when causal at Sq == Sk, the window's span, the prefix offset's), at
+    the dtype's peak."""
+    from repro_torch.kernels.flash_attention import kept_pairs
     bsz, seq, heads, hd = q.shape
-    pairs = seq * (seq + 1) / 2 if causal else float(seq * seq)
+    pairs = float(kept_pairs(seq, k.shape[1], causal, window))
     flops = 4.0 * hd * pairs * bsz * heads
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     return bound(bytes_moved=float(nbytes), flops=flops,
@@ -3267,10 +3520,12 @@ def _release() -> None:
 
 
 def _check_lm_launches(what: str, counts: dict, b5_want: int,
-                       launches: dict, wkv6_want: int = 0) -> None:
+                       launches: dict, wkv6_want: int = 0,
+                       wkv6_bwd_want: int = 0) -> None:
     for k, v in counts.items():
         launches[k] += v
-        want = {"flash_attention": b5_want, "wkv6": wkv6_want}.get(k, 0)
+        want = {"flash_attention": b5_want, "wkv6": wkv6_want,
+                "wkv6_bwd": wkv6_bwd_want}.get(k, 0)
         check(v == want, f"{what}: {k} launched {v} times (expected {want})")
 
 
@@ -3421,7 +3676,9 @@ def _train_step0_check(cfg, params, mb, launches: dict) -> dict:
 def _train_full_width(launches: dict, rec: dict) -> None:
     """The launcher at llama3.2-1b's full width, bf16: run A trains 4
     steps with a checkpoint after step 2; run B resumes from that
-    checkpoint, in a fresh model, for steps 3-4; then step 0 on the same
+    checkpoint, in a fresh model, for steps 3-4 (neither writes a final
+    checkpoint: the one after step 2 is the save path's test, and the 17.3
+    GB writes at the end cost ~20 s); then step 0 on the same
     weights and batch (:func:`_train_step0_check`) and one profiled
     step."""
     import os
@@ -3440,7 +3697,8 @@ def _train_full_width(launches: dict, rec: dict) -> None:
     dir_a, dir_b = base / "a", base / "b"
     argv = ["--arch", LM_ARCH, "--device", DEVICE, "--seq-len",
             str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH), "--steps",
-            str(TRAIN_STEPS), "--log-every", "1", "--seed", str(LM_SEED)]
+            str(TRAIN_STEPS), "--log-every", "1", "--seed", str(LM_SEED),
+            "--no-final-ckpt"]
     n_mb = default_microbatches(ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH,
                                             "train"))
     cfg = get_config(LM_ARCH)
@@ -3668,7 +3926,8 @@ def _example_ffn_width(ex, launches: dict) -> dict:
     counts = _read_counts()
     for k, v in counts.items():
         launches[k] += v
-        check(v == 0 if k == "wkv6" else v > 0, f"train_lm ffn-width: {k} "
+        check(v == 0 if k in ("wkv6", "wkv6_bwd") else v > 0,
+              f"train_lm ffn-width: {k} "
               f"launched {v} times ({counts})")
     check(all(np.isfinite(losses)), f"train_lm ffn-width: losses {losses}")
     rec = {"config": a, "plan_s": plan_s, "transpose_s": transpose_s,
@@ -3909,7 +4168,8 @@ def phase_fallback(launches: dict) -> dict:
     counts = _read_counts()
     for k, v in counts.items():
         launches[k] += v
-        check(v == 0 if k in ("flash_attention", "wkv6") else v > 0,
+        check(v == 0 if k in ("flash_attention", "wkv6", "wkv6_bwd")
+              else v > 0,
               f"fallback: {k} launched {v} times")
     rec.update(launches=counts, seconds=time.perf_counter() - t0)
     _release()
@@ -5203,25 +5463,25 @@ def _wkv6_timed(bsz: int, seq: int, heads: int, nonzero: bool, *,
                 plain: bool = False) -> dict:
     """wkv6 on :func:`_wkv6_inputs` (a zero start unless ``nonzero``, the
     state written into a buffer of its own): its time, its plain loop's
-    when ``plain``, its error against the plain loop and its bound.  No
-    single PyTorch call computes the recurrence (``library_ms`` None)."""
+    when ``plain`` (the host clock around the one synchronised call that
+    gives the reference), its error against the plain loop and its bound.
+    No single PyTorch call computes the recurrence (``library_ms``
+    None)."""
     import torch
     from repro_torch.kernels import wkv6
     r, k, v, w, u, s0 = _wkv6_inputs(bsz, seq, heads, nonzero, seed=10)
     start = s0 if nonzero else None
     state = torch.empty_like(s0)
     y, _ = wkv6.wkv6(r, k, v, w, u, start, state=state)
-    want_y, want_s = wkv6.wkv6_plain(r, k, v, w, u, start)
-    torch.cuda.synchronize()
+    (want_y, want_s), plain_ms = timed_call(
+        lambda: wkv6.wkv6_plain(r, k, v, w, u, start))
     err = max(float((y - want_y).abs().max()),
               float((state - want_s).abs().max()))
     rec = {"shape": [bsz, seq, heads, 64], "s0": "state" if nonzero
            else "zero", "dtype": "float32",
            "ms": time_ms(lambda: wkv6.wkv6(r, k, v, w, u, start,
                                            state=state)),
-           "plain_ms": time_ms(lambda: wkv6.wkv6_plain(r, k, v, w, u, start),
-                               samples=3, reps=1, warmup=1)
-           if plain else None,
+           "plain_ms": plain_ms if plain else None,
            "library_ms": None, "library": None,
            "max_abs_err": err,
            "max_abs_plain": float(want_y.abs().max()),
@@ -5270,6 +5530,268 @@ def phase_serve_ssm(launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 22: the ssm family, trained
+# ---------------------------------------------------------------------------
+
+def wkv6_bwd_bound(r, *, nonzero: bool) -> dict:
+    """Least time of one wkv6_bwd call: r, k, v, w, dy and u read once (and
+    dS_T when given), dr, dk, dv, dw, du and dS_0 written once (the
+    snapshots are the pair's workspace); the function's flops (14 a state
+    element and step, 15 a step's row: the bonus terms as row scalars), at
+    the fp32 peak."""
+    bsz, seq, heads, n = r.shape
+    elems = bsz * seq * heads * n
+    state = bsz * heads * n * n
+    nbytes = 4 * (9 * elems + 2 * heads * n + state * (2 if nonzero else 1))
+    flops = bsz * seq * heads * (14 * n * n + 15 * n)
+    return bound(bytes_moved=float(nbytes), flops=float(flops),
+                 dtype="float32")
+
+
+def _wkv6_bwd_alone() -> dict:
+    """wkv6_bwd at the training shape (TRAIN_BATCH / 2 x TRAIN_SEQ, 40
+    heads of 64, from a zero state: one microbatch of phase 22's layer),
+    on the forward kernel's snapshots: its time, its plain version's (the
+    host clock around the one synchronised call that gives the reference),
+    its error against it and its bound.  No single PyTorch call computes the
+    recurrence's derivative (``library_ms`` None)."""
+    import torch
+    from repro_torch.kernels import wkv6
+    bsz = TRAIN_BATCH // 2
+    args, _, _ = _wkv6_bwd_case(bsz, TRAIN_SEQ, 40, False, seed=31)
+    r, k, v, w, u, dy, _, _ = args
+    got = wkv6.wkv6_bwd(*args)
+    want, plain_ms = timed_call(
+        lambda: wkv6.wkv6_bwd_plain(r, k, v, w, u, dy))
+    err = max(float((g - x).abs().max()) for g, x in zip(got, want))
+    rec = {"shape": [bsz, TRAIN_SEQ, 40, 64], "s0": "zero",
+           "dtype": "float32",
+           "ms": time_ms(lambda: wkv6.wkv6_bwd(*args)),
+           "plain_ms": plain_ms,
+           "forward_with_snapshots_ms": time_ms(
+               lambda: wkv6.wkv6(r, k, v, w, u, snapshots=True)),
+           "forward_serving_ms": time_ms(lambda: wkv6.wkv6(r, k, v, w, u)),
+           "library_ms": None, "library": None, "max_abs_err": err,
+           "max_abs_plain": max(float(x.abs().max()) for x in want),
+           **wkv6_bwd_bound(r, nonzero=False)}
+    rec.update(rate(rec))
+    del args, got, want
+    _release()
+    return rec
+
+
+def _ssm_step0_check(launches: dict) -> dict:
+    """Step 0 of rwkv6-3b at full width and ``SSM_CHECK_LAYERS`` layers in
+    fp32 on 1 x ``SSM_CHECK_SEQ`` tokens: ``train_loss``'s loss and every
+    gradient leaf through wkv6 (forward and the checkpoint's recompute)
+    and wkv6_bwd against ``backend="torch"`` (the recurrence's plain loop,
+    differentiated by autograd) on the same weights and tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    cfg = _dense_cfg(SSM_ARCH, SSM_CHECK_LAYERS, torch.float32)
+    params = api.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        LM_SEED), device=DEVICE)
+    rng = np.random.default_rng(LM_SEED)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, SSM_CHECK_SEQ + 1)),
+                             device=DEVICE)
+    mb = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    names = [n for n, _ in params.named_parameters()]
+    plist = [p for _, p in params.named_parameters()]
+
+    def grads_of(backend):
+        loss = api.train_loss(cfg, params, mb, backend=backend)[0]
+        return float(loss.detach()), torch.autograd.grad(loss, plist)
+
+    _reset_counts()
+    ref_loss, ref_g = grads_of("torch")
+    _check_lm_launches("train_ssm step-0 reference", _read_counts(), 0,
+                       launches)
+    loss, g = grads_of(None)
+    torch.cuda.synchronize()
+    _check_lm_launches("train_ssm step-0 gradients", _read_counts(), 0,
+                       launches, 2 * cfg.num_layers, cfg.num_layers)
+    e = _step0_errors(names, loss, g, ref_loss, ref_g)
+    bad = [f"{key} {e[key]:.3g} > {tol:g}" for key, tol in (
+        ("loss_rel", SSM_LOSS_TOL), ("grad_norm_rel", SSM_GNORM_TOL),
+        ("leaf_max", SSM_LEAF_TOL)) if not e[key] <= tol]
+    check(not bad, f"train_ssm step 0 through wkv6 / wkv6_bwd against the "
+          f"plain loop: {bad} (worst leaf {e['leaf_worst']})")
+    del params, g, ref_g
+    _release()
+    return {"layers": cfg.num_layers, "seq": SSM_CHECK_SEQ,
+            "dtype": "float32",
+            **{k: v for k, v in e.items() if k != "leaf"}}
+
+
+def _losses(steps) -> list:
+    return [round(s["loss"], 3) for s in steps]
+
+
+def _ssm_witness(launches: dict) -> dict:
+    """The launcher's ``SSM_TRAIN_STEPS`` steps (its ``OptConfig``, data
+    and seed) at ``SSM_CHECK_LAYERS`` layers, full width, bf16, on
+    ``TRAIN_BATCH`` x ``SSM_WITNESS_SEQ`` tokens: through wkv6 / wkv6_bwd
+    and through ``backend="torch"`` (the plain loop, differentiated by
+    autograd) from the same weights; each step's loss and gradient norm,
+    the losses held at ``SSM_WITNESS_TOL``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, global_batch_at
+    from repro_torch.dist import step as step_lib
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    cfg = _dense_cfg(SSM_ARCH, SSM_CHECK_LAYERS)
+    shape = ShapeConfig("witness", SSM_WITNESS_SEQ, TRAIN_BATCH, "train")
+    n_mb = step_lib.default_microbatches(shape)
+    lr = train.build_args(["--arch", SSM_ARCH]).lr   # the launcher's
+    opt = adamw.OptConfig(lr=lr, total_steps=SSM_TRAIN_STEPS,
+                          warmup_steps=max(SSM_TRAIN_STEPS // 20, 1))
+    runs = {}
+    for backend in (None, "torch"):
+        params = api.init_params(cfg, torch.Generator(
+            device=DEVICE).manual_seed(LM_SEED), device=DEVICE)
+        state = adamw.init_opt_state(params, step_lib.N_SHARDS)
+        step = step_lib.build_train_step(
+            cfg, params, opt, n_microbatches=n_mb,
+            loss_fn=lambda p, mb, b=backend: api.train_loss(cfg, p, mb,
+                                                            backend=b))
+        _reset_counts()
+        steps = []
+        for i in range(SSM_TRAIN_STEPS):
+            batch = global_batch_at(DataConfig(seed=LM_SEED), cfg, shape,
+                                    n_mb, i, device=DEVICE)
+            params, state, m = step(params, state, batch)
+            steps.append({k: float(m[k]) for k in ("loss", "grad_norm",
+                                                    "lr")})
+        per = cfg.num_layers * n_mb * SSM_TRAIN_STEPS
+        _check_lm_launches(f"train_ssm witness ({backend or 'kernels'})",
+                           _read_counts(), 0, launches,
+                           0 if backend else 2 * per, 0 if backend else per)
+        runs[backend or "kernels"] = steps
+        del params, state, step
+        _release()
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+           for a, b in zip(runs["kernels"], runs["torch"])]
+    check(all(np.isfinite(x["loss"]) for s in runs.values() for x in s)
+          and max(rel) <= SSM_WITNESS_TOL,
+          f"train_ssm witness: losses through the kernels "
+          f"{[s['loss'] for s in runs['kernels']]} against the plain loop's "
+          f"{[s['loss'] for s in runs['torch']]} (relative {rel})")
+    return {"layers": cfg.num_layers, "dtype": str(cfg.dtype),
+            "seq_len": SSM_WITNESS_SEQ, "global_batch": TRAIN_BATCH,
+            "n_microbatches": n_mb, "lr": opt.lr,
+            "warmup_steps": opt.warmup_steps, "steps": runs,
+            "loss_rel": rel}
+
+
+def phase_train_ssm(launches: dict) -> dict:
+    """Phase 22 (the module docstring): wkv6_bwd alone at the training
+    shape; step 0 at ``SSM_CHECK_LAYERS`` fp32 layers against the plain
+    loop; then ``launch/train.py --arch rwkv6-3b --layers
+    SSM_TRAIN_LAYERS`` at full width in bf16: run A trains
+    ``SSM_TRAIN_STEPS`` steps with a checkpoint after step ``SSM_CKPT_AT``
+    - 1, run B resumes from it in a fresh model for the rest, bit for bit
+    equal to run A; wkv6 twice and wkv6_bwd once a layer and microbatch,
+    B1-B5 never."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.step import default_microbatches
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    alone = _wkv6_bwd_alone()
+    step0 = _ssm_step0_check(launches)
+    witness = _ssm_witness(launches)
+    cfg = _dense_cfg(SSM_ARCH, SSM_TRAIN_LAYERS)
+    n_mb = default_microbatches(ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH,
+                                            "train"))
+    per_step = cfg.num_layers * n_mb
+    base = ROOT / "build" / "chip_smoke_train_ssm"
+    shutil.rmtree(base, ignore_errors=True)
+    dir_a, dir_b = base / "a", base / "b"
+    argv = ["--arch", SSM_ARCH, "--device", DEVICE, "--layers",
+            str(SSM_TRAIN_LAYERS), "--seq-len", str(TRAIN_SEQ),
+            "--global-batch", str(TRAIN_BATCH), "--steps",
+            str(SSM_TRAIN_STEPS), "--log-every", "1", "--seed",
+            str(LM_SEED), "--no-final-ckpt"]
+    if DENSE_REDUCED:
+        argv.append("--reduced")
+    try:
+        run_a = _train_cli(argv + ["--ckpt-every", str(SSM_CKPT_AT),
+                                   "--ckpt-dir", str(dir_a)])
+        _release()
+        _check_lm_launches("train_ssm run A", run_a["launches"], 0,
+                           launches, 2 * per_step * SSM_TRAIN_STEPS,
+                           per_step * SSM_TRAIN_STEPS)
+        ckpt = f"ckpt_{SSM_CKPT_AT:010d}.tensors"
+        os.makedirs(dir_b)
+        os.link(dir_a / ckpt, dir_b / ckpt)
+        shutil.rmtree(dir_a)
+        run_b = _train_cli(argv + ["--resume", "--ckpt-dir", str(dir_b)])
+        _release()
+        rest = SSM_TRAIN_STEPS - SSM_CKPT_AT
+        _check_lm_launches("train_ssm run B", run_b["launches"], 0,
+                           launches, 2 * per_step * rest, per_step * rest)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    check(run_b["start_step"] == SSM_CKPT_AT,
+          f"train_ssm: resumed at {run_b['start_step']}")
+    steps_a = run_a["steps"]
+    for st in steps_a + run_b["steps"]:
+        check(np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"]),
+              f"train_ssm: step {st['step']} loss {st['loss']} grad_norm "
+              f"{st['grad_norm']}")
+    same = [(a["loss"], a["grad_norm"]) == (b["loss"], b["grad_norm"])
+            for a, b in zip(steps_a[SSM_CKPT_AT:], run_b["steps"])]
+    check(len(same) == SSM_TRAIN_STEPS - SSM_CKPT_AT and all(same),
+          f"train_ssm: resumed steps {run_b['steps']} differ from the "
+          f"uninterrupted run's {steps_a[SSM_CKPT_AT:]}")
+    for r in (run_a, run_b):
+        check(r["peak_mem_gb"] < 80, f"train_ssm: peak "
+              f"{r['peak_mem_gb']:.1f} GB")
+    step_ms = [st["step_s"] * 1e3 for st in steps_a[1:]]
+    med_s = statistics.median(step_ms) / 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6.0 * run_a["params"] * tokens
+    rec = {"phase": "train_ssm",
+           "nvidia_smi": RECORD["phases"][0].get("nvidia_smi"),
+           "arch": SSM_ARCH, "layers": cfg.num_layers,
+           "dtype": str(cfg.dtype), "seq_len": TRAIN_SEQ,
+           "global_batch": TRAIN_BATCH, "n_microbatches": n_mb,
+           "params": run_a["params"], "steps": steps_a,
+           "resumed_steps": run_b["steps"], "resumed_equal_bitwise": all(same),
+           "step_ms_steps_2_on": step_ms, "median_step_ms": med_s * 1e3,
+           "tokens_per_s": tokens / med_s,
+           "model_flops_share": flops / (med_s * PEAK_FLOPS["bfloat16"]),
+           "model_flops_share_formula":
+               "6 * params * tokens / (median step s * 989e12)",
+           "peak_mem_gb": [run_a["peak_mem_gb"], run_b["peak_mem_gb"]],
+           "ckpt_saves": run_a["ckpt"], "restore_s": run_b["restore_s"],
+           "run_s": [run_a["wall_s"], run_b["wall_s"]],
+           "launches_per_step": {"wkv6": 2 * per_step, "wkv6_bwd": per_step},
+           "step0": step0, "witness": witness, "wkv6_bwd_alone": alone,
+           "seconds": time.perf_counter() - t0}
+    print(f"train_ssm {SSM_ARCH} at {cfg.num_layers} layers: median step "
+          f"{rec['median_step_ms']:.1f} ms, {rec['tokens_per_s']:.0f} tok/s, "
+          f"model-flops share {rec['model_flops_share']:.3f}, peak "
+          f"{max(rec['peak_mem_gb']):.1f} GB; step 0 loss rel "
+          f"{step0['loss_rel']:.2g}, worst leaf {step0['leaf_max']:.2g}; "
+          f"witness losses {_losses(witness['steps']['kernels'])} (plain "
+          f"loop {_losses(witness['steps']['torch'])}); "
+          f"wkv6_bwd {alone['ms']:.3f} ms (bound {alone['bound_ms']:.3f}, "
+          f"plain {alone['plain_ms']:.1f})", flush=True)
+    phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 19: the production-mesh dry-run
 # ---------------------------------------------------------------------------
 
@@ -5308,7 +5830,7 @@ if job["suites"]:
 res["launches"] = sum(f.launches for f in (
     csr_spmm.csr_panels_spmm, bcsr_spmm.bcsr_panels_spmm,
     spmm_sdd.csr_sdd_panels, spmm_sdd.bcsr_sdd_panels,
-    flash_attention.flash_attention, wkv6.wkv6))
+    flash_attention.flash_attention, wkv6.wkv6, wkv6.wkv6_bwd))
 print(json.dumps(res))
 """
 
@@ -5421,6 +5943,9 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:82"),
     "wkv6": ("src/repro_torch/csrc/wkv6.cu",
              "src/repro/models/rwkv6.py:90 _wkv_scan"),
+    "wkv6_bwd": ("src/repro_torch/csrc/wkv6.cu",
+                 "the XLA derivative of src/repro/models/rwkv6.py:90 "
+                 "_wkv_scan"),
 }
 
 
@@ -5474,13 +5999,15 @@ def main(argv=None) -> int:
         phase_serve_dense(launches)
         phase_serve_moe(launches)
         ssm_rec = phase_serve_ssm(launches)
+        ssm_train = phase_train_ssm(launches)
         phase_dryrun(work)
     for k, v in launches.items():
         check(v > 0, f"{k} never launched on the port's paths")
 
     # The kernels line reports B1/B2 at the pwtk (m6) fp32 main-path call,
-    # B3/B4 at the fp32 sparse-FFN backward, B5 at the bf16 serving shape
-    # and wkv6 at rwkv6-3b's serving prefill.
+    # B3/B4 at the fp32 sparse-FFN backward, B5 at the bf16 serving shape,
+    # wkv6 at rwkv6-3b's serving prefill and wkv6_bwd at its training
+    # microbatch.
     rep = next(r for r in main_recs
                if r["matrix"] == "m6" and r["dtype"] == "float32")
     rep_ffn = next(r for r in ffn_recs if r["dtype"] == "float32")
@@ -5490,6 +6017,8 @@ def main(argv=None) -> int:
             k = lm_rec["b5_alone"]
         elif name == "wkv6":
             k = ssm_rec["wkv6_alone"]
+        elif name == "wkv6_bwd":
+            k = ssm_train["wkv6_bwd_alone"]
         else:
             k = (rep if name.endswith("spmm") else rep_ffn)["kernels"][name]
         line.append({"name": name, "route": "cuda", "source": src,

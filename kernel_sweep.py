@@ -268,7 +268,7 @@ def sweep_b5(names, built, base: dict, check_only: bool):
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     bsz, seq, heads, k.shape[2], hd, 1.0 / math.sqrt(hd),
                     int(causal), _build.DTYPE_CODES[q.dtype],
-                    torch.cuda.current_stream().cuda_stream, None)
+                    torch.cuda.current_stream().cuda_stream, None, seq, 0)
             _build.check_launch("flash_attention variant", rc)
             return out
         worst, worst_row = {}, {}

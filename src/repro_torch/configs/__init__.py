@@ -1,7 +1,7 @@
 """Architecture registry of the port: the architectures whose family the
 port runs (the moe family: qwen3-moe-30b-a3b and qwen2-moe-a2.7b; the
 dense family: qwen3-32b, granite-34b, llama3.2-1b and internlm2-20b; the
-ssm family: rwkv6-3b, served only), in the reference's order.
+ssm family: rwkv6-3b, served and trained), in the reference's order.
 
 ``get_config(name)`` / ``--arch <id>`` resolve through here; each module
 also provides ``reduced()``, the same family at smoke-test scale.

@@ -1,11 +1,17 @@
-// B5: fused causal / full GQA flash attention (forward) for Hopper.
+// B5: fused causal / windowed / full GQA flash attention (forward) for
+// Hopper.
 //
 // Replaces the TPU kernel
-// repro/kernels/flash_attention.py::flash_attention_pallas (body _kernel).
-// Computes, for q (B, S, H, hd) and k, v (B, S, KV, hd) with H % KV == 0,
+// repro/kernels/flash_attention.py::flash_attention_pallas (body _kernel),
+// and takes what the reference's attention, repro/models/layers.py::
+// flash_attention, computes besides.  For q (B, Sq, H, hd) and k, v (B,
+// Sk, KV, hd) with H % KV == 0,
 //     O[b, s, h] = softmax_t(q[b, s, h] . k[b, t, h / (H / KV)] / sqrt(hd)
 //                            + mask(s, t)) . v[b, t, h / (H / KV)]
-// with mask(s, t) = -1e30 for t > s when causal and for t >= S always.  The
+// where, with the prefix offset off = Sk - Sq, mask(s, t) drops t > s + off
+// when causal and t <= s + off - window when window > 0 (the reference's
+// mask).  A row that no key may see (causal, s + off < 0) gets what the
+// reference's -1e30 fill gives it: every key alike, the mean of v.  The
 // scores, the online-softmax statistics (m, l) and the output accumulator
 // are fp32 for every input dtype (bf16 / f16 products accumulate in fp32 in
 // the tensor cores; fp32 runs FFMA with no TF32); the output is
@@ -55,9 +61,11 @@
 //     the 4 lanes of a quad.  P enters P·V rounded once to T, as
 //     scaled_dot_product_attention's kernels round it (PERF.md compares
 //     this with a hi + lo split of bf16 P, two products).
-//   * Causal: tiles past the frontier are skipped, and only the diagonal
-//     and the ragged last tile are masked.  The CTAs with the most tiles
-//     are launched first (the query block is the grid's slow dimension).
+//   * Causal (and windowed): tiles outside the block's key span are
+//     skipped, and only the tiles on its edges (the diagonal, the window's
+//     start, the ragged last tile) are masked.  The CTAs with the most
+//     tiles are launched first (the query block is the grid's slow
+//     dimension).
 // Registers: a warpgroup holds 64 x hd fp32 accumulators, a 64 x kKeys
 // score tile and P; 113 a thread at hd 64, so two 256-thread CTAs share an
 // SM.  kernel_sweep.py measured the choices (PERF.md).
@@ -77,10 +85,24 @@
 //   * P·V: the warp writes P (16 x 64) to its own shared slice and each lane
 //     accumulates a fixed (rows x columns) patch of the (16 x hd) output in
 //     registers, reading P as broadcast float4s and V conflict-free.
-//   * Both bodies skip the tiles wholly past the causal frontier (the
-//     reference's `live` predicate) and write each output element once;
-//     rows past a ragged S are computed on zeros and not written.
+//   * Both bodies walk only the key tiles that hold a key some row of the
+//     block may see, [lo, hi) from the causal frontier and the window's
+//     start (flash_attention_triangular's span), mask only the tiles that
+//     straddle an edge (with -inf, so a row's fully masked tile adds
+//     nothing), and write each output element once; rows past a ragged Sq
+//     are computed on zeros and not written.  A block with a row no key
+//     may see walks every tile.
+//   * Head dim 96 (phi-3-vision): the FFMA body is instantiated at 96; the
+//     wgmma body stages it as a 128-wide tile, the tensor maps' hd being 96,
+//     so TMA fills columns 96-127 with zeros, which add nothing to QKᵀ and
+//     give P·V columns that are not written.
+//   * The wgmma body is built twice (kSpan): with the general mask above,
+//     and for Sq == Sk with no window (the LM's serving and training
+//     shapes) with the causal-only mask alone, which ran 0.8-1.8% faster
+//     there than the general body on an H100 80GB HBM3 at 700 W (PERF.md,
+//     wrapper_ab.py).
 #include <cuda.h>
+#include <math.h>
 
 #include <type_traits>
 
@@ -98,6 +120,56 @@ constexpr int kThreads = kWarps * kWarp;
 constexpr int kRowsPerWarp = kBlockQ / kWarps;   // 16
 constexpr int kKtStride = kBlockK + 1;  // transposed K row stride (floats)
 constexpr float kNegInf = -1e30f;       // the reference's mask value
+
+// The key tiles a block of query rows [q0, q0 + rows) walks, and its mask
+// (the reference's, module note): off = Sk - Sq; a row s sees keys t with
+// t <= s + off (causal) and t > s + off - window (window > 0).  A row no key
+// may see (causal, s + off < 0) gets every key with its Q row zeroed, so
+// every score is 0 (the reference's -1e30 fill makes its row uniform).
+// Tiles [nomask_lo, nomask_hi) hold keys every row of the block sees: only
+// the others are masked, per element by the row's [lo, hi] (row_keys), as
+// cheap as the causal-only test it replaces.
+struct KeySpan {
+  int off, seq_k, causal, window, kt0, kt1, nomask_lo, nomask_hi;
+  bool any_dead;
+  __device__ KeySpan(int q0, int rows, int tile, int seq_q, int seq_k_,
+                     int causal_, int window_)
+      : off(seq_k_ - seq_q), seq_k(seq_k_), causal(causal_),
+        window(window_) {
+    const int last = min(q0 + rows, seq_q) - 1;
+    any_dead = causal && q0 + off < 0;
+    int lo = 0, hi = seq_k;
+    nomask_lo = 0;
+    nomask_hi = any_dead ? 0 : seq_k / tile;
+    if (!any_dead) {
+      if (causal) {
+        hi = min(seq_k, last + off + 1);
+        nomask_hi = min(nomask_hi, (q0 + off + 1) / tile);
+      }
+      if (window > 0) {
+        lo = max(0, q0 + off - window + 1);
+        const int first_all = last + off - window + 1;
+        nomask_lo = first_all > 0 ? (first_all + tile - 1) / tile : 0;
+      }
+    }
+    kt0 = lo / tile;
+    kt1 = (hi + tile - 1) / tile;
+  }
+  // A row no key may see.
+  __device__ bool dead(int qpos) const { return causal && qpos + off < 0; }
+  // Whether tile kt (absolute) needs the mask for some row.
+  __device__ bool masked(int kt) const {
+    return kt < nomask_lo || kt >= nomask_hi;
+  }
+  // The keys [lo, hi] row qpos may see (every key for a dead row).
+  __device__ void row_keys(int qpos, int& lo, int& hi) const {
+    lo = 0;
+    hi = seq_k - 1;
+    if (dead(qpos)) return;
+    if (causal) hi = min(hi, qpos + off);
+    if (window > 0) lo = max(0, qpos + off - window + 1);
+  }
+};
 
 template <int HD>
 constexpr int smem_floats() {
@@ -127,7 +199,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int seq, int heads, int kv_heads,
-                 float scale, int causal) {
+                 float scale, int causal, int seq_k, int window) {
   // Output patch of a lane: TPR lanes span a row's hd columns, RG row
   // groups interleave the warp's 16 rows.
   constexpr int TPR = HD < kWarp ? HD : kWarp;
@@ -158,15 +230,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t q_stride = static_cast<int64_t>(heads) * HD;   // per s
   const int64_t kv_stride = static_cast<int64_t>(kv_heads) * HD;
   const T* qbase = q + (static_cast<int64_t>(b) * seq * heads + h) * HD;
-  const T* kbase = k + (static_cast<int64_t>(b) * seq * kv_heads + kvh) * HD;
-  const T* vbase = v + (static_cast<int64_t>(b) * seq * kv_heads + kvh) * HD;
+  const T* kbase = k + (static_cast<int64_t>(b) * seq_k * kv_heads + kvh) * HD;
+  const T* vbase = v + (static_cast<int64_t>(b) * seq_k * kv_heads + kvh) * HD;
   T* obase = o + (static_cast<int64_t>(b) * seq * heads + h) * HD;
+  const KeySpan span(q0, kBlockQ, kBlockK, seq, seq_k, causal, window);
 
   for (int c = tid; c < kBlockQ * CHUNKS; c += kThreads) {
     const int r = c / CHUNKS;
     const int d = (c % CHUNKS) * VN;
     float x[VN];
-    if (q0 + r < seq) {
+    if (q0 + r < seq && !span.dead(q0 + r)) {
       load16(qbase + (q0 + r) * q_stride + d, x);
     } else {
 #pragma unroll
@@ -192,9 +265,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* qw = qs + warp * kRowsPerWarp * HD;
   float* pw = ps + warp * kRowsPerWarp * kBlockK;
   const int row0 = q0 + warp * kRowsPerWarp;   // first query row of the warp
-  const int nkt = causal ? qb + 1 : nqb;
 
-  for (int t = 0; t < nkt; ++t) {
+  for (int t = span.kt0; t < span.kt1; ++t) {
     const int k0 = t * kBlockK;
     __syncthreads();   // every warp is done with the previous tile
     for (int c = tid; c < kBlockK * CHUNKS; c += kThreads) {
@@ -202,7 +274,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = (c % CHUNKS) * VN;
       float kx[VN];
       float vx[VN];
-      if (k0 + r < seq) {
+      if (k0 + r < seq_k) {
         load16(kbase + (k0 + r) * kv_stride + d, kx);
         load16(vbase + (k0 + r) * kv_stride + d, vx);
       } else {
@@ -244,20 +316,28 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // Online softmax; P goes to the warp's shared slice.
-    const bool masked = (causal && t == qb) || (k0 + kBlockK > seq);
+    // Online softmax; P goes to the warp's shared slice.  Only a tile at
+    // an edge of the span takes the mask, in a pass of its own.
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      s[r][0] *= scale;
+      s[r][1] *= scale;
+    }
+    if (span.masked(t)) {
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        int lo, hi;
+        span.row_keys(row0 + r, lo, hi);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int kpos = k0 + lane + j * kWarp;
+          if (kpos < lo || kpos > hi) s[r][j] = -INFINITY;
+        }
+      }
+    }
     float corr[kRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float x = s[r][j] * scale;
-        if (masked) {
-          const int kpos = k0 + lane + j * kWarp;
-          if (kpos >= seq || (causal && kpos > row0 + r)) x = kNegInf;
-        }
-        s[r][j] = x;
-      }
       const float m_new = fmaxf(m[r], warp_max(fmaxf(s[r][0], s[r][1])));
       const float p0 = expf(s[r][0] - m_new);
       const float p1 = expf(s[r][1] - m_new);
@@ -324,7 +404,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < kRowsPerWarp; ++r)
       if (lane == r && row0 + r < seq)
         lse[static_cast<int64_t>(blockIdx.y) * seq + row0 + r] =
-            m[r] + logf(fmaxf(l[r], 1e-30f));
+            span.dead(row0 + r) ? kNegInf : m[r] + logf(fmaxf(l[r], 1e-30f));
   }
 }
 
@@ -442,13 +522,17 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(kFull, v, 2);
 }
 
-template <typename T, int HD>
+// HD: the staged tile's head dim; DH: the tensors' (96 staged as 128).
+// kSpan: the general mask (a window, Sq != Sk, rows no key may see);
+// without it the code is the plain causal / full Sq == Sk kernel's.
+template <typename T, int HD, int DH, bool kSpan>
 __global__ void __launch_bounds__(kWgThreads * kMaxHeads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    T* __restrict__ o, float* __restrict__ lse, int seq,
-                   int heads, int kv_heads, float scale_log2, int causal) {
+                   int heads, int kv_heads, float scale_log2, int causal,
+                   int seq_k, int window) {
   using L = Tiles<HD>;
   constexpr int kLayout = wg::layout_code(L::kRowBytes);
   constexpr int KS = HD / 16;       // k-steps of QKᵀ
@@ -469,8 +553,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int kvh = head0 / (heads / kv_heads);
   const int qb = static_cast<int>(gridDim.y - 1 - blockIdx.y);  // longest first
   const int q0 = qb * kWgRows;
-  const int kend = causal ? min(seq, q0 + kWgRows) : seq;
-  const int nkt = (kend + kKeys - 1) / kKeys;
+  const KeySpan span(q0, kWgRows, kKeys, seq, seq_k, causal, window);
+  const int kt0 = kSpan ? span.kt0 : 0;
+  const int nkt = kSpan ? span.kt1 - kt0
+                        : ((causal ? min(seq, q0 + kWgRows) : seq) + kKeys -
+                           1) / kKeys;
   uint8_t* q_smem = smem;
   uint8_t* kv_smem = smem + hpc * L::kQTile;  // stage s: K, then V
 
@@ -485,8 +572,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     uint8_t* ks = kv_smem + s * 2 * L::kKvTile;
     for (int c = 0; c < HD; c += L::kCols) {
       const int off = (c / L::kCols) * kKeys * L::kRowBytes;
-      tma_load(ks + off, &tm_k, c, kvh, kt * kKeys, b, &full_bar[s]);
-      tma_load(ks + L::kKvTile + off, &tm_v, c, kvh, kt * kKeys, b,
+      tma_load(ks + off, &tm_k, c, kvh, (kt0 + kt) * kKeys, b, &full_bar[s]);
+      tma_load(ks + L::kKvTile + off, &tm_v, c, kvh, (kt0 + kt) * kKeys, b,
                &full_bar[s]);
     }
   };
@@ -521,6 +608,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int t = lane % 4;
     const int h = head0 + wgi;
     const int qrow[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+    int klo[2] = {0, 0}, khi[2] = {0, 0};   // the keys each row may see
+    if constexpr (kSpan) {
+      span.row_keys(qrow[0], klo[0], khi[0]);
+      span.row_keys(qrow[1], klo[1], khi[1]);
+    }
     const uint8_t* qs = q_smem + wgi * L::kQTile;
 
     float acc[HD / 2];
@@ -561,8 +653,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // are updated.  The max is taken on the raw scores (the scale is
     // positive), and p = exp2(s * scale_log2 - m) is one FFMA and one EX2.
     auto softmax = [&](int kt) {
-      const int k0 = kt * kKeys;
-      const bool masked = (causal && k0 + kKeys - 1 > q0) || (k0 + kKeys > seq);
+      const int k0 = (kt0 + kt) * kKeys;
+      const bool masked =
+          kSpan ? span.masked(kt0 + kt)
+                : (causal && k0 + kKeys - 1 > q0) || (k0 + kKeys > seq);
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int n = 0; n < NB; ++n)
@@ -571,7 +665,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           float x = sc[4 * n + e];
           if (masked) {
             const int kpos = k0 + n * 8 + 2 * t + (e & 1);
-            if (kpos >= seq || (causal && kpos > qrow[e >> 1])) x = kNegInf;
+            if constexpr (kSpan) {
+              if (kpos < klo[e >> 1] || kpos > khi[e >> 1]) x = -INFINITY;
+            } else {
+              if (kpos >= seq || (causal && kpos > qrow[e >> 1])) x = kNegInf;
+            }
           }
           sc[4 * n + e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -642,6 +740,25 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // The steady-state body has no branch around a wgmma, commit or wait,
     // so ptxas can tell which group each wait retires.
     mbar_wait(&q_bar, 0);
+    if (kSpan && span.any_dead) {
+      // Rows no key may see: zero their Q lines (a swizzled row stays in
+      // its own line), so each of their scores is 0; then make the writes
+      // visible to the tensor cores' reads and wait for the warpgroup.
+      const int dead = min(kWgRows, -span.off - q0);
+      constexpr int kChunks = L::kRowBytes / 16;
+      uint8_t* qz = q_smem + wgi * L::kQTile;
+      for (int i = tid; i < (HD / L::kCols) * dead * kChunks;
+           i += kWgThreads) {
+        const int blk = i / (dead * kChunks);
+        const int row = (i / kChunks) % dead;
+        *reinterpret_cast<uint4*>(qz + blk * kWgRows * L::kRowBytes +
+                                  row * L::kRowBytes + (i % kChunks) * 16) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wgi), "n"(kWgThreads)
+                   : "memory");
+    }
     issue_scores(0);
     wg::wait<0>();
     wg::hold(sc);
@@ -675,16 +792,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < 2; ++i) {
       if (qrow[i] >= seq) continue;
       const float denom = fmaxf(l[i], 1e-30f);
-      T* orow = o + ((static_cast<int64_t>(b) * seq + qrow[i]) * heads + h) * HD;
+      T* orow = o + ((static_cast<int64_t>(b) * seq + qrow[i]) * heads + h) * DH;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
+      for (int j = 0; j < DH / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
             pack2<T>(acc[4 * j + 2 * i] / denom, acc[4 * j + 2 * i + 1] / denom);
       // The quad's 4 lanes hold the row's m and l (log2 domain, scaled):
       // lane t == 0 writes the natural-log log-sum-exp, if asked.
       if (lse != nullptr && t == 0)
         lse[(static_cast<int64_t>(b) * heads + h) * seq + qrow[i]] =
-            (m[i] + log2f(denom)) * 0.6931471805599453f;
+            kSpan && span.dead(qrow[i])
+                ? kNegInf
+                : (m[i] + log2f(denom)) * 0.6931471805599453f;
     }
   }
 }
@@ -712,21 +831,22 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a (batch, seq, heads, HD) tensor whose box is `rows` rows of
-// one head and one swizzle atom's columns.
-template <typename T, int HD>
+// The map of a (batch, seq, heads, DH) tensor whose box is `rows` rows of
+// one head and one swizzle atom's columns of an HD-wide tile (columns past
+// DH read as zeros).
+template <typename T, int HD, int DH>
 bool tensor_map(CUtensorMap* map, const void* base, int64_t batch,
                 int64_t seq, int64_t heads, int rows) {
   using L = Tiles<HD>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DH),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(seq),
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {
-      static_cast<cuuint64_t>(HD) * 2, static_cast<cuuint64_t>(heads * HD) * 2,
-      static_cast<cuuint64_t>(seq * heads * HD) * 2};
+      static_cast<cuuint64_t>(DH) * 2, static_cast<cuuint64_t>(heads * DH) * 2,
+      static_cast<cuuint64_t>(seq * heads * DH) * 2};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(L::kCols), 1,
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
@@ -743,11 +863,11 @@ bool tensor_map(CUtensorMap* map, const void* base, int64_t batch,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int DH, bool kSpan>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  float* lse, int64_t batch, int64_t seq, int64_t heads,
-                 int64_t kv_heads, float scale, int causal,
-                 cudaStream_t stream) {
+                 int64_t kv_heads, float scale, int causal, int64_t seq_k,
+                 int64_t window, cudaStream_t stream) {
   const int64_t rep = heads / kv_heads;
   int hpc = 1;   // the largest divisor of rep up to kMaxHeads
   for (int c = kMaxHeads; c > 1; --c) {
@@ -757,27 +877,29 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     }
   }
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!tensor_map<T, HD>(&tm_q, q, batch, seq, heads, kWgRows) ||
-      !tensor_map<T, HD>(&tm_k, k, batch, seq, kv_heads, kKeys) ||
-      !tensor_map<T, HD>(&tm_v, v, batch, seq, kv_heads, kKeys)) {
+  if (!tensor_map<T, HD, DH>(&tm_q, q, batch, seq, heads, kWgRows) ||
+      !tensor_map<T, HD, DH>(&tm_k, k, batch, seq_k, kv_heads, kKeys) ||
+      !tensor_map<T, HD, DH>(&tm_v, v, batch, seq_k, kv_heads, kKeys)) {
     return static_cast<int>(encode_tiled() == nullptr ? cudaErrorNotSupported
                                                       : cudaErrorInvalidValue);
   }
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_wgmma_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_wgmma_kernel<T, HD, DH, kSpan>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         Tiles<HD>::bytes(kMaxHeads));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(static_cast<unsigned>(batch * heads / hpc),
                   static_cast<unsigned>((seq + kWgRows - 1) / kWgRows));
-  flash_wgmma_kernel<T, HD>
+  flash_wgmma_kernel<T, HD, DH, kSpan>
       <<<grid, kWgThreads * hpc, Tiles<HD>::bytes(hpc), stream>>>(
           tm_q, tm_k, tm_v, static_cast<T*>(o), lse, static_cast<int>(seq),
           static_cast<int>(heads), static_cast<int>(kv_heads),
-          scale * 1.4426950408889634f, causal);
+          scale * 1.4426950408889634f, causal, static_cast<int>(seq_k),
+          static_cast<int>(window));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -786,10 +908,19 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
-           float scale, int causal, cudaStream_t stream) {
+           float scale, int causal, int64_t seq_k, int64_t window,
+           cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value) {
-    return launch_wgmma<T, HD>(q, k, v, o, lse, batch, seq, heads, kv_heads,
-                               scale, causal, stream);
+    constexpr int kTile = HD == 96 ? 128 : HD;
+    if constexpr (kTile == HD) {
+      if (seq_k == seq && window == 0)
+        return launch_wgmma<T, HD, HD, false>(q, k, v, o, lse, batch, seq,
+                                              heads, kv_heads, scale, causal,
+                                              seq_k, window, stream);
+    }
+    return launch_wgmma<T, kTile, HD, true>(q, k, v, o, lse, batch, seq,
+                                            heads, kv_heads, scale, causal,
+                                            seq_k, window, stream);
   } else {
     const dim3 grid(static_cast<unsigned>((seq + kBlockQ - 1) / kBlockQ),
                     static_cast<unsigned>(batch * heads));
@@ -806,7 +937,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), lse,
         static_cast<int>(seq),
-        static_cast<int>(heads), static_cast<int>(kv_heads), scale, causal);
+        static_cast<int>(heads), static_cast<int>(kv_heads), scale, causal,
+        static_cast<int>(seq_k), static_cast<int>(window));
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -814,43 +946,47 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* o,
               float* lse, int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
-              int64_t head_dim, float scale, int causal,
-              cudaStream_t stream) {
+              int64_t head_dim, float scale, int causal, int64_t seq_k,
+              int64_t window, cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, batch, seq, heads, kv_heads, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, lse, batch, seq, heads, kv_heads, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, batch, seq, heads, kv_heads, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, batch, seq, heads, kv_heads, scale, causal, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, batch, seq, heads, kv_heads, scale, causal, seq_k, window, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, batch, seq, heads, kv_heads, scale, causal, seq_k, window, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, batch, seq, heads, kv_heads, scale, causal, seq_k, window, stream);
+    case 96: return launch<T, 96>(q, k, v, o, lse, batch, seq, heads, kv_heads, scale, causal, seq_k, window, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, batch, seq, heads, kv_heads, scale, causal, seq_k, window, stream);
     default: return kUnsupported;
   }
 }
 
 }  // namespace
 
-// q, o: (batch, seq, heads, head_dim); k, v: (batch, seq, kv_heads,
+// q, o: (batch, seq, heads, head_dim); k, v: (batch, seq_k, kv_heads,
 // head_dim); all contiguous, 16-byte aligned, of one dtype; scale is
 // 1/sqrt(head_dim) rounded to fp32 by the caller, as the reference does.
 // lse: null, or fp32 (batch, heads, seq), which takes each row's
 // log-sum-exp of the scaled, masked scores (natural log; the training
-// backward recomputes P = exp(s - lse) from it).  It is the last argument,
-// so a caller built against the form without it passes nothing there.
-// The wrapper checks shapes; heads % kv_heads == 0 and batch * heads <=
-// 65535 are its contract.
+// backward recomputes P = exp(s - lse) from it; -1e30 for a row no key
+// may see).  window: 0, or the sliding window (keys t > s + seq_k - seq -
+// window).  The wrapper checks shapes; heads % kv_heads == 0, seq_k >= 1 and batch *
+// heads <= 65535 are its contract.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int64_t batch,
                                    int64_t seq, int64_t heads,
                                    int64_t kv_heads, int64_t head_dim,
                                    float scale, int causal, int dtype,
-                                   void* stream, float* lse) {
+                                   void* stream, float* lse, int64_t seq_k,
+                                   int64_t window) {
   if (batch == 0 || seq == 0 || heads == 0) return 0;
+  if (seq_k < 1 || seq_k > 0x7fffffff || window < 0 || window > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch_hd<float>(q, k, v, o, lse, batch, seq, heads, kv_heads, head_dim, scale, causal, s);
+      return launch_hd<float>(q, k, v, o, lse, batch, seq, heads, kv_heads, head_dim, scale, causal, seq_k, window, s);
     case kF16:
-      return launch_hd<__half>(q, k, v, o, lse, batch, seq, heads, kv_heads, head_dim, scale, causal, s);
+      return launch_hd<__half>(q, k, v, o, lse, batch, seq, heads, kv_heads, head_dim, scale, causal, seq_k, window, s);
     case kBF16:
-      return launch_hd<__nv_bfloat16>(q, k, v, o, lse, batch, seq, heads, kv_heads, head_dim, scale, causal, s);
+      return launch_hd<__nv_bfloat16>(q, k, v, o, lse, batch, seq, heads, kv_heads, head_dim, scale, causal, seq_k, window, s);
     default:
       return kUnsupported;
   }

@@ -10,7 +10,8 @@ reduction).
 
 Training (:func:`build_train_step`): one call takes the global batch
 ``(n_mb, mb, S)`` and, per microbatch, runs ``train_loss`` forward and
-backward (each block rematerialised, attention on B5), then adds the
+backward (each block rematerialised, attention on B5, the ssm family's
+recurrence on wkv6 / wkv6_bwd), then adds the
 gradients into an accumulator in the flat fp32 layout of
 ``optim/adamw.py``; the mean over microbatches goes to AdamW.  The
 reference jits the step and donates the parameters and optimizer state;
@@ -272,12 +273,12 @@ def build_train_step(cfg, params, opt: OptConfig, *, mesh=None,
 
 def _launch_counters() -> Tuple[Callable, ...]:
     """The kernel wrappers whose ``launches`` attribute counts launches:
-    B1, B2, B3, B4, B5 and wkv6."""
+    B1, B2, B3, B4, B5, wkv6 and wkv6_bwd."""
     from ..kernels import (bcsr_spmm, csr_spmm, flash_attention, spmm_sdd,
                            wkv6)
     return (csr_spmm.csr_panels_spmm, bcsr_spmm.bcsr_panels_spmm,
             spmm_sdd.csr_sdd_panels, spmm_sdd.bcsr_sdd_panels,
-            flash_attention.flash_attention, wkv6.wkv6)
+            flash_attention.flash_attention, wkv6.wkv6, wkv6.wkv6_bwd)
 
 
 class _Static:

@@ -1,4 +1,4 @@
-"""B1-B5's and wkv6's launches as PyTorch operators,
+"""B1-B5's, wkv6's and wkv6_bwd's launches as PyTorch operators,
 ``torch.ops.repro_torch.*``.
 
 A kernel wrapper checks its inputs and allocates its outputs in Python;
@@ -11,15 +11,16 @@ by :func:`define`) whose ``CUDA`` kernel makes the ctypes call of
     through every LOOPS and attention call and launches nothing;
   * a flop formula (``torch.utils.flop_counter.register_flop_formula``):
     the flops the data needs, by PERF.md §3's rule (unmasked lanes, which
-    the wrappers pass as ``live``; for causal B5 the S(S+1)/2 kept pairs),
-    so ``FlopCounterMode`` and :mod:`repro_torch.perf.hlo_analysis` count
+    the wrappers pass as ``live``; for B5 the pairs its mask keeps), so
+    ``FlopCounterMode`` and :mod:`repro_torch.perf.hlo_analysis` count
     the kernels' work (wkv6: the recurrence's arithmetic, 5 flops a state
-    element and step);
+    element and step; wkv6_bwd 18);
   * a byte formula (:data:`BYTES`): each input read once and each output
     written once, the §3 bound's rule.  B1 and B2 write into a buffer
     they share, so theirs counts the rows the call writes; wkv6 updates
     its state in place (``Tensor(a!)``), read unless it starts from
-    zeros and written once.
+    zeros and written once; the training forward's snapshots, the
+    backward's workspace, are not counted.
 
 The operators are defined with ``torch.library.Library`` (a schema and a
 kernel for the ``CUDA`` key) rather than ``torch.library.custom_op``.
@@ -33,8 +34,8 @@ active: ``FakeTensorMode``, ``FlopCounterMode``, the analyser's
 ``meta`` or subclass tensor), and otherwise calls the operator's own CUDA
 kernel function, the one launch path either way.  Neither has an autograd
 formula: the wrappers are called under the autograd Functions of
-``core/spmm.py`` and ``kernels/flash_attention.py``, as before (wkv6
-serves only: it has no backward yet).
+``core/spmm.py``, ``kernels/flash_attention.py`` and ``kernels/wkv6.py``
+(whose backward is the operator ``wkv6_bwd``).
 """
 from __future__ import annotations
 

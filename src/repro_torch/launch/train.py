@@ -3,7 +3,9 @@
 Thin CLI over the step layer: :func:`repro_torch.dist.step.build_train_step`
 builds the grad-accumulating AdamW step (flat ZeRO-1 layout), whose
 attention runs on the CUDA kernel B5 (forward, and again in each block's
-remat recompute).  This module owns the loop: data, checkpoints, logging.
+remat recompute); the ssm family's (``--arch rwkv6-3b``) recurrence runs
+on wkv6 (forward and recompute) and wkv6_bwd (backward).  This module
+owns the loop: data, checkpoints, logging.
 
 Fault tolerance contract (the reference's):
   * checkpoints are step-atomic and async (:mod:`repro_torch.checkpoint`);
@@ -31,10 +33,10 @@ a GPU a rank, else gloo; on one card the ranks share it).  Each rank draws
 the full model from the seed and keeps its shards
 (:func:`repro_torch.models.transformer.shard_params`) and its ZeRO rows;
 rank 0 prints, writes the heartbeat and the (unsharded) checkpoints, and
-returns the record, with every rank's step times, peak memory and B5
-launches under ``per_rank``.  A rank that fails fails the run, and so do
-spawned ranks past :func:`main`'s ``timeout_s``; nothing falls back to
-fewer ranks or to the CPU.
+returns the record, with every rank's step times, peak memory and B5 /
+wkv6 / wkv6_bwd launches under ``per_rank``.  A rank that fails fails
+the run, and so do spawned ranks past :func:`main`'s ``timeout_s``;
+nothing falls back to fewer ranks or to the CPU.
 A periodic checkpoint that would fall on the last step is left to the
 final one, which the reference writes at the same step as well;
 ``--no-final-ckpt`` skips the final one (a run whose end state no one
@@ -47,6 +49,9 @@ On the card, at llama3.2-1b's full width:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --steps 3 --seq-len 2048 --global-batch 4 --mesh-data 2 \\
       --mesh-model 2 --ckpt-dir build/ckpt_mesh
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
+      --layers 16 --steps 3 --seq-len 2048 --global-batch 8 \\
+      --ckpt-dir build/ckpt_ssm
 
 On the CPU, reduced:
 
@@ -70,6 +75,7 @@ from ..configs.base import ShapeConfig
 from ..data import DataConfig, global_batch_at
 from ..dist import step as step_lib
 from ..kernels import flash_attention as b5
+from ..kernels import wkv6
 from ..kernels.engine import resolve_device
 from ..models import api
 from ..optim import adamw
@@ -227,6 +233,7 @@ def main(argv=None, *, timeout_s: float | None = None) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     b5_before = b5.flash_attention.launches
+    wkv6_before = (wkv6.wkv6.launches, wkv6.wkv6_bwd.launches)
     t_start = time.perf_counter()
     metrics = None
     engine_ctx = obs.attach_engine() if obs else contextlib.nullcontext()
@@ -274,9 +281,13 @@ def main(argv=None, *, timeout_s: float | None = None) -> dict:
                 "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                                 if dev.type == "cuda" else None),
                 "local_heads": (params.layers[0].attn.wq.shape[1]
-                                // cfg.resolved_head_dim),
+                                // cfg.resolved_head_dim
+                                if cfg.family != "ssm" else None),
                 "launches": {"flash_attention":
-                             b5.flash_attention.launches - b5_before}}
+                             b5.flash_attention.launches - b5_before,
+                             "wkv6": wkv6.wkv6.launches - wkv6_before[0],
+                             "wkv6_bwd": (wkv6.wkv6_bwd.launches
+                                          - wkv6_before[1])}}
         per_rank = [None] * world
         dist.all_gather_object(per_rank, mine)
         record["per_rank"] = per_rank

@@ -13,10 +13,9 @@ Every architecture exposes the same entry points regardless of family:
 
 ``batch`` for ``train_loss``: ``{tokens (B, S), labels (B, S)}`` integer
 tensors (or arrays) with -1 = masked label; ``aux`` is ``{"tokens":
-n_unmasked}``.  The port runs the dense and moe families
-(:mod:`.transformer`, :mod:`.moe`) and serves the ssm family
-(:mod:`.rwkv6`, whose ``train_loss`` raises); every other family raises
-``NotImplementedError`` (ROADMAP A.13).
+n_unmasked}``.  The port runs the dense, moe and ssm families
+(:mod:`.transformer`, :mod:`.moe`, :mod:`.rwkv6`); every other family
+raises ``NotImplementedError`` (ROADMAP A.13).
 """
 from __future__ import annotations
 

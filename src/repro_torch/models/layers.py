@@ -335,7 +335,10 @@ def attention_init(gen: torch.Generator, d_model: int, n_heads: int,
 
 def flash_attention(q, k, v, *, causal: bool, window: int = 0,
                     backend: str | None = None) -> torch.Tensor:
-    """Prefill and training attention over ``(B, S, H, hd)``; O(S) memory.
+    """Prefill and training attention: q ``(B, Sq, H, hd)``, k, v ``(B, Sk,
+    KV, hd)``; O(S) memory.  The mask is the reference's: causal keeps key
+    ``t <= s + Sk - Sq`` (the prefix offset), ``window > 0`` keeps ``t > s +
+    Sk - Sq - window`` (a sliding window).
 
     ``backend="cuda"`` (default) runs B5, which launches the CUDA kernel
     on CUDA tensors and its plain version on CPU tensors; ``"torch"`` runs
@@ -344,23 +347,27 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
     its autograd Function
     (``kernels/flash_attention.py::flash_attention_train``), whose backward
     recomputes P from the saved log-sum-exp; serving runs under
-    ``no_grad`` and never takes it.  Sliding windows and a prefix offset
-    (Sq != Sk) raise: B5 takes neither (ROADMAP A.13)."""
+    ``no_grad`` and never takes it.  The window goes through on every
+    path."""
     _b5.check_inputs(q, k, v, window)
     if resolve_backend(backend) == "torch":
-        return _b5.flash_attention_plain(q, k, v, causal=causal)
+        return _b5.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _b5.flash_attention_train(q, k, v, causal=causal)
-    return _b5.flash_attention(q, k, v, causal=causal)
+        return _b5.flash_attention_train(q, k, v, causal=causal,
+                                         window=window)
+    return _b5.flash_attention(q, k, v, causal=causal, window=window)
 
 
-def decode_attention(q, k_cache, v_cache, length: int) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, length: int, *,
+                     window: int = 0) -> torch.Tensor:
     """Single-token attention against a cache.
 
     q: (B, 1, H, hd); caches: (B, S, KV, hd); length: number of valid
     cache entries (the new token's k/v already written at length - 1), an
-    ``int`` or a 0-d integer tensor on q's device.
+    ``int`` or a 0-d integer tensor on q's device.  ``window > 0`` also
+    drops the entries before ``length - window``, as the reference's.
     """
     bsz, _, heads, hd = q.shape
     seq, kv = k_cache.shape[1], k_cache.shape[2]
@@ -368,7 +375,10 @@ def decode_attention(q, k_cache, v_cache, length: int) -> torch.Tensor:
     scale = 1.0 / math.sqrt(hd)
     qg = q.reshape(bsz, kv, rep, hd)
     s = torch.einsum("bgrh,bsgh->bgrs", qg.to(F32), k_cache.to(F32)) * scale
-    valid = torch.arange(seq, device=q.device) < length
+    pos = torch.arange(seq, device=q.device)
+    valid = pos < length
+    if window:
+        valid = valid & (pos >= length - window)
     s = torch.where(valid, s, torch.full((), -1e30, dtype=F32,
                                          device=q.device))
     p = torch.softmax(s, dim=-1)

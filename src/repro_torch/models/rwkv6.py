@@ -14,15 +14,22 @@ g and w are fp32; y goes back to ``x.dtype`` before the layernorm, and
 
 The recurrence runs through ``kernels/wkv6.py`` (the CUDA kernel on the
 card, its plain time loop on the CPU; ``backend="torch"`` runs the plain
-loop on any device), which writes the final state into ``out_state`` in
-place: the serving cache's layer slice.
+loop on any device, differentiated by autograd in training), which writes
+the final state into ``out_state`` in place: the serving cache's layer
+slice.  When grad is enabled and an input of the recurrence requires it
+(training), it runs through ``wkv6_train``, whose backward is the
+hand-written ``wkv6_bwd`` (its plain version on the CPU); serving runs
+under ``no_grad`` and never takes it.
 
 On a mesh (a :class:`~.layers.MeshLayout` whose ``gate`` is set) ``wg``
 is a column shard and ``wo`` the matching row shard, by
 ``dist/sharding.py::param_specs``; everything else is whole on every rank
 of ``model``, so each rank runs the recurrence for all heads, takes its
 ``gate`` columns of y, and ``wo``'s partial products are summed over
-``model`` in fp32 (:func:`~.layers.row_parallel`).
+``model`` in fp32 (:func:`~.layers.row_parallel`).  In training y passes
+through :func:`~.layers.copy_to_model` before the slice, so the gradient
+of everything whole on the ranks is summed over ``model``: each rank's
+columns carry a part of it.
 
 Parameters live in :class:`TimeMix` and :class:`ChannelMix`, whose
 attribute names are the reference's pytree keys.
@@ -171,14 +178,22 @@ def rwkv6_forward(p: TimeMix, x: torch.Tensor, n_heads: int, state=None, *,
     g = F.silu(matmul(xg, p.wg).to(F32))
     w = _decay(p, mixed["w"]).reshape(bsz, seq, n_heads, hd)
     u = p.u.to(F32)
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (r, k, v, w, u))
     if resolve_backend(backend) == "torch":
         y, s_t = _wkv.wkv6_plain(r, k, v, w, u, s0)
         if out_state is not None:
             s_t = out_state.copy_(s_t)
+    elif train:
+        if out_state is not None:
+            raise ValueError("a recurrence with a gradient writes no "
+                             "caller's state buffer (out_state)")
+        y, s_t = _wkv.wkv6_train(r, k, v, w, u, s0)
     else:
         y, s_t = _wkv.wkv6(r, k, v, w, u, s0, state=out_state)
     y = layers.layernorm(p.ln_out, y.reshape(bsz, seq, d).to(x.dtype))
     if split:     # this rank's gate columns; wo's rows summed over model
+        y = layers.copy_to_model(y, layout)
         c0, c1 = layout.gate
         yg = (y[..., c0:c1].to(F32) * g).to(x.dtype)
         out = layers.row_parallel(yg, p.wo, layout)

@@ -52,22 +52,26 @@ PyTorch runs eagerly, so the layer loop is a Python loop.
   place of ``mlp``; its router stays fp32 in every constructor here.  On a
   mesh the experts split over ``model`` (expert parallelism, see
   :mod:`.moe`).
-* The ssm family (rwkv6-3b), served only: a block holds ``norm1``,
-  ``time_mix``, ``norm2`` and ``channel_mix`` (:mod:`.rwkv6`) and no
-  attention or MLP; its cache is a state, ``{"x_tm" (L, B, d), "s" (L, B,
-  H, N, N) fp32, "x_cm" (L, B, d)}``, the reference's.  :func:`prefill`
-  starts every layer from the zero state and overwrites the cache's
-  layer slices (a reused slot's old state is never read); the recurrence
+* The ssm family (rwkv6-3b): a block holds ``norm1``, ``time_mix``,
+  ``norm2`` and ``channel_mix`` (:mod:`.rwkv6`) and no attention or MLP;
+  its cache is a state, ``{"x_tm" (L, B, d), "s" (L, B, H, N, N) fp32,
+  "x_cm" (L, B, d)}``, the reference's.  :func:`prefill` starts every
+  layer from the zero state and overwrites the cache's layer slices (a
+  reused slot's old state is never read); the recurrence
   (``kernels/wkv6.py``) writes its final state into ``s`` in place, and
   :func:`decode_step` continues it there.  ``length`` is not read for
-  this family, as in the reference.  :func:`train_loss` raises: training
-  needs a backward of the recurrence (ROADMAP A.13, item 7c-train).  On a
-  mesh the time mix's ``wg`` / ``wo`` split over ``model`` and the state
-  is whole on every model rank.
+  this family, as in the reference.  :func:`train_loss` runs each block
+  from the zero state with no cache, each under the checkpoint as a dense
+  block is, the recurrence through ``wkv6``'s autograd Function (the
+  forward kernel with state snapshots, the backward kernel ``wkv6_bwd``),
+  so a block's forward and its recompute launch ``wkv6`` once each and
+  its backward ``wkv6_bwd`` once.  On a mesh the time mix's ``wg`` /
+  ``wo`` split over ``model`` and the state is whole on every model rank.
 
-The hybrid, audio and vlm families, and sliding-window attention,
-activations other than swiglu (gelu in a MoE) and frontends, raise
-``NotImplementedError``: they come with ROADMAP A.13.
+The hybrid, audio and vlm families, and sliding-window configs (B5 and
+``layers.decode_attention`` take a window; the ring cache comes with the
+hybrid family), activations other than swiglu (gelu in a MoE) and
+frontends, raise ``NotImplementedError``: they come with ROADMAP A.13.
 """
 from __future__ import annotations
 
@@ -110,7 +114,9 @@ def check_supported(cfg: ModelConfig) -> None:
         if hit:
             raise NotImplementedError(
                 f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported "
-                "yet (ROADMAP A.13)")
+                "yet (ROADMAP A.13)" + (
+                    "; B5 takes the window, the model's ring cache is not "
+                    "ported" if field == "sliding_window" else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -341,12 +347,14 @@ def _attn_block(cfg: ModelConfig, lp: Block, x, positions, *, mode,
         kc, vc = ((layers.take_kv(k_cache, layout),
                    layers.take_kv(v_cache, layout)) if take
                   else (k_cache, v_cache))
-        out = layers.decode_attention(q, kc, vc, length + 1)
+        out = layers.decode_attention(q, kc, vc, length + 1,
+                                      window=cfg.sliding_window)
         cache_out = (k_cache, v_cache)
     else:
         ka, va = ((layers.take_kv(k, layout), layers.take_kv(v, layout))
                   if take else (k, v))
         out = layers.flash_attention(q, ka, va, causal=True,
+                                     window=cfg.sliding_window,
                                      backend=backend)
         cache_out = (k, v)
     out = out.reshape(bsz, seq, heads * hd)
@@ -388,7 +396,16 @@ def _ssm_layer_apply(cfg: ModelConfig, lp: Block, x, *, mode, cache,
     """The reference's ssm block: the time mix and the channel mix, each
     behind its norm, with residuals.  A prefill starts from the zero state
     and a decode step from ``cache``'s; either way the new state goes into
-    ``cache`` (the recurrence's S in place)."""
+    ``cache`` (the recurrence's S in place).  ``mode="train"`` takes no
+    cache and keeps no state: the reference's ``state=None``."""
+    if mode == "train":
+        h, _ = rwkv6.rwkv6_forward(
+            lp.time_mix, layers.norm_apply(cfg.norm, lp.norm1, x),
+            cfg.rwkv_heads, None, backend=backend, layout=layout)
+        x = x + h
+        h, _ = rwkv6.channel_mix(
+            lp.channel_mix, layers.norm_apply(cfg.norm, lp.norm2, x), None)
+        return x + h, None
     fresh = mode != "decode"
     h, (x_tm, _) = rwkv6.rwkv6_forward(
         lp.time_mix, layers.norm_apply(cfg.norm, lp.norm1, x),
@@ -571,7 +588,7 @@ def _train_block(cfg: ModelConfig, lp: Block, x, positions, backend,
 
 def _run_stack(cfg: ModelConfig, params: LM, x, positions, *,
                backend=None):
-    """The layer loop of training: each block under
+    """The layer loop of training: each block (dense, moe or ssm) under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
     scanned body), so only the blocks' inputs are kept and the backward
     recomputes one block at a time."""
@@ -586,13 +603,9 @@ def train_loss(cfg: ModelConfig, params: LM, batch: Dict[str, Any], *,
                backend: str | None = None):
     """batch: tokens (B, S), labels (B, S) (-1 masked).  Returns (loss,
     {"tokens": n_tokens}).  ``backend="torch"`` runs attention's plain
-    version instead of B5 (forward and recompute)."""
+    version instead of B5 (forward and recompute), and for the ssm family
+    the recurrence's plain loop instead of wkv6 / wkv6_bwd."""
     check_supported(cfg)
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: ssm training needs a backward of the wkv6 "
-            "recurrence, which is not ported yet (ROADMAP A.13, item "
-            "7c-train); the port serves this family only")
     tokens = _tokens(params, batch["tokens"])
     labels = _tokens(params, batch["labels"])
     x = _embed_inputs(cfg, params, tokens)

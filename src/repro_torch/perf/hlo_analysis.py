@@ -11,19 +11,19 @@ shapes and dtypes.  :func:`analyze_ops` counts the records, per device
 
   * ``flops``: ``torch.utils.flop_counter``'s registry (matrix products,
     their fp32-out ``out_dtype`` overloads among them, convolutions,
-    attention) plus the flop formulas of B1-B5's and wkv6's operators
-    (``kernels/_ops.py``: the flops the data needs, unmasked lanes and a
-    causal call's kept pairs; wkv6's recurrence, one operator a layer
-    where the reference's scan is a loop of T steps), as the reference
-    counts its dots;
+    attention) plus the flop formulas of B1-B5's, wkv6's and wkv6_bwd's
+    operators (``kernels/_ops.py``: the flops the data needs, unmasked
+    lanes and the pairs B5's mask keeps; wkv6's recurrence and its
+    backward, one operator each a layer where the reference's scan is a
+    loop of T steps), as the reference counts its dots;
   * ``hbm_bytes``: the eager analogue of the reference's post-fusion
     traffic model, since in eager every operator is a kernel: each reads
     its tensor operands and writes its outputs.  Views and metadata
     operators are free, a ``copy_`` reads its source and writes its
-    target, a fill or a random draw writes only, and B1-B5 and wkv6 count
-    by their own byte formulas (each input once, each output once; B1 and
-    B2 the rows they write; wkv6's state read unless it starts at zero,
-    and written);
+    target, a fill or a random draw writes only, and B1-B5, wkv6 and
+    wkv6_bwd count by their own byte formulas (each input once, each
+    output once; B1 and B2 the rows they write; wkv6's state read unless
+    it starts at zero, and written; not wkv6's snapshots);
   * ``collective_bytes`` (and ``collective_by_kind``): operand bytes of
     each ``c10d`` operator, from its result's bytes and its group's size
     as the reference's ``_group_size`` asymmetry has it (an all-gather's

@@ -366,12 +366,12 @@ def test_cli_records_keep_trace_and_reanalyze(tmp_path, monkeypatch):
     roofline.main(out=lines.append, results=out)
     assert any(ln.startswith("roofline_llama3.2-1b_decode_32k") for ln in
                lines) and (out / "roofline.md").exists()
-    # head dim 96 (phi-3-vision's) is past B5's contract: the prefill
-    # cell fails and is recorded with the error
+    # head dim 24 is past B5's contract (16, 32, 64, 96, 128): the
+    # prefill cell fails and is recorded with the error
     assert dryrun.main(["--arch", "llama3.2-1b", "--shape", "prefill_32k",
                         "--mesh", "single", "--device", "meta", "--set",
-                        "head_dim=96", "--tag", "bad",
+                        "head_dim=24", "--tag", "bad",
                         "--out", str(out)]) == 1
     bad = json.loads((out / "llama3.2-1b__prefill_32k__single__bad.json"
                       ).read_text())
-    assert bad["status"] == "error" and "head dim 96" in bad["error"]
+    assert bad["status"] == "error" and "head dim 24" in bad["error"]

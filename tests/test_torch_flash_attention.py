@@ -3,8 +3,14 @@ tensors) against the reference's Pallas kernel in interpret mode and its
 XLA-level ``layers.flash_attention``, with the reference test's shapes and
 tolerances (fp32 2e-5, bf16 3e-2), plus ragged S, chunk invariance, the
 inputs the kernel refuses, and the per-row bound ``chip_smoke.py`` holds
-the kernel to on the card against faults of a model of the kernel.  Inputs
-come from numpy with a seed."""
+the kernel to on the card against faults of a model of the kernel.  The
+reference attention's contract beyond its kernel: sliding windows (4, 5,
+16, and 20 with a prefix offset), causal Sq < Sk and Sq > Sk (rows no key
+may see), non-causal Sq != Sk, hd 96, against ``repro.models.layers.
+flash_attention`` in fp32 at 2e-5 and bf16 at 3e-2, with the gradients of
+the autograd Function against ``jax.vjp`` at 1e-5 of max(1, max |g|); the
+mask's kept pairs in the flop formula; ``decode_attention``'s window
+against the reference's.  Inputs come from numpy with a seed."""
 import math
 import pathlib
 import sys
@@ -119,17 +125,21 @@ def _args(rng, B=1, S=16, H=4, KV=2, hd=16, Sk=None, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("case,exc", [
-    ("window", NotImplementedError), ("prefix_offset", NotImplementedError),
+    ("negative_window", ValueError), ("no_keys", ValueError),
     ("head_dim_24", ValueError), ("heads_not_multiple", ValueError),
     ("float64", ValueError), ("not_contiguous", ValueError)])
 @pytest.mark.parametrize("entry", ["kernel", "layers_torch"])
 def test_refuses_what_the_kernel_does_not_take(rng, case, exc, entry):
+    """A window and Sq != Sk are taken (the parity tests below); a
+    negative window, no keys, an unbuilt head dim, heads that KV does not
+    divide, fp64 and a strided q are refused."""
     window = 0
-    if case == "window":
+    if case == "negative_window":
         q, k, v = _args(rng)
-        window = 4
-    elif case == "prefix_offset":
+        window = -1
+    elif case == "no_keys":
         q, k, v = _args(rng, Sk=24)
+        k, v = k[:, :0].contiguous(), v[:, :0].contiguous()
     elif case == "head_dim_24":
         q, k, v = _args(rng, hd=24)
     elif case == "heads_not_multiple":
@@ -351,3 +361,132 @@ def test_function_under_checkpoint(rng):
         assert len(calls) == (2 if remat else 1)
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the reference attention's contract: windows, Sq != Sk, hd 96
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, KV, hd, causal, window); the reference needs its chunks
+# to divide Sq and Sk, so it runs 16-row chunks where 16 divides them.
+CONTRACT = [
+    (2, 32, 32, 4, 2, 16, True, 4), (1, 40, 40, 6, 2, 16, True, 5),
+    (2, 64, 64, 4, 1, 32, True, 16), (1, 16, 48, 4, 2, 16, True, 0),
+    (1, 48, 16, 4, 2, 16, True, 0), (1, 16, 48, 4, 4, 16, False, 0),
+    (1, 48, 16, 2, 2, 16, False, 0), (1, 32, 32, 2, 1, 96, True, 0),
+    (1, 16, 48, 4, 2, 16, True, 20), (1, 40, 40, 5, 1, 16, True, 0)]
+CONTRACT_IDS = ["w4", "w5", "w16", "causal_sq_lt_sk", "causal_sq_gt_sk",
+                "full_sq_lt_sk", "full_sq_gt_sk", "hd96", "offset_w20",
+                "rep5"]
+
+
+def _chunk(n):
+    return 16 if n % 16 == 0 else n
+
+
+def _ref_attn(B, Sq, Sk, causal, window):
+    def f(q, k, v):
+        return ref_flash(q, k, v, causal=causal, window=window,
+                         q_chunk=_chunk(Sq), k_chunk=_chunk(Sk))
+    return f
+
+
+@pytest.mark.parametrize("dname,tol", DTYPES)
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", CONTRACT,
+                         ids=CONTRACT_IDS)
+def test_contract_matches_reference_attention(rng, dname, tol, B, Sq, Sk, H,
+                                              KV, hd, causal, window):
+    """The plain version (odd chunks: 7 queries, 5 keys) and
+    ``layers.flash_attention`` on both backends against the reference's
+    ``flash_attention``; rows no key may see (causal, Sq > Sk) give its
+    -1e30 fill's uniform row, the mean of v."""
+    q = rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, KV, hd)).astype(np.float32)
+    want = np.asarray(_ref_attn(B, Sq, Sk, causal, window)(
+        *(_jax(a, dname) for a in (q, k, v))), np.float32)
+    tq, tk, tv = (_torch(a, dname) for a in (q, k, v))
+    outs = [b5.flash_attention_plain(tq, tk, tv, causal=causal,
+                                     window=window, q_chunk=7, k_chunk=5)]
+    outs += [tlayers.flash_attention(tq, tk, tv, causal=causal,
+                                     window=window, backend=be)
+             for be in ("cuda", "torch")]
+    for got in outs:
+        assert got.shape == q.shape and got.dtype == tq.dtype
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                                   atol=tol)
+    if causal and Sq > Sk:      # the uniform rows, pinned
+        mean = v.mean(axis=1)                            # (B, KV, hd)
+        rows = np.repeat(mean, H // KV, axis=1)[:, None]
+        np.testing.assert_allclose(
+            outs[0][:, :Sq - Sk].float().numpy(),
+            np.broadcast_to(rows, (B, Sq - Sk, H, hd)), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", CONTRACT,
+                         ids=CONTRACT_IDS)
+def test_contract_grads_match_reference(rng, B, Sq, Sk, H, KV, hd, causal,
+                                        window):
+    """The autograd Function (B5's forward with its lse, then
+    ``flash_attention_bwd``) and the plain version through autograd,
+    against ``jax.vjp`` of the reference's attention, fp32: dq, dk, dv
+    within 1e-5 of max(1, max |g|)."""
+    import jax
+    q = rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, KV, hd)).astype(np.float32)
+    do = rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+    _, vjp = jax.vjp(_ref_attn(B, Sq, Sk, causal, window),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    for backend in ("cuda", "torch"):
+        ins = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        out = tlayers.flash_attention(*ins, causal=causal, window=window,
+                                      backend=backend)
+        grads = torch.autograd.grad(out, ins, torch.from_numpy(do))
+        for name, g, w in zip("qkv", grads, want):
+            scale = max(1.0, float(np.abs(w).max()))
+            err = float(np.abs(g.numpy() - w).max())
+            assert err <= 1e-5 * scale, (backend, name, err)
+
+
+def test_lse_of_rows_no_key_may_see_and_kept_pairs(rng):
+    """A row no key may see has the log-sum-exp -1e30 (its fill), and the
+    flop formula counts the pairs the mask keeps: every key for such a
+    row, the window's span otherwise."""
+    q, k, v = (_torch(a, "float32") for a in (
+        rng.standard_normal((1, 20, 2, 16)), rng.standard_normal(
+            (1, 8, 2, 16)), rng.standard_normal((1, 8, 2, 16))))
+    _, lse = b5.flash_attention_plain(q, k, v, causal=True,
+                                      return_lse=True)
+    assert bool((lse[:, :, :12] == b5.NEG_INF).all())
+    assert bool((lse[:, :, 12:] > -1e3).all())
+    assert b5.kept_pairs(20, 8, True) == 12 * 8 + sum(range(1, 9))
+    assert b5.kept_pairs(16, 16, True) == 16 * 17 // 2
+    assert b5.kept_pairs(16, 16, False) == 256
+    assert b5.kept_pairs(10, 30, True, 4) == 10 * 4
+    assert b5.kept_pairs(10, 10, True, 3) == 1 + 2 + 8 * 3
+    assert b5.kept_pairs(10, 30, False, 4) == sum(
+        30 - (i + 20 - 4 + 1) for i in range(10))
+
+
+@pytest.mark.parametrize("window", [0, 3, 8])
+@pytest.mark.parametrize("length", [1, 5, 12])
+def test_decode_attention_window_matches_reference(rng, window, length):
+    """``layers.decode_attention(window=)`` against the reference's: the
+    entries before ``length - window`` dropped as the ones past
+    ``length``, fp32 at 1e-6."""
+    from repro.models.layers import decode_attention as ref_decode
+    q = rng.standard_normal((2, 1, 4, 16)).astype(np.float32)
+    kc = rng.standard_normal((2, 12, 2, 16)).astype(np.float32)
+    vc = rng.standard_normal((2, 12, 2, 16)).astype(np.float32)
+    want = ref_decode(*(jnp.asarray(a) for a in (q, kc, vc)), length,
+                      window=window)
+    got = tlayers.decode_attention(*(torch.from_numpy(a) for a in
+                                     (q, kc, vc)), length, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    as_tensor = tlayers.decode_attention(
+        *(torch.from_numpy(a) for a in (q, kc, vc)),
+        torch.tensor(length), window=window)
+    assert torch.equal(as_tensor, got)

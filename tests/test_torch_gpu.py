@@ -21,8 +21,15 @@ product; and the ssm family: the ``wkv6`` kernel against its plain time
 loop (at the serving shape, at T = 1 from a non-zero state, at an odd T
 and with fewer CTAs than SMs), its refused head sizes, a graphed rwkv
 decode step bit for bit equal to the eager one, and a reused pool slot's
-second group equal to a fresh slot's.  Every test here needs a CUDA
-device and skips without one.
+second group equal to a fresh slot's; ``wkv6_bwd`` against its plain
+reverse-time loop at four shapes (from the forward kernel's snapshots),
+two calls bitwise equal, and a reduced rwkv6 train step on the card
+against the CPU; B5 at the reference attention's contract: sliding
+windows (4096 keys, window 2048, 25 q-heads on 5 kv-heads; windows 16 and
+100), the prefix offset (Sq 512, Sk 2560), non-causal Sq != Sk (448 on
+1500), rows no key may see (causal Sk < Sq) and hd 96, in bf16 and fp32,
+with its log-sum-exp.  Every test here needs a CUDA device and skips
+without one.
 
 This file imports neither JAX nor the reference package, so it runs on the
 GPU machine as it is:
@@ -1137,11 +1144,11 @@ def _op_case(cuda):
                 nrows=148)),
         "flash_attention": (
             lambda: b5.flash_attention(q, k, v, causal=True),
-            lambda: ops.flash_attention(q, k, v, True, False)[0],
+            lambda: ops.flash_attention(q, k, v, True, False, 0)[0],
             lambda: b5.flash_attention_plain(q, k, v, causal=True)),
         "wkv6": (
             lambda: wkv6.wkv6(*rkvw)[0],
-            lambda: ops.wkv6(*rkvw[:5], rkvw[5].clone(), False),
+            lambda: ops.wkv6(*rkvw[:5], rkvw[5].clone(), False, False)[0],
             lambda: wkv6.wkv6_plain(*rkvw)[0]),
     }
 
@@ -1412,3 +1419,148 @@ def test_cuda_reused_slot_equals_a_fresh_slot(cuda):
     assert reqs[1].tokens == alone[0].tokens
     for a, b in zip(both.logits_log[1], fresh.logits_log[1]):
         np.testing.assert_array_equal(a, b)
+
+
+# -- wkv6's backward (kernels/wkv6.py::wkv6_bwd) ----------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,nonzero", [
+    (4, 2048, 40, False), (2, 37, 40, True), (4, 1, 40, True),
+    (1, 300, 8, True)], ids=["training", "odd_T", "T1", "few_ctas"])
+def test_cuda_wkv6_bwd_matches_plain(cuda, B, T, H, nonzero):
+    """``wkv6_bwd`` against ``wkv6_bwd_plain`` at head size 64, from the
+    forward kernel's snapshots: every gradient element within 1e-5 of the
+    same derivative run on magnitudes (|r|, |k|, |v|, w, |u|, |dy|, |s0|,
+    |dS_T|), which bounds each sum's size; a non-zero start and final-state
+    cotangent where ``nonzero``; one launch a call and two calls bitwise
+    equal (no atomics).  ``training`` is the training shape from zero."""
+    r, k, v, w, u, s0 = _wkv6_inputs(cuda, B, T, H, 64, nonzero_s0=nonzero,
+                                     seed=T)
+    gen = torch.Generator(device=cuda).manual_seed(T + 1)
+    dy = torch.randn(r.shape, generator=gen, device=cuda)
+    dsT = (torch.randn(s0.shape, generator=gen, device=cuda) if nonzero
+           else None)
+    start = s0 if nonzero else None
+    y, _, snap = wkv6.wkv6(r, k, v, w, u, start, snapshots=True)
+    assert snap.shape == (-(-T // 8), B, H, 64, 64)
+    before = wkv6.wkv6_bwd.launches
+    got = wkv6.wkv6_bwd(r, k, v, w, u, dy, snap, dsT)
+    again = wkv6.wkv6_bwd(r, k, v, w, u, dy, snap, dsT)
+    torch.cuda.synchronize()
+    assert wkv6.wkv6_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = wkv6.wkv6_bwd_plain(r, k, v, w, u, dy, start, dsT)
+    mag = wkv6.wkv6_bwd_plain(r.abs(), k.abs(), v.abs(), w, u.abs(),
+                              dy.abs(), None if start is None else s0.abs(),
+                              None if dsT is None else dsT.abs())
+    for name, g, ww, m in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                              want, mag):
+        assert g.shape == ww.shape, name
+        err = float(((g - ww).abs() / m.clamp_min(1e-30)).max())
+        assert err <= 1e-5, (name, err)
+
+
+@pytest.mark.gpu
+def test_cuda_wkv6_train_function_and_serving_launch(cuda):
+    """The autograd Function on the card: its gradients equal
+    ``wkv6_bwd``'s on the forward kernel's snapshots, the caller's ``s0``
+    is left as it was, and the serving launch (no snapshots) gives the same
+    y and final state as the snapshotting one."""
+    r, k, v, w, u, s0 = _wkv6_inputs(cuda, 2, 40, 8, 64, nonzero_s0=True)
+    keep = s0.clone()
+    ins = [t.clone().requires_grad_() for t in (r, k, v, w, u, s0)]
+    y, s_t = wkv6.wkv6_train(*ins)
+    dy = torch.randn_like(y)
+    grads = torch.autograd.grad((y * dy).sum(), ins)
+    y2, s2, snap = wkv6.wkv6(r, k, v, w, u, s0, snapshots=True)
+    y3, s3 = wkv6.wkv6(r, k, v, w, u, s0)
+    want = wkv6.wkv6_bwd(r, k, v, w, u, dy, snap)
+    torch.cuda.synchronize()
+    assert torch.equal(s0, keep)
+    assert torch.equal(y.detach(), y2) and torch.equal(y2, y3)
+    assert torch.equal(s_t.detach(), s2) and torch.equal(s2, s3)
+    for g, ww in zip(grads, want):
+        assert torch.equal(g, ww)
+
+
+@pytest.mark.gpu
+def test_cuda_reduced_rwkv_train_step_matches_cpu(cuda):
+    """One train step of the reduced rwkv6 at the kernel's head size (d
+    128, 2 heads of 64) on the card (wkv6 with snapshots forward and in
+    the checkpoint's recompute, wkv6_bwd backward) against the same step
+    on the CPU (the plain loops), fp32: loss 1e-5 relative, every
+    gradient leaf within 1e-4 of max(1, max |g|)."""
+    cfg = dataclasses.replace(_rwkv_cfg(), dtype=torch.float32)
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 24))
+    batch = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+    out = []
+    for dev in ("cpu", cuda):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = api.init_params(cfg, gen, device=dev)
+        if dev == cuda:
+            params.load_state_dict(out[0][2])
+        f0, b0 = wkv6.wkv6.launches, wkv6.wkv6_bwd.launches
+        loss, _ = api.train_loss(cfg, params, batch)
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert wkv6.wkv6.launches - f0 == 2 * cfg.num_layers
+            assert wkv6.wkv6_bwd.launches - b0 == cfg.num_layers
+        out.append((float(loss), [g.cpu() for g in grads],
+                    {n: p.detach().cpu() for n, p in
+                     params.state_dict().items()}))
+    assert abs(out[1][0] - out[0][0]) <= 1e-5 * abs(out[0][0])
+    for w, g in zip(out[0][1], out[1][1]):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-4 * scale
+
+
+# -- B5 at the reference attention's contract -------------------------------
+
+# (B, Sq, Sk, H, KV, hd, causal, window): hymba-1.5b's layout (25 heads on
+# 5: rep 5, one head a CTA) with its 2048 window and windows 16 / 100 (not
+# multiples of the 64-key tile); llama's 32 / 8 at a prefix offset; whisper-
+# small's cross-attention (12 on 12, 448 on 1500, non-causal); causal Sk <
+# Sq (rows no key may see) and non-causal Sq > Sk; phi-3-vision's hd 96.
+CONTRACT_CASES = [
+    (1, 4096, 4096, 25, 5, 64, True, 2048), (1, 1000, 1000, 25, 5, 64, True, 16),
+    (2, 700, 700, 8, 2, 64, True, 100), (1, 512, 2560, 32, 8, 64, True, 0),
+    (1, 448, 1500, 12, 12, 64, False, 0), (1, 300, 130, 4, 2, 32, True, 0),
+    (1, 300, 130, 4, 2, 128, False, 0), (1, 2048, 2048, 32, 32, 96, True, 0),
+    (2, 333, 333, 6, 3, 96, False, 40)]
+CONTRACT_IDS = ["hymba_w2048", "rep5_w16", "w100", "offset", "cross",
+                "dead_rows", "sq_gt_sk", "hd96", "hd96_w40"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname,tol", [("float32", 2e-5), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", CONTRACT_CASES,
+                         ids=CONTRACT_IDS)
+def test_cuda_flash_attention_contract(cuda, dname, tol, B, Sq, Sk, H, KV,
+                                       hd, causal, window):
+    """B5 at what the reference's attention takes beyond the reference
+    kernel: against the plain version at the dtype's tolerance of max(1,
+    max |plain|), each output row within ``ROW_TOL`` of its norm in half,
+    and the log-sum-exp within 1e-5 of max(1, |lse|) (a row no key may see
+    has -1e30 in both)."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk + hd)
+    dt = getattr(torch, dname)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=cuda).to(dt)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dt)
+    v = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dt)
+    before = b5.flash_attention.launches
+    got, lse = b5.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    want, lse_p = b5.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert b5.flash_attention.launches == before + 1
+    scale = max(1.0, float(want.double().abs().max()))
+    assert float((got.double() - want.double()).abs().max()) <= tol * scale
+    if dname in ROW_TOL:
+        d = (got.double() - want.double()).norm(dim=-1)
+        row = float((d / want.double().norm(dim=-1).clamp_min(1e-300)).max())
+        assert row <= ROW_TOL[dname], row
+    lscale = lse_p.abs().clamp_min(1.0)
+    assert float(((lse - lse_p).abs() / lscale).max()) <= 1e-5

@@ -18,12 +18,23 @@ as ``tests/test_torch_moe.py`` states them.
   (3,099,857,920), prefill and 4 decode steps through ``params_from_numpy``
   in fp32 and bf16, a prefill into a used cache equal to one into a fresh
   cache, ``ServeQueue``'s greedy streams equal to the reference queue's
-  (coalesced and sequential), two groups through one reused slot, and
-  ``train_loss`` raising with ROADMAP A.13 named.
+  (coalesced and sequential), two groups through one reused slot.
+* Training: ``wkv6_bwd_plain`` and the autograd Function's backward
+  (``wkv6_train``) against ``jax.vjp`` of ``_wkv_scan`` (T = 1, 7, 16;
+  zero and non-zero start; a non-zero final-state cotangent) at 1e-5 of
+  the largest reference value; ``wkv6_bwd``'s meta operator (shapes,
+  flops, bytes); ``train_loss`` and every gradient leaf against
+  ``jax.value_and_grad`` of the reference's, fp32 (loss 1e-5 relative,
+  leaves 1e-4 of max(1, max |g|): the same fp32 arithmetic in another
+  order) and bf16 (2e-2 of the same scales: bf16 roundings one ulp apart);
+  a train step on (1, 2) and (2, 1) gloo meshes against one device's; the
+  launcher training a reduced rwkv6 with a checkpoint and a resume.
 * The mesh: ``param_specs`` and ``cache_specs`` equal to the reference's;
   (1, 2) and (2, 1) gloo meshes in fp32: the steps' logits against the
   reference's one device and the mesh queue's streams against its queue.
-* The dry-run traces a cell with one ``wkv6`` operator a layer; the
+* The dry-run traces a serving cell with one ``wkv6`` operator a layer
+  and the ``train_4k`` cell with one ``wkv6_bwd`` a layer and microbatch
+  (and two ``wkv6``: the forward and the checkpoint's recompute); the
   launcher serves a reduced rwkv6 end to end.
 """
 import dataclasses
@@ -388,12 +399,117 @@ def test_torch_backend_runs_the_plain_loop(carried, monkeypatch):
         api.decode_step(cfg, params, cache, seq[:, :1], 0)
 
 
-def test_train_loss_raises_naming_a13(carried):
-    _, _, cfg, params = carried["float32"]
-    batch = {"tokens": np.zeros((1, 4), np.int64),
-             "labels": np.zeros((1, 4), np.int64)}
-    with pytest.raises(NotImplementedError, match="A.13"):
-        api.train_loss(cfg, params, batch)
+def _train_batch(cfg, seed=5, B=2, S=12):
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S))
+    labels = rng.integers(0, cfg.vocab_size, (B, S))
+    labels[0, :3] = -1
+    return {"tokens": tokens, "labels": labels}
+
+
+@pytest.mark.parametrize("dname,loss_tol,grad_tol",
+                         [("float32", 1e-5, 1e-4), ("bfloat16", 2e-2, 2e-2)])
+def test_train_loss_and_grads_match_reference(carried, dname, loss_tol,
+                                              grad_tol):
+    """``api.train_loss`` (each block under the checkpoint, the
+    recurrence through ``wkv6_train``) and every gradient leaf against
+    ``jax.value_and_grad`` of the reference's ``train_loss``, with the
+    reference's parameters carried over."""
+    rcfg, rp, cfg, params = carried[dname]
+    batch = _train_batch(cfg)
+    (want, aux), g = jax.value_and_grad(
+        lambda p: ref_api.train_loss(rcfg, p, {k: jnp.asarray(v) for k, v
+                                               in batch.items()}),
+        has_aux=True)(rp)
+    loss, paux = api.train_loss(cfg, params, batch)
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    assert float(paux["tokens"]) == float(aux["tokens"]) == 2 * 12 - 3
+    assert abs(float(loss.detach()) - float(want)) <= loss_tol * abs(
+        float(want))
+    g = jax.tree.map(np.asarray, g)
+    for (name, p), gp in zip(params.named_parameters(), grads):
+        assert gp.dtype == p.dtype and gp.shape == p.shape
+        w = transformer._numpy_leaf(g, name)
+        scale = max(1.0, float(np.abs(w).max()))
+        err = float(np.abs(gp.float().numpy() - w).max())
+        assert err <= grad_tol * scale, (name, err)
+
+
+@pytest.mark.parametrize("nonzero_s0", [False, True], ids=["zero", "s0"])
+@pytest.mark.parametrize("T", [1, 7, 16])
+def test_wkv6_bwd_matches_reference_vjp(T, nonzero_s0):
+    """``wkv6_bwd_plain``, the wrapper on CPU tensors (from the plain
+    loop's snapshots) and the autograd Function's backward against
+    ``jax.vjp`` of ``_wkv_scan`` with cotangents on y and on the final
+    state: dr, dk, dv, dw, du and ds0 within 1e-5 of their largest
+    reference value; the Function leaves its inputs as they were."""
+    rng = np.random.default_rng(40 + T + 10 * nonzero_s0)
+    B, H, N = 2, 3, 16
+    r, k, v, w, u, s0 = _scan_inputs(rng, B, T, H, N, nonzero_s0)
+    dy = rng.standard_normal((B, T, H, N)).astype(np.float32)
+    dsT = rng.standard_normal((B, H, N, N)).astype(np.float32)
+    _, vjp = jax.vjp(rrwkv._wkv_scan, *(jnp.asarray(a)
+                                        for a in (r, k, v, w, u, s0)))
+    want = [np.asarray(x) for x in vjp((jnp.asarray(dy), jnp.asarray(dsT)))]
+    t = [torch.from_numpy(a) for a in (r, k, v, w, u, s0, dy, dsT)]
+    start = t[5] if nonzero_s0 else None
+    got = twkv.wkv6_bwd_plain(*t[:5], t[6], start, t[7])
+    _, _, snap = twkv.wkv6(*t[:5], start, snapshots=True)
+    assert snap.shape == (-(-T // 8), B, H, N, N)
+    assert torch.equal(snap[0], t[5])
+    wrapped = twkv.wkv6_bwd(*t[:5], t[6], snap, t[7])
+    keep = [x.clone() for x in t[:6]]
+    ins = [x.clone().requires_grad_() for x in t[:5]]
+    s0_in = t[5].clone().requires_grad_() if nonzero_s0 else None
+    y, sT = twkv.wkv6_train(*ins, s0_in)
+    fn = torch.autograd.grad(
+        (y * t[6]).sum() + (sT * t[7]).sum(),
+        ins + ([s0_in] if nonzero_s0 else []))
+    for x, kept in zip(t[:6], keep):
+        assert torch.equal(x, kept)
+    for name, a, b, c, ref in zip(("dr", "dk", "dv", "dw", "du", "ds0"),
+                                  got, wrapped, list(fn) + [None], want):
+        _close(a.numpy(), ref, F32_TOL, name)
+        assert torch.equal(a, b), name
+        if c is not None:
+            _close(c.numpy(), ref, F32_TOL, "fn " + name)
+    assert twkv.wkv6_bwd.launches == 0
+
+
+def test_wkv6_bwd_meta_operator():
+    """``wkv6_bwd`` on ``meta`` tensors goes through
+    ``torch.ops.repro_torch.wkv6_bwd`` (no launch): the six gradients'
+    shapes, the flop formula (14 flops a state element and step, 15 a
+    step's row: the bonus terms as row scalars) and the byte formula (the function's inputs and outputs
+    once; the snapshots are workspace); the training forward's snapshots
+    through ``repro_torch::wkv6``; a head size the kernel is not built for
+    and a wrong snapshot shape raise."""
+    from repro_torch.perf.hlo_analysis import StepTrace, op_stats
+    B, T, H, N = 2, 13, 3, 64
+    m = torch.empty((B, T, H, N), device="meta")
+    mu = torch.empty((H, N), device="meta")
+    with StepTrace() as tr:
+        y, s, snap = twkv.wkv6(m, m, m, m, mu, snapshots=True)
+        outs = twkv.wkv6_bwd(m, m, m, m, mu, m, snap)
+    assert snap.shape == (2, B, H, N, N)
+    assert [tuple(o.shape) for o in outs] == [(B, T, H, N)] * 4 + [
+        (H, N), (B, H, N, N)]
+    rec = [x for x in tr.records if x["op"].startswith(
+        "repro_torch::wkv6_bwd")]
+    assert len(rec) == 1
+    st = op_stats(rec[0])
+    assert st.flops == B * T * H * (14 * N * N + 15 * N)
+    elems = 4 * B * T * H * N
+    assert st.hbm_bytes == 9 * elems + 2 * 4 * H * N + 4 * B * H * N * N
+    fwd = [x for x in tr.records if x["op"] == "repro_torch::wkv6.default"]
+    assert len(fwd) == 1
+    with pytest.raises(ValueError, match="snap"):
+        twkv.wkv6_bwd(m, m, m, m, mu, m, snap[:1])
+    m16 = torch.empty((B, T, H, 16), device="meta")
+    with pytest.raises(NotImplementedError, match="head size 16"):
+        twkv.wkv6_bwd(m16, m16, m16, m16, torch.empty((H, 16), device="meta"),
+                      m16, torch.empty((2, B, H, 16, 16), device="meta"))
+    assert twkv.wkv6.launches == twkv.wkv6_bwd.launches == 0
 
 
 GEN_LENS, RIDS = [4, 3, 4], [1000, 1001, 1002]
@@ -584,6 +700,84 @@ def test_on_a_mesh_matches_one_device(tmp_path, carried, mesh, batch):
         assert got == streams, r
 
 
+_TRAIN_BODY = """
+import json
+d, m = json.loads(str(inp["mesh"]))
+mesh = make_test_mesh(d, m, device="cpu")
+cfg = dataclasses.replace(REDUCED["rwkv6-3b"](), dtype=torch.float32)
+params = api.shard_params(cfg, full_model(cfg), mesh, device="cpu")
+state = adamw.init_opt_state(params, d * m, param_specs=params.layout.specs,
+                             mesh=mesh)
+step = step_lib.build_train_step(cfg, params, OptConfig(
+    lr=1e-2, warmup_steps=2, total_steps=50, eps=1e-3), mesh=mesh,
+    n_microbatches=2)
+params, state, met = step(params, state, {
+    "tokens": torch.from_numpy(inp["tokens"]),
+    "labels": torch.from_numpy(inp["labels"])})
+out.update({"m_" + k: float(v) for k, v in met.items()})
+out.update(gathered(params, mesh))
+""" + EXIT
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
+def test_train_step_on_a_mesh_matches_one_device(tmp_path, carried, mesh):
+    """One fp32 AdamW step (2 microbatches of 2 sequences of 12 tokens) of
+    the reduced rwkv6 on gloo ranks against the same step on one device,
+    from the reference's parameters: at (1, 2) the time mix's gate split
+    over ``model`` (y behind ``copy_to_model``, so the gradients of the
+    whole weights are summed over the ranks), at (2, 1) the batch split
+    over ``data``.  Step 0's loss within 1e-5 and gradient norm within
+    1e-4 relative, every updated parameter within 1e-5 of max(1, max |p|)
+    (Adam's eps 1e-3, as the dense family's mesh test)."""
+    _, rp, cfg, _ = carried["float32"]
+    rng = np.random.default_rng(31)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 2, 12))
+    labels = rng.integers(0, cfg.vocab_size, (2, 2, 12))
+    init = _port_tree(rp, cfg)
+    lm = transformer.LM(cfg, torch.device("cpu"))
+    with torch.no_grad():
+        for name, p in lm.named_parameters():
+            p.copy_(torch.from_numpy(init["p/" + name]))
+    from repro_torch.dist import step as step_lib
+    from repro_torch.optim import adamw
+    one = step_lib.build_train_step(cfg, lm, adamw.OptConfig(
+        lr=1e-2, warmup_steps=2, total_steps=50, eps=1e-3),
+        n_microbatches=2)
+    _, _, m1 = one(lm, adamw.init_opt_state(lm, 1), {
+        "tokens": torch.from_numpy(tokens),
+        "labels": torch.from_numpy(labels)})
+    outs = _spawn(tmp_path, int(np.prod(mesh)), _TRAIN_BODY,
+                  mesh=np.array(json.dumps(list(mesh))), tokens=tokens,
+                  labels=labels, **init)
+    for r, o in enumerate(outs):
+        for key, tol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+            got, want = float(o["m_" + key]), float(m1[key])
+            assert abs(got - want) <= tol * max(1.0, abs(want)), (r, key)
+        for name, p in lm.named_parameters():
+            want = p.detach().numpy()
+            scale = max(1.0, float(np.abs(want).max()))
+            err = float(np.abs(o["p/" + name] - want).max())
+            assert err <= 1e-5 * scale, (r, name, err)
+
+
+def test_launcher_trains_rwkv6_and_resumes_bitwise(tmp_path, capsys):
+    """``python -m repro_torch.launch.train --arch rwkv6-3b --reduced``
+    for 4 steps with a checkpoint after step 2, then ``--resume`` from it:
+    the resumed steps' losses and gradient norms equal the uninterrupted
+    run's bit for bit, and the loss stays finite."""
+    from repro_torch.launch import train as launch_train
+    argv = ["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", "4",
+            "--seq-len", "16", "--global-batch", "4", "--ckpt-dir",
+            str(tmp_path / "ck"), "--log-every", "1", "--no-final-ckpt"]
+    first = launch_train.main(argv + ["--ckpt-every", "2"])
+    again = launch_train.main(argv + ["--resume"])
+    assert again["start_step"] == 2 and first["arch"] == "rwkv6-3b-reduced"
+    for a, b in zip(first["steps"][2:], again["steps"]):
+        assert (a["loss"], a["grad_norm"]) == (b["loss"], b["grad_norm"])
+    assert all(np.isfinite(s["loss"]) for s in first["steps"])
+    assert "trained 2 steps" in capsys.readouterr().out
+
+
 # ---------------------------------------------------------------------------
 # the dry-run, the analyser and the launcher
 # ---------------------------------------------------------------------------
@@ -593,8 +787,10 @@ def test_on_a_mesh_matches_one_device(tmp_path, carried, mesh, batch):
 def test_reduced_cell_traces_with_one_wkv6_a_layer(shape_name):
     """A reduced rwkv6 (head size 64: the kernel's) traced on ``meta`` at a
     (2, 2) mesh: one ``repro_torch::wkv6`` operator a layer, its flops the
-    kernel's formula at the rank's rows, no launch; ``train_4k`` raises
-    ``NotImplementedError`` naming A.13."""
+    kernel's formula at the rank's rows, no launch; ``train_4k``: per
+    microbatch and layer one ``repro_torch::wkv6_bwd`` and two
+    ``repro_torch::wkv6`` (the forward and the checkpoint's recompute),
+    at the microbatch's rows."""
     from torch.distributed.device_mesh import DeviceMesh
     from repro_torch.configs import SHAPES
     from repro_torch.launch import dryrun
@@ -604,18 +800,27 @@ def test_reduced_cell_traces_with_one_wkv6_a_layer(shape_name):
     with dryrun.fake_world(4, 0):
         mesh = DeviceMesh("meta", torch.arange(4).view(2, 2),
                           mesh_dim_names=("data", "model"))
-        if shape.kind == "train":
-            with pytest.raises(NotImplementedError, match="A.13"):
-                dryrun.trace_cell(cfg, shape_name, mesh, device="meta")
-            return
         trace, _, mem = dryrun.trace_cell(cfg, shape_name, mesh,
                                           device="meta")
+    h, n = cfg.d_model // 64, 64
+    if shape.kind == "train":
+        fwd = [r for r in trace.records
+               if r["op"] == "repro_torch::wkv6.default"]
+        bwd = [r for r in trace.records
+               if r["op"] == "repro_torch::wkv6_bwd.default"]
+        n_mb = len(bwd) // cfg.num_layers
+        assert n_mb >= 1 and len(bwd) == cfg.num_layers * n_mb
+        rows = shape.global_batch // 2 // n_mb
+        assert len(fwd) == 2 * cfg.num_layers * n_mb
+        assert all(op_stats(r).flops == rows * shape.seq_len * h * (
+            14 * n * n + 15 * n) for r in bwd)
+        assert twkv.wkv6.launches == twkv.wkv6_bwd.launches == 0
+        return
     recs = [r for r in trace.records if r["op"].startswith(
         "repro_torch::wkv6")]
     assert len(recs) == cfg.num_layers
     rows = -(-shape.global_batch // 2)
     seq = shape.seq_len if shape.kind == "prefill" else 1
-    h, n = cfg.d_model // 64, 64
     assert all(op_stats(r).flops == rows * seq * h * (5 * n * n + 5 * n)
                for r in recs)
     assert trace.stats.flops > 0 and mem["argument_size_in_bytes"] > 0
